@@ -1,0 +1,626 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (relgat_projector_tpu_torch) on one NVIDIA GPU.
+
+Usage, from the root of a checkout, on a machine with a CUDA card and nvcc:
+
+    python3 chip_smoke.py [--out DIR]
+
+Phases, in order; any failure exits non-zero:
+
+1. device   - fails without a CUDA card; prints nvidia-smi's name and limit.
+2. build    - builds every kernel from csrc/ with nvcc; prints ptxas' report.
+3. parity   - each kernel against its plain PyTorch version on the card, at
+              H=16, F=128, R=40 on a 20k-node / 200k-edge graph with rows
+              without in-edges, rows of degree >= 2,000, self-loops and
+              multi-edges; attention dropout 0.0 and 0.3, with and without
+              rel_bias. Max relative error (max|a-b| / max|b|) <= 1e-5
+              against the plain version run in float64 on the same inputs.
+   agree    - one training forward and backward of a small model through
+              the kernels and through the plain path on the card, with the
+              same weights, negatives and dropout draws: loss and every
+              gradient within 1e-4 relative.
+4. train    - the production model (training_scripts/
+              run-relgat-trainer-base-model.sh: in_dim 1152, 40 relations,
+              2 GAT layers of 16 heads x 128, projection back to the input
+              with 2 layers, distmult, batch 128, 32 negatives,
+              self-adversarial, loss weights 1/1/1/0, dropout 0.3, weight
+              decay 1e-4, lr 2e-5 linear) on a seeded uniform graph of
+              100,000 nodes and 1,000,000 edges (bench.py's scale), random
+              weights from a seed: 3 warm-up and 10 timed steps through the
+              kernels. Each kernel's launch count must equal layers x steps.
+              Then torch.profiler over two more steps: device time by
+              kernel group and the device's idle share (diagnostic).
+5. export   - one forward-only get_node_repr at the same size.
+6. kernels  - each kernel held to its plain version and timed with CUDA
+              events at the train phase's shapes, beside its bound on this
+              card.
+
+The last lines are the kernels JSON line, nvidia-smi's name and power limit,
+and {"ok": true, "device": {...}}. With --out DIR the result lines and a
+profiler trace of two train steps are also written there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from relgat_projector_tpu_torch.config import ModelConfig, TrainConfig
+from relgat_projector_tpu_torch.data.graph import (
+    build_graph,
+    pad_node_embeddings,
+)
+from relgat_projector_tpu_torch.models.model import get_node_repr, init_model
+from relgat_projector_tpu_torch.ops import cuda as kern
+from relgat_projector_tpu_torch.ops.cuda.build import build_all
+from relgat_projector_tpu_torch.schedules import (
+    compute_total_and_warmup_steps,
+    make_lr_schedule,
+)
+from relgat_projector_tpu_torch.train.state import (
+    create_train_state,
+    make_optimizer,
+)
+from relgat_projector_tpu_torch.train.step import (
+    loss_and_grads,
+    make_train_step,
+)
+from relgat_projector_tpu_torch.utils.rng import RngStreams
+from relgat_projector_tpu_torch.utils.tree import tree_leaves
+
+# H100 SXM: HBM rate and fp32 rate outside the tensor cores (NVIDIA's data
+# sheet, at the 700 W limit).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
+REL_TOL = 1e-5
+SEED = 0
+DEVICE = "cuda"
+PARITY = dict(num_nodes=20_000, num_edges=200_000, num_rel=40, heads=16,
+              feat=128, heavy_rows=4, heavy_degree=2_500)
+TRAIN = dict(num_nodes=100_000, num_edges=1_000_000, num_rel=40, in_dim=1152,
+             heads=16, feat=128, layers=2, batch=128, num_neg=32,
+             warmup_steps=3, timed_steps=10, epochs=60)
+KERNEL_SOURCES = {
+    "relgat_fwd": ("relgat_projector_tpu_torch/csrc/relgat_fwd.cu",
+                   "relgat_projector_tpu/ops/pallas/fused.py:116"),
+    "relgat_bwd_src": ("relgat_projector_tpu_torch/csrc/relgat_bwd.cu",
+                       "relgat_projector_tpu/ops/pallas/fused.py:433"),
+    "relgat_bwd_rel": ("relgat_projector_tpu_torch/csrc/relgat_bwd.cu",
+                       "relgat_projector_tpu/ops/pallas/fused.py:433"),
+}
+# At the train shapes a float64 copy of the fwd and bwd_src plain versions
+# would need more than the card's 80 GB ([E, H, F] float64 temporaries are
+# 16 GB each); relgat_bwd_rel's sums of ~25k edges per relation are where
+# fp32 rounding in the plain version's own atomics would reach ~1e-5.
+EXACT_AT_TRAIN_SHAPES = ("relgat_bwd_rel",)
+AGREE = dict(num_nodes=3_000, num_edges=30_000, num_rel=8, in_dim=64, heads=4,
+             feat=32, layers=2, batch=64, num_neg=8)
+AGREE_TOL = 1e-4  # the repo's activation parity contract
+KERNELS = {k.__name__: k for k in kern.KERNELS}
+PLAIN = {"relgat_fwd": kern.relgat_fwd_plain,
+         "relgat_bwd_src": kern.relgat_bwd_src_plain,
+         "relgat_bwd_rel": kern.relgat_bwd_rel_plain}
+
+
+class PhaseFailed(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise PhaseFailed(what)
+
+
+def emit(record: dict, out_lines: list) -> None:
+    line = json.dumps(record)
+    print(line, flush=True)
+    out_lines.append(line)
+
+
+def rel_err(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def abs_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds of ``fn`` from CUDA events around ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernel parity
+# ---------------------------------------------------------------------------
+
+def parity_graph(rng):
+    p = PARITY
+    n, e = p["num_nodes"], p["num_edges"]
+    src = rng.integers(0, n, e)
+    dst = rng.integers(1_000, n, e)           # rows 0..999: no in-edges
+    et = rng.integers(0, p["num_rel"], e)
+    heavy = rng.choice(np.arange(1_000, n), p["heavy_rows"], replace=False)
+    k = p["heavy_rows"] * p["heavy_degree"]
+    dst[:k] = np.repeat(heavy, p["heavy_degree"])
+    src[k:k + 2_000] = dst[k:k + 2_000]       # self-loops
+    m = k + 2_000
+    src[m:m + 2_000] = src[m + 2_000:m + 4_000]  # multi-edges: repeated
+    dst[m:m + 2_000] = dst[m + 2_000:m + 4_000]  # (src, dst, etype) triples
+    et[m:m + 2_000] = et[m + 2_000:m + 4_000]
+    return src, dst, et
+
+
+def run_kernel_pair(inputs, *, seed, rate, num_rel, exact):
+    """Each kernel and its plain version on the same fp32 inputs; returns
+    the errors per output. The plain versions named in ``exact`` run on
+    float64 copies of those inputs, so their own rounding (and the
+    run-to-run order of ``index_add_``'s atomics) stays out of the error.
+    The backward kernels take the forward kernel's statistics as inputs."""
+    h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
+    csr = inputs["csr"]
+    kw = dict(seed=seed, rate=rate, negative_slope=0.2, eps=1e-16)
+
+    def ref(name, *args, **kwargs):
+        if name in exact:
+            args = [a.double() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        return PLAIN[name](*args, **kwargs)
+
+    out_k, m, l, b = KERNELS["relgat_fwd"](h, attn, bias, csr, **kw)
+    out_p = ref("relgat_fwd", h, attn, bias, csr, **kw)[0]
+    heads, _, f = attn.shape
+    n = h.shape[0]
+    s_dot = ((out_k - b[:, None]) * g).view(n, heads, f).sum(-1)
+    gsum = g.sum(1)
+    dh_k, de_k = KERNELS["relgat_bwd_src"](h, g, attn, m, l, s_dot, csr, **kw)
+    dh_p, de_p = ref("relgat_bwd_src", h, g, attn, m, l, s_dot, csr, **kw)
+    dattn_k, dbias_k = KERNELS["relgat_bwd_rel"](h, de_k, gsum, csr, num_rel)
+    dattn_p, dbias_p = ref("relgat_bwd_rel", h, de_k, gsum, csr, num_rel)
+    pairs = {
+        "relgat_fwd": {"out": (out_k, out_p)},
+        "relgat_bwd_src": {"dh": (dh_k, dh_p), "de": (de_k, de_p)},
+        "relgat_bwd_rel": {"dattn": (dattn_k, dattn_p),
+                           "dbias": (dbias_k, dbias_p)},
+    }
+    errs = {
+        name: {
+            key: {"max_rel_err": rel_err(a, b), "max_abs_err": abs_err(a, b)}
+            for key, (a, b) in outs.items()
+        }
+        for name, outs in pairs.items()
+    }
+    return errs
+
+
+def make_kernel_inputs(csr, n, heads, feat, num_rel, seed):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    hf = heads * feat
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * scale
+
+    return {
+        "csr": csr,
+        "h": randn(n, hf, scale=0.5),
+        "g": randn(n, hf),
+        "attn": randn(heads, num_rel, feat, scale=0.1),
+        "bias": randn(num_rel, scale=0.1),
+    }
+
+
+def phase_parity(card, out_lines):
+    rng = np.random.default_rng(SEED)
+    p = PARITY
+    src, dst, et = parity_graph(rng)
+    graph = build_graph(src, dst, et, p["num_nodes"],
+                             num_rel=p["num_rel"], csr=True, device=DEVICE)
+    csr = graph.csr
+    indeg = np.bincount(dst, minlength=graph.num_nodes)
+    check((indeg == 0).sum() >= 1_000 and indeg.max() >= 2_000,
+          "parity graph lacks empty or heavy rows")
+    inputs = make_kernel_inputs(csr, graph.num_nodes, p["heads"],
+                                p["feat"], p["num_rel"], SEED)
+    seed = 123456789
+    worst = 0.0
+    for rate in (0.0, 0.3):
+        for with_bias in (True, False):
+            case = dict(inputs)
+            if not with_bias:
+                case["bias"] = torch.zeros_like(inputs["bias"])
+            errs = run_kernel_pair(case,
+                                   seed=seed, rate=rate, num_rel=p["num_rel"],
+                                   exact=KERNEL_SOURCES)
+            torch.cuda.synchronize()
+            for outs in errs.values():
+                for e in outs.values():
+                    worst = max(worst, e["max_rel_err"])
+            emit({"phase": "parity", "attn_dropout": rate,
+                  "rel_bias": with_bias, "errors": errs, "card": card},
+                 out_lines)
+    check(worst <= REL_TOL,
+          f"kernel parity: max relative error {worst} > {REL_TOL}")
+    return worst
+
+
+def phase_agree(card, out_lines):
+    """The kernel path against the plain path, end to end on the card: the
+    same weights, graph, batch, negatives and dropout draws through one
+    training forward and backward with ``use_pallas`` on and off. The loss
+    and every gradient leaf agree to AGREE_TOL relative to the leaf's
+    largest value."""
+    a = AGREE
+    rng = np.random.default_rng(SEED + 3)
+    n, e, b = a["num_nodes"], a["num_edges"], a["batch"]
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    et = rng.integers(0, a["num_rel"], e)
+    emb = rng.standard_normal((n, a["in_dim"]), dtype=np.float32)
+    batch = [torch.from_numpy(v).to(DEVICE) for v in (
+        rng.integers(0, n, b), rng.integers(0, a["num_rel"], b),
+        rng.integers(0, n, b))]
+    neg = torch.from_numpy(rng.integers(0, n, (b, a["num_neg"]))).to(DEVICE)
+    weight = torch.ones(b, device=DEVICE)
+    graph = build_graph(src, dst, et, n, num_rel=a["num_rel"], csr=True,
+                             device=DEVICE)
+    x = torch.from_numpy(
+        pad_node_embeddings(emb, graph.num_nodes)).to(DEVICE)
+    tcfg = TrainConfig(train_batch_size=b, num_neg=a["num_neg"],
+                            use_self_adv_neg=True)
+    results = {}
+    for use_pallas in (True, False):
+        mcfg = ModelConfig(
+            in_dim=a["in_dim"], num_rel=a["num_rel"], gat_out_dim=a["feat"],
+            gat_heads=a["heads"], gat_num_layers=a["layers"], dropout=0.3,
+            rel_attn_dropout=0.3, projection_layers=2, projection_dropout=0.3,
+            use_pallas=use_pallas,
+        )
+        params = init_model(mcfg, seed=SEED, device=DEVICE)
+        loss, _, grads = loss_and_grads(
+            params, mcfg, tcfg, x, graph, *batch, weight,
+            rng=RngStreams.from_seed(SEED, DEVICE), neg_dst=neg,
+        )
+        results[use_pallas] = [loss] + tree_leaves(grads)
+    torch.cuda.synchronize()
+    errs = [rel_err(k, p) for k, p in zip(results[True], results[False])]
+    emit({"phase": "agree", "card": card, **a, "loss": float(results[True][0]),
+          "loss_plain": float(results[False][0]), "max_rel_err": max(errs),
+          "tol": AGREE_TOL}, out_lines)
+    check(all(np.isfinite(float(v.abs().max())) for v in results[True]),
+          "kernel path gave non-finite loss or gradients")
+    check(max(errs) <= AGREE_TOL,
+          f"kernel path and plain path differ by {max(errs)} > {AGREE_TOL}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4/5: train and export on the production model
+# ---------------------------------------------------------------------------
+
+def train_inputs(rng):
+    t = TRAIN
+    n, e = t["num_nodes"], t["num_edges"]
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, n, e)
+    et = rng.integers(0, t["num_rel"], e)
+    emb = rng.standard_normal((n, t["in_dim"]), dtype=np.float32)
+    steps = t["warmup_steps"] + t["timed_steps"]
+    picks = rng.integers(0, e, (steps, t["batch"]))  # triplets are edges
+    return src, dst, et, emb, picks
+
+
+def production_configs():
+    t = TRAIN
+    mcfg = ModelConfig(
+        in_dim=t["in_dim"], num_rel=t["num_rel"], gat_out_dim=t["feat"],
+        gat_heads=t["heads"], gat_num_layers=t["layers"], dropout=0.3,
+        project_to_input_size=True, projection_layers=2,
+        projection_dropout=0.3, scorer_type="distmult", use_pallas=True,
+    )
+    tcfg = TrainConfig(
+        epochs=t["epochs"], train_batch_size=t["batch"],
+        num_neg=t["num_neg"], lr=2e-5, lr_scheduler="linear",
+        weight_decay=1e-4, use_self_adv_neg=True, self_adv_alpha=1.0,
+        relgat_weight=1.0, pos_cosine_weight=1.0, neg_cosine_weight=1.0,
+        mse_weight=0.0,
+    )
+    return mcfg, tcfg
+
+
+def step_matmul_flops(num_rows):
+    """FLOPs of the train step's matrix products, from the shapes: every GAT
+    projection and projection-head linear runs over all ``num_rows`` node
+    rows, forward, weight gradient and (except the first GAT layer, whose
+    input is the frozen embedding) input gradient. The head of 2 layers has
+    a hidden width of H*F (``projection_hidden_dim`` 0)."""
+    t = TRAIN
+    hf = t["heads"] * t["feat"]
+    dims = ([(t["in_dim"], hf)] + [(hf, hf)] * (t["layers"] - 1)
+            + [(hf, hf), (hf, t["in_dim"])])
+    return sum(2 * num_rows * k * m * (2 if i == 0 else 3)
+               for i, (k, m) in enumerate(dims))
+
+
+def phase_train(card, out_lines, out_dir):
+    t = TRAIN
+    rng = np.random.default_rng(SEED)
+    src, dst, et, emb, picks = train_inputs(rng)
+    t0 = time.perf_counter()
+    graph = build_graph(src, dst, et, t["num_nodes"],
+                             num_rel=t["num_rel"], csr=True, device=DEVICE)
+    node_emb = torch.from_numpy(
+        pad_node_embeddings(emb, graph.num_nodes)).to(DEVICE)
+    batches = [
+        [torch.from_numpy(a[i]).to(DEVICE) for a in (src, et, dst)]
+        for i in picks
+    ]
+    weight = torch.ones(t["batch"], device=DEVICE)
+    mcfg, tcfg = production_configs()
+    total, warm = compute_total_and_warmup_steps(
+        t["num_edges"], t["batch"], t["epochs"], None)
+    sched = make_lr_schedule(tcfg.lr, "linear", total, warm)
+    opt = make_optimizer(tcfg, sched)
+    state = create_train_state(
+        init_model(mcfg, seed=SEED, device=DEVICE), opt, seed=SEED + 1)
+    step = make_train_step(mcfg, tcfg, opt, sched)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    for i in range(t["warmup_steps"]):
+        state, metrics = step(state, node_emb, graph, *batches[i], weight)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(t["warmup_steps"], len(batches)):
+        state, metrics = step(state, node_emb, graph, *batches[i], weight)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / t["timed_steps"]
+    counts = kern.launch_counts()
+    launches_per_kernel = t["layers"] * len(batches)
+    loss = float(metrics["loss"])
+    grad_norm = float(metrics["grad_norm"])
+    record = {
+        "phase": "train", "card": card,
+        "nodes": t["num_nodes"], "edges": t["num_edges"],
+        "layers": t["layers"], "heads": t["heads"], "feat": t["feat"],
+        "in_dim": t["in_dim"], "steps": len(batches),
+        "timed_steps": t["timed_steps"], "step_ms": step_s * 1e3,
+        "edge_messages_per_s": t["num_edges"] * t["layers"] / step_s,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "setup_s": setup_s, "loss": loss, "grad_norm": grad_norm,
+        "step": int(state.step), "launches": counts,
+    }
+    emit(record, out_lines)
+    check(np.isfinite(loss), f"train loss is not finite: {loss}")
+    check(grad_norm > 0, f"grad norm is {grad_norm}")
+    for name, c in counts.items():
+        check(c == launches_per_kernel,
+              f"{name} launched {c} times, expected {launches_per_kernel}")
+
+    profile_steps(step, state, node_emb, graph, batches[0], weight,
+                  step_s * 1e3, step_matmul_flops(graph.num_nodes), card,
+                  out_lines, out_dir)
+
+    before = kern.launch_counts()
+    t0 = time.perf_counter()
+    rep = get_node_repr(state.params, mcfg, node_emb, graph)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    after = kern.launch_counts()
+    emit({"phase": "export", "card": card, "shape": list(rep.shape),
+          "export_ms": export_s * 1e3,
+          "forward_launches": after["relgat_fwd"] - before["relgat_fwd"]},
+         out_lines)
+    check(tuple(rep.shape) == (t["num_nodes"], t["in_dim"]),
+          f"export shape {tuple(rep.shape)}")
+    check(bool(torch.isfinite(rep).all()), "export has non-finite values")
+    check(after["relgat_fwd"] - before["relgat_fwd"] == t["layers"],
+          "export did not run the forward kernel once per layer")
+    check(after["relgat_bwd_src"] == before["relgat_bwd_src"]
+          and after["relgat_bwd_rel"] == before["relgat_bwd_rel"],
+          "export ran a backward kernel")
+    return counts, graph
+
+
+def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
+                  matmul_flops, card, out_lines, out_dir):
+    """Where the step's device time goes, from torch.profiler over two
+    steps. The idle share is one minus the device's busy time per step over
+    ``step_ms``, the step time measured without the profiler (the profiled
+    window's own wall time includes the profiler's start-up). Diagnostic
+    only: a profiler that cannot trace here is reported as not measured and
+    fails nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 2
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                state, _ = step(state, node_emb, graph, *batch, weight)
+            torch.cuda.synchronize()
+        groups = {"relgat_kernels": 0.0, "gemm": 0.0, "other": 0.0}
+        top = []
+        for evt in prof.key_averages():
+            if getattr(evt, "device_type", None) is None or \
+                    evt.device_type.name != "CUDA":
+                continue
+            us = float(getattr(evt, "self_device_time_total", 0.0))
+            name = evt.key
+            low = name.lower()
+            if "relgat" in low:
+                groups["relgat_kernels"] += us
+            elif "gemm" in low or "cutlass" in low or "sm90_" in low:
+                groups["gemm"] += us
+            else:
+                groups["other"] += us
+            top.append((us, name[:90]))
+        busy_ms = sum(groups.values()) / 1e3 / steps
+        top.sort(reverse=True)
+        emit({"phase": "profile", "card": card, "steps": steps,
+              "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
+              "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+              "device_ms_per_step_by_group": {
+                  k: v / 1e3 / steps for k, v in groups.items()},
+              "matmul_flop_per_step": matmul_flops,
+              "gemm_flop_per_s": (matmul_flops / (groups["gemm"] / 1e6 / steps)
+                                  if groups["gemm"] else None),
+              "top_kernels_ms_per_step": [[n, u / 1e3 / steps]
+                                          for u, n in top[:12]]},
+             out_lines)
+        if out_dir is not None:
+            prof.export_chrome_trace(str(out_dir / "chip_smoke_trace.json"))
+    except Exception as exc:  # the profiler is diagnostic, not a phase
+        emit({"phase": "profile", "card": card,
+              "not_measured": f"{type(exc).__name__}: {exc}"}, out_lines)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: kernels line
+# ---------------------------------------------------------------------------
+
+def bounds(n, e, heads, feat, num_rel, num_chunks):
+    """(bytes, flops) each kernel must move and do on these inputs: every
+    input read once, every output written once."""
+    hf = heads * feat
+    w = 4  # bytes of fp32 and int32
+    return {
+        "relgat_fwd": (
+            w * (2 * n * hf + heads * num_rel * feat + num_rel + (n + 1)
+                 + 2 * e + 2 * n * heads + n),
+            e * heads * (5 * feat + 10) + 2 * n * hf,
+        ),
+        "relgat_bwd_src": (
+            w * (3 * n * hf + heads * num_rel * feat + 3 * n * heads
+                 + (n + 1) + 3 * e + e * heads),
+            e * heads * (8 * feat + 15),
+        ),
+        "relgat_bwd_rel": (
+            w * (n * hf + e * heads + n + 3 * e + 2 * num_chunks
+                 + (num_rel + 1) + heads * num_rel * feat + num_rel),
+            2 * e * hf + e + num_chunks * hf,
+        ),
+    }
+
+
+def phase_kernels(graph, counts, card, out_lines):
+    t = TRAIN
+    torch.cuda.empty_cache()
+    csr = graph.csr
+    n = graph.num_nodes
+    inputs = make_kernel_inputs(csr, n, t["heads"], t["feat"],
+                                t["num_rel"], SEED + 7)
+    kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+    h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
+    out, m, l, b = KERNELS["relgat_fwd"](h, attn, bias, csr, **kw)
+    s_dot = ((out - b[:, None]) * g).view(n, t["heads"], t["feat"]).sum(-1)
+    gsum = g.sum(1)
+    _, de = KERNELS["relgat_bwd_src"](h, g, attn, m, l, s_dot, csr, **kw)
+    calls = {
+        "relgat_fwd": lambda f: f(h, attn, bias, csr, **kw),
+        "relgat_bwd_src": lambda f: f(h, g, attn, m, l, s_dot, csr, **kw),
+        "relgat_bwd_rel": lambda f: f(h, de, gsum, csr, t["num_rel"]),
+    }
+    # Comparisons and timings here are not part of the main path's counts.
+    errs = run_kernel_pair(inputs, seed=None,
+                           rate=0.0, num_rel=t["num_rel"],
+                           exact=EXACT_AT_TRAIN_SHAPES)
+    torch.cuda.synchronize()
+    bnd = bounds(n, csr.num_edges, t["heads"], t["feat"], t["num_rel"],
+                 csr.num_chunks)
+    rows = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        ms = cuda_ms(lambda: calls[name](KERNELS[name]), reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda: calls[name](PLAIN[name]), reps=2)
+        nbytes, flops = bnd[name]
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+        worst = max(errs[name].values(), key=lambda x: x["max_rel_err"])
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": max(x["max_abs_err"] for x in errs[name].values()),
+            "max_rel_err": worst["max_rel_err"],
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "reference": ("float64" if name in EXACT_AT_TRAIN_SHAPES
+                          else "float32"),
+            "bytes": nbytes, "flops": flops,
+            # what the design reads besides: one H*F row per edge (h[src]
+            # in the forward and in relgat_bwd_rel, g[dst] in relgat_bwd_src)
+            "row_gather_bytes": 4 * csr.num_edges * t["heads"] * t["feat"],
+            "card": card,
+        })
+        torch.cuda.synchronize()
+    check(all(r["max_rel_err"] <= REL_TOL for r in rows),
+          "kernel parity at the train shapes failed")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=None,
+                    help="directory for the result lines and a trace")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port runs on the card",
+              file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
+    out_lines: list = []
+    print(f"device: {torch.cuda.get_device_name(0)} ({card}), "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    logs = build_all()
+    build_s = time.perf_counter() - t0
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "ptxas" in line:
+                print(f"build {name}: {line.strip()}")
+    emit({"phase": "build", "build_s": build_s, "card": card}, out_lines)
+
+    worst = phase_parity(card, out_lines)
+    phase_agree(card, out_lines)
+    counts, graph = phase_train(card, out_lines, args.out)
+    kernels = phase_kernels(graph, counts, card, out_lines)
+    emit({"parity_max_rel_err": worst, "card": card}, out_lines)
+    emit({"kernels": kernels}, out_lines)
+    if args.out is not None:
+        (args.out / "chip_smoke.jsonl").write_text("\n".join(out_lines) + "\n")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+// Shared device helpers of the RelGAT propagate kernels (relgat_fwd.cu,
+// relgat_bwd.cu): the warp sum, the LeakyReLU and the attention-dropout hash.
+#pragma once
+
+#include <math.h>
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace relgat {
+
+// Features per lane are a template parameter so the per-warp row (F values,
+// lane-strided) lives in registers. 8 covers F <= 256; the wrappers reject
+// wider heads.
+constexpr int kMaxFeatPerLane = 8;
+constexpr int kMaxWarpsPerBlock = 8;
+
+// Butterfly sum: every lane ends with the same bits, since each step adds
+// the same two values (a + b == b + a in IEEE arithmetic).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float leaky_relu(float x, float slope) {
+  return x >= 0.f ? x : slope * x;
+}
+
+// fmix32 of (seed, canonical edge id, head), bit for bit the hash of
+// relgat_projector_tpu/ops/dropout.py: that code works on int32 with wrapping
+// multiplies and logical shifts, which are exactly uint32 arithmetic here.
+// Returns 1 where the (edge, head) weight is kept.
+__device__ __forceinline__ float dropout_keep(int edge_id, int head,
+                                              uint32_t seed, uint32_t thr) {
+  uint32_t x = static_cast<uint32_t>(edge_id) * 0x9E3779B9u + seed +
+               static_cast<uint32_t>(head) * 0xC2B2AE35u;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return (x & 0x7FFFFFFFu) < thr ? 1.f : 0.f;
+}
+
+}  // namespace relgat

@@ -1,0 +1,117 @@
+"""Graph container: dst-sorted, padded COO plus the kernels' CSR layout.
+
+Port of ``relgat_projector_tpu/data/graph.py`` (single device). The COO keeps
+the JAX package's padding so the plain path matches ``_xla_propagate`` row
+for row: nodes pad to ``round_up(N + 1, 8)`` with at least one padded row,
+edges pad to a multiple of 128, and padded edges point ``src = dst`` at the
+last padded row with ``etype = 0``.
+
+Unlike the JAX path's clip-mode gathers, an out-of-range index on the card is
+an illegal memory access, so ``build_graph`` checks every index on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from relgat_projector_tpu_torch.data.csr import CSRGraph, build_csr_graph
+from relgat_projector_tpu_torch.device import DeviceLike, resolve_device
+
+
+def round_up(x: int, multiple: int) -> int:
+    return -(-x // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphData:
+    src: torch.Tensor    # [E_pad] int64
+    dst: torch.Tensor    # [E_pad] int64, non-decreasing
+    etype: torch.Tensor  # [E_pad] int64
+    num_nodes: int       # padded
+    num_real_nodes: int
+    num_real_edges: int
+    max_etype: int       # -1 without edges
+    csr: Optional[CSRGraph] = None  # the kernels' layout (use_pallas)
+
+    @property
+    def num_edges_padded(self) -> int:
+        return int(self.src.shape[0])
+
+
+def build_graph(
+    src: np.ndarray,
+    dst: np.ndarray,
+    etype: np.ndarray,
+    num_nodes: int,
+    *,
+    num_rel: Optional[int] = None,
+    csr: bool = False,
+    edge_pad_multiple: int = 128,
+    node_pad_multiple: int = 8,
+    device: DeviceLike = "cuda",
+) -> GraphData:
+    """Build a padded, dst-sorted :class:`GraphData` from host COO arrays.
+
+    ``csr=True`` adds the CSR layout the propagate kernels read (the
+    counterpart of ``blocked=True``). ``num_rel`` bounds ``etype`` when
+    given; the layout then covers that many relations."""
+    dev = resolve_device(device)
+    src = np.asarray(src).astype(np.int64).reshape(-1)
+    dst = np.asarray(dst).astype(np.int64).reshape(-1)
+    etype = np.asarray(etype).astype(np.int64).reshape(-1)
+    num_real_edges = int(src.shape[0])
+    num_real_nodes = int(num_nodes)
+    if not (dst.shape[0] == etype.shape[0] == num_real_edges):
+        raise ValueError("src, dst and etype must have the same length")
+    if num_real_edges:
+        for name, a, hi in (("src", src, num_real_nodes),
+                            ("dst", dst, num_real_nodes),
+                            ("etype", etype, num_rel)):
+            if a.min() < 0 or (hi is not None and a.max() >= hi):
+                raise ValueError(
+                    f"{name} out of range: [{a.min()}, {a.max()}] not in "
+                    f"[0, {hi})"
+                )
+    max_etype = int(etype.max()) if num_real_edges else -1
+
+    order = np.argsort(dst, kind="stable")
+    src, dst, etype = src[order], dst[order], etype[order]
+
+    num_nodes_padded = round_up(num_real_nodes + 1, node_pad_multiple)
+    e_pad = round_up(max(num_real_edges, 1), edge_pad_multiple)
+    pad_n = e_pad - num_real_edges
+    pad_node = num_nodes_padded - 1
+    src_p = np.concatenate([src, np.full(pad_n, pad_node, np.int64)])
+    dst_p = np.concatenate([dst, np.full(pad_n, pad_node, np.int64)])
+    et_p = np.concatenate([etype, np.zeros(pad_n, np.int64)])
+
+    layout = None
+    if csr:
+        layout = build_csr_graph(
+            src, dst, etype, num_nodes_padded,
+            num_rel if num_rel is not None else max_etype + 1, dev,
+        )
+    return GraphData(
+        src=torch.from_numpy(src_p).to(dev),
+        dst=torch.from_numpy(dst_p).to(dev),
+        etype=torch.from_numpy(et_p).to(dev),
+        num_nodes=num_nodes_padded,
+        num_real_nodes=num_real_nodes,
+        num_real_edges=num_real_edges,
+        max_etype=max_etype,
+        csr=layout,
+    )
+
+
+def pad_node_embeddings(emb: np.ndarray, num_nodes_padded: int) -> np.ndarray:
+    """Zero-pad the frozen ``[N, D]`` embedding matrix to the padded count."""
+    n, d = emb.shape
+    if num_nodes_padded < n:
+        raise ValueError("padded node count smaller than real node count")
+    out = np.zeros((num_nodes_padded, d), dtype=emb.dtype)
+    out[:n] = emb
+    return out

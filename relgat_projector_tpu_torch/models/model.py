@@ -1,0 +1,165 @@
+"""RelGAT model: stacked layers, optional projection head, scorer.
+
+Port of ``relgat_projector_tpu/models/model.py``. Parameters are a pytree of
+tensors in the JAX layout::
+
+    {"layers": [{"proj", "attn", "rel_bias"}, ...],
+     "projection": {"linears": [...], "ln_scale": [...], "ln_bias": [...]},
+     "scorer": {"rel_emb"}}
+
+and every apply function is a plain function of them. Stacked layers have
+ELU between them (not after the last); the projection head maps back to the
+input dim; ``single_gat_step`` computes every node's representation.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from relgat_projector_tpu_torch.config import ModelConfig
+from relgat_projector_tpu_torch.data.graph import GraphData
+from relgat_projector_tpu_torch.device import (
+    DeviceLike,
+    resolve_device,
+    set_fp32_matmul_highest,
+)
+from relgat_projector_tpu_torch.models import scorer as scorer_mod
+from relgat_projector_tpu_torch.models.layer import (
+    apply_relgat_layer,
+    init_relgat_layer,
+)
+from relgat_projector_tpu_torch.models.projection import (
+    apply_projection_head,
+    init_projection_head,
+)
+from relgat_projector_tpu_torch.utils.rng import RngStreams
+from relgat_projector_tpu_torch.utils.tree import tree_map
+
+Params = Dict[str, Any]
+
+
+def init_model(
+    cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = "cuda"
+) -> Params:
+    """Random parameters drawn on the host from ``seed``, then moved to
+    ``device`` (the same numbers on every device)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(int(seed))
+    layers = []
+    in_dim = cfg.in_dim
+    for _ in range(cfg.gat_num_layers):
+        layers.append(
+            init_relgat_layer(
+                gen, in_dim=in_dim, out_dim=cfg.gat_out_dim,
+                num_rel=cfg.num_rel, heads=cfg.gat_heads,
+                use_bias=cfg.use_rel_bias,
+            )
+        )
+        in_dim = cfg.gat_concat_dim
+    params: Params = {"layers": layers}
+    if cfg.project_to_input_size:
+        params["projection"] = init_projection_head(
+            gen, in_dim=cfg.gat_concat_dim, out_dim=cfg.in_dim,
+            num_layers=cfg.projection_layers,
+            hidden_dim=cfg.projection_hidden_dim,
+        )
+    params["scorer"] = scorer_mod.init_scorer(gen, cfg.num_rel, cfg.scorer_dim)
+    return tree_map(lambda t: t.to(dev), params)
+
+
+def single_gat_step(
+    params: Params,
+    cfg: ModelConfig,
+    node_emb: torch.Tensor,   # [N_pad, in_dim] frozen
+    graph: GraphData,
+    *,
+    train: bool = False,
+    rng: Optional[RngStreams] = None,
+) -> torch.Tensor:
+    """Representations of ALL nodes ``[N_pad, scorer_dim]``."""
+    if node_emb.is_cuda:
+        set_fp32_matmul_highest()
+    num_layers = cfg.gat_num_layers
+    x = node_emb
+    for li in range(num_layers):
+        x = apply_relgat_layer(
+            params["layers"][li], x, graph,
+            dropout_rate=cfg.dropout,
+            attn_dropout_rate=cfg.rel_attn_dropout,
+            train=train,
+            rng=rng,
+            use_pallas=cfg.use_pallas,
+            kernel_precision=cfg.kernel_precision,
+        )
+        if li < num_layers - 1:
+            x = F.elu(x)
+    if cfg.project_to_input_size:
+        x = apply_projection_head(
+            params["projection"], x, dropout_rate=cfg.projection_dropout,
+            train=train, rng=rng,
+        )
+    return x
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    node_emb: torch.Tensor,
+    graph: GraphData,
+    src_ids: torch.Tensor,
+    rel_ids: torch.Tensor,
+    dst_ids: torch.Tensor,
+    *,
+    transform_to_input_if_possible: bool = True,
+    train: bool = False,
+    rng: Optional[RngStreams] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Scores, relation-transformed sources (or None) and dst vectors for a
+    batch of triplets (reference ``model.py:99-142``)."""
+    x = single_gat_step(params, cfg, node_emb, graph, train=train, rng=rng)
+    src_vec = x[src_ids]
+    dst_vec = x[dst_ids]
+    transformed = None
+    if cfg.project_to_input_size and transform_to_input_if_possible:
+        transformed = scorer_mod.transform(
+            params["scorer"], cfg.scorer_type, src_vec, rel_ids
+        )
+    scores = scorer_mod.score_triplets(
+        params["scorer"], cfg.scorer_type, src_vec, rel_ids, dst_vec
+    )
+    return scores, transformed, dst_vec
+
+
+@torch.no_grad()
+def get_node_repr(
+    params: Params, cfg: ModelConfig, node_emb: torch.Tensor, graph: GraphData
+) -> torch.Tensor:
+    """Representations of the real nodes, for export and indexing."""
+    x = single_gat_step(params, cfg, node_emb, graph, train=False)
+    return x[: graph.num_real_nodes]
+
+
+def transform_from_vectors(
+    params: Params, cfg: ModelConfig, src_vectors: torch.Tensor,
+    rel_ids: torch.Tensor,
+) -> torch.Tensor:
+    """Relation operator on vectors in scorer space; a single relation id
+    broadcasts over the batch."""
+    rel_ids = torch.atleast_1d(rel_ids)
+    if rel_ids.shape[0] == 1 and src_vectors.shape[0] > 1:
+        rel_ids = rel_ids.expand(src_vectors.shape[0])
+    return scorer_mod.transform(
+        params["scorer"], cfg.scorer_type, src_vectors, rel_ids
+    )
+
+
+def transform(
+    params: Params, cfg: ModelConfig, node_emb: torch.Tensor,
+    graph: GraphData, src_ids: torch.Tensor, rel_ids: torch.Tensor,
+) -> torch.Tensor:
+    """Gather node representations, then apply the relation operator."""
+    x = single_gat_step(params, cfg, node_emb, graph, train=False)
+    return transform_from_vectors(params, cfg, x[src_ids], rel_ids)

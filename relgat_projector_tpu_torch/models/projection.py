@@ -1,0 +1,86 @@
+"""Projection head: GAT output space -> frozen input-embedding space.
+
+Port of ``relgat_projector_tpu/models/projection.py``: no layers and equal
+dims is the identity; one layer is a bias-free linear; ``k >= 2`` layers are
+``k - 1`` blocks of ``linear -> exact GELU -> LayerNorm(eps 1e-5)`` then a
+final linear; trailing dropout. Weights are ``[in, out]`` (``x @ W``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from relgat_projector_tpu_torch.models.initializers import torch_linear_uniform
+from relgat_projector_tpu_torch.utils.rng import RngStreams
+
+
+def _resolved_hidden(in_dim: int, hidden_dim: int) -> int:
+    return hidden_dim if hidden_dim and hidden_dim > 0 else in_dim
+
+
+def init_projection_head(
+    generator: torch.Generator,
+    in_dim: int,
+    out_dim: int,
+    num_layers: int,
+    *,
+    hidden_dim: int = 0,
+) -> Dict[str, list]:
+    num_layers = max(0, int(num_layers))
+    hidden = _resolved_hidden(in_dim, hidden_dim)
+    if num_layers == 0 and in_dim == out_dim:
+        return {"linears": [], "ln_scale": [], "ln_bias": []}
+    if num_layers <= 1:
+        return {
+            "linears": [
+                torch_linear_uniform(generator, (in_dim, out_dim), fan_in=in_dim)
+            ],
+            "ln_scale": [],
+            "ln_bias": [],
+        }
+    linears = [torch_linear_uniform(generator, (in_dim, hidden), fan_in=in_dim)]
+    for _ in range(num_layers - 2):
+        linears.append(
+            torch_linear_uniform(generator, (hidden, hidden), fan_in=hidden)
+        )
+    linears.append(
+        torch_linear_uniform(generator, (hidden, out_dim), fan_in=hidden)
+    )
+    n_ln = num_layers - 1
+    return {
+        "linears": linears,
+        "ln_scale": [torch.ones((hidden,)) for _ in range(n_ln)],
+        "ln_bias": [torch.zeros((hidden,)) for _ in range(n_ln)],
+    }
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    mean = x.mean(-1, keepdim=True)
+    var = (x - mean).square().mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-5) * scale + bias
+
+
+def apply_projection_head(
+    params: Dict[str, list],
+    x: torch.Tensor,
+    *,
+    dropout_rate: float = 0.0,
+    train: bool = False,
+    rng: Optional[RngStreams] = None,
+) -> torch.Tensor:
+    n_ln = len(params["ln_scale"])
+    y = x
+    for i, w in enumerate(params["linears"]):
+        y = y @ w
+        if i < n_ln:  # every layer but the last: GELU -> LayerNorm
+            y = F.gelu(y, approximate="none")
+            y = _layer_norm(y, params["ln_scale"][i], params["ln_bias"][i])
+    if train and dropout_rate > 0.0 and rng is not None:
+        keep = torch.empty_like(y).bernoulli_(
+            1.0 - dropout_rate, generator=rng.device
+        )
+        y = y * keep / (1.0 - dropout_rate)
+    return y

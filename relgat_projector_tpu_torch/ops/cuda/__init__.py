@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels of the propagate and their plain versions."""
+
+from relgat_projector_tpu_torch.ops.cuda.fused import (  # noqa: F401
+    KERNELS,
+    launch_counts,
+    relgat_bwd_rel,
+    relgat_bwd_rel_plain,
+    relgat_bwd_src,
+    relgat_bwd_src_plain,
+    relgat_fwd,
+    relgat_fwd_plain,
+    reset_launch_counts,
+)

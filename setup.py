@@ -15,7 +15,7 @@ setup(
         "optax",
         "flax",  # serialization only
     ],
-    extras_require={"wandb": ["wandb"]},
+    extras_require={"wandb": ["wandb"], "torch": ["torch"]},
     entry_points={
         "console_scripts": [
             # Parity with reference setup.py:50-54.
