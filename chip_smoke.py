@@ -33,7 +33,10 @@ Phases, in order; any failure exits non-zero:
 5. export   - one forward-only get_node_repr at the same size.
 6. kernels  - each kernel held to its plain version and timed with CUDA
               events at the train phase's shapes, beside its bound on this
-              card.
+              card and, for relgat_bwd_rel, one torch.einsum on the same
+              inputs; then the backward pair's combined time against the
+              bound of the whole TPU backward kernel's function, and the
+              rates of a plain copy and a row gather on this card.
 
 The last lines are the kernels JSON line, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. With --out DIR the result lines and a
@@ -97,9 +100,12 @@ KERNEL_SOURCES = {
 }
 # At the train shapes a float64 copy of the fwd and bwd_src plain versions
 # would need more than the card's 80 GB ([E, H, F] float64 temporaries are
-# 16 GB each); relgat_bwd_rel's sums of ~25k edges per relation are where
-# fp32 rounding in the plain version's own atomics would reach ~1e-5.
+# 16 GB each); relgat_bwd_rel's sums over 100k node rows are where fp32
+# rounding in the plain version itself would reach ~1e-5 (W in float64 is
+# 512 MB there).
 EXACT_AT_TRAIN_SHAPES = ("relgat_bwd_rel",)
+# The kernels that read one H*F row per edge (h[src], g[dst]).
+ROW_GATHERS = ("relgat_fwd", "relgat_bwd_src")
 AGREE = dict(num_nodes=3_000, num_edges=30_000, num_rel=8, in_dim=64, heads=4,
              feat=32, layers=2, batch=64, num_neg=8)
 AGREE_TOL = 1e-4  # the repo's activation parity contract
@@ -168,12 +174,13 @@ def parity_graph(rng):
     return src, dst, et
 
 
-def run_kernel_pair(inputs, *, seed, rate, num_rel, exact):
+def run_kernel_pair(inputs, *, seed, rate, exact):
     """Each kernel and its plain version on the same fp32 inputs; returns
     the errors per output. The plain versions named in ``exact`` run on
     float64 copies of those inputs, so their own rounding (and the
     run-to-run order of ``index_add_``'s atomics) stays out of the error.
-    The backward kernels take the forward kernel's statistics as inputs."""
+    The backward kernels take the forward kernel's statistics as inputs,
+    and relgat_bwd_rel takes relgat_bwd_src's W and B."""
     h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
     csr = inputs["csr"]
     kw = dict(seed=seed, rate=rate, negative_slope=0.2, eps=1e-16)
@@ -190,13 +197,15 @@ def run_kernel_pair(inputs, *, seed, rate, num_rel, exact):
     n = h.shape[0]
     s_dot = ((out_k - b[:, None]) * g).view(n, heads, f).sum(-1)
     gsum = g.sum(1)
-    dh_k, de_k = KERNELS["relgat_bwd_src"](h, g, attn, m, l, s_dot, csr, **kw)
-    dh_p, de_p = ref("relgat_bwd_src", h, g, attn, m, l, s_dot, csr, **kw)
-    dattn_k, dbias_k = KERNELS["relgat_bwd_rel"](h, de_k, gsum, csr, num_rel)
-    dattn_p, dbias_p = ref("relgat_bwd_rel", h, de_k, gsum, csr, num_rel)
+    args = (h, g, attn, m, l, s_dot, gsum, csr)
+    dh_k, w_k, b_k = KERNELS["relgat_bwd_src"](*args, **kw)
+    dh_p, w_p, b_p = ref("relgat_bwd_src", *args, **kw)
+    dattn_k, dbias_k = KERNELS["relgat_bwd_rel"](h, w_k, b_k)
+    dattn_p, dbias_p = ref("relgat_bwd_rel", h, w_k, b_k)
     pairs = {
         "relgat_fwd": {"out": (out_k, out_p)},
-        "relgat_bwd_src": {"dh": (dh_k, dh_p), "de": (de_k, de_p)},
+        "relgat_bwd_src": {"dh": (dh_k, dh_p), "w": (w_k, w_p),
+                           "b": (b_k, b_p)},
         "relgat_bwd_rel": {"dattn": (dattn_k, dattn_p),
                            "dbias": (dbias_k, dbias_p)},
     }
@@ -245,8 +254,7 @@ def phase_parity(card, out_lines):
             case = dict(inputs)
             if not with_bias:
                 case["bias"] = torch.zeros_like(inputs["bias"])
-            errs = run_kernel_pair(case,
-                                   seed=seed, rate=rate, num_rel=p["num_rel"],
+            errs = run_kernel_pair(case, seed=seed, rate=rate,
                                    exact=KERNEL_SOURCES)
             torch.cuda.synchronize()
             for outs in errs.values():
@@ -496,28 +504,45 @@ def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
 # Phase 6: kernels line
 # ---------------------------------------------------------------------------
 
-def bounds(n, e, heads, feat, num_rel, num_chunks):
+def bounds(n, e, heads, feat, num_rel):
     """(bytes, flops) each kernel must move and do on these inputs: every
-    input read once, every output written once."""
+    input read once, every output written once. ``bwd_pair`` is the whole
+    function of the TPU backward kernel that the two backward kernels
+    share: h, g, attn, the statistics and the src-CSR in, dh, dattn and
+    dbias out."""
     hf = heads * feat
     w = 4  # bytes of fp32 and int32
+    attn = heads * num_rel * feat
+    stats = 3 * n * heads + n + (n + 1) + 3 * e  # m, l, S, gsum, src-CSR
+    de_flops = e * heads * (8 * feat + 16)
     return {
         "relgat_fwd": (
-            w * (2 * n * hf + heads * num_rel * feat + num_rel + (n + 1)
+            w * (2 * n * hf + attn + num_rel + (n + 1)
                  + 2 * e + 2 * n * heads + n),
             e * heads * (5 * feat + 10) + 2 * n * hf,
         ),
         "relgat_bwd_src": (
-            w * (3 * n * hf + heads * num_rel * feat + 3 * n * heads
-                 + (n + 1) + 3 * e + e * heads),
-            e * heads * (8 * feat + 15),
+            w * (3 * n * hf + attn + stats + n * heads * num_rel
+                 + n * num_rel),
+            de_flops + e,
         ),
         "relgat_bwd_rel": (
-            w * (n * hf + e * heads + n + 3 * e + 2 * num_chunks
-                 + (num_rel + 1) + heads * num_rel * feat + num_rel),
-            2 * e * hf + e + num_chunks * hf,
+            w * (n * hf + n * heads * num_rel + n * num_rel + attn + num_rel),
+            2 * n * heads * num_rel * feat + n * num_rel,
+        ),
+        "bwd_pair": (
+            w * (3 * n * hf + 2 * attn + stats + num_rel),
+            de_flops + 2 * e * hf,
         ),
     }
+
+
+def bound_ms(nbytes, flops):
+    """(least ms on this card, what bounds it)."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by
 
 
 def phase_kernels(graph, counts, card, out_lines):
@@ -532,45 +557,71 @@ def phase_kernels(graph, counts, card, out_lines):
     out, m, l, b = KERNELS["relgat_fwd"](h, attn, bias, csr, **kw)
     s_dot = ((out - b[:, None]) * g).view(n, t["heads"], t["feat"]).sum(-1)
     gsum = g.sum(1)
-    _, de = KERNELS["relgat_bwd_src"](h, g, attn, m, l, s_dot, csr, **kw)
+    _, w, bsum = KERNELS["relgat_bwd_src"](h, g, attn, m, l, s_dot, gsum, csr,
+                                           **kw)
+    h3 = h.view(n, t["heads"], t["feat"])
     calls = {
         "relgat_fwd": lambda f: f(h, attn, bias, csr, **kw),
-        "relgat_bwd_src": lambda f: f(h, g, attn, m, l, s_dot, csr, **kw),
-        "relgat_bwd_rel": lambda f: f(h, de, gsum, csr, t["num_rel"]),
+        "relgat_bwd_src": lambda f: f(h, g, attn, m, l, s_dot, gsum, csr,
+                                      **kw),
+        "relgat_bwd_rel": lambda f: f(h, w, bsum),
+    }
+    # One PyTorch call computing the same function, timed as a yardstick
+    # only: dattn of relgat_bwd_rel is W^T h per head. The other two
+    # kernels' functions have no such call.
+    library = {
+        "relgat_bwd_rel": lambda: torch.einsum("nhr,nhf->hrf", w, h3),
     }
     # Comparisons and timings here are not part of the main path's counts.
-    errs = run_kernel_pair(inputs, seed=None,
-                           rate=0.0, num_rel=t["num_rel"],
+    errs = run_kernel_pair(inputs, seed=None, rate=0.0,
                            exact=EXACT_AT_TRAIN_SHAPES)
     torch.cuda.synchronize()
-    bnd = bounds(n, csr.num_edges, t["heads"], t["feat"], t["num_rel"],
-                 csr.num_chunks)
+    bnd = bounds(n, csr.num_edges, t["heads"], t["feat"], t["num_rel"])
     rows = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         ms = cuda_ms(lambda: calls[name](KERNELS[name]), reps=10, warmup=2)
         plain_ms = cuda_ms(lambda: calls[name](PLAIN[name]), reps=2)
+        lib_ms = (cuda_ms(library[name], reps=10, warmup=2)
+                  if name in library else None)
         nbytes, flops = bnd[name]
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+        best, by = bound_ms(nbytes, flops)
         worst = max(errs[name].values(), key=lambda x: x["max_rel_err"])
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": max(x["max_abs_err"] for x in errs[name].values()),
             "max_rel_err": worst["max_rel_err"],
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "bound_ms": best, "bound_by": by, "library_ms": lib_ms,
             "reference": ("float64" if name in EXACT_AT_TRAIN_SHAPES
                           else "float32"),
-            "bytes": nbytes, "flops": flops,
+            "bytes": nbytes, "flops": flops, "card": card,
+        }
+        if name in ROW_GATHERS:
             # what the design reads besides: one H*F row per edge (h[src]
-            # in the forward and in relgat_bwd_rel, g[dst] in relgat_bwd_src)
-            "row_gather_bytes": 4 * csr.num_edges * t["heads"] * t["feat"],
-            "card": card,
-        })
+            # in the forward, g[dst] in relgat_bwd_src)
+            row["row_gather_bytes"] = (4 * csr.num_edges * t["heads"]
+                                       * t["feat"])
+        rows.append(row)
         torch.cuda.synchronize()
+    pair_ms = sum(r["ms"] for r in rows if r["name"].startswith("relgat_bwd"))
+    best, by = bound_ms(*bnd["bwd_pair"])
+    emit({"phase": "bwd_pair", "card": card,
+          "of": ["relgat_bwd_src", "relgat_bwd_rel"], "ms": pair_ms,
+          "bound_ms": best, "bound_by": by, "bytes": bnd["bwd_pair"][0],
+          "flops": bnd["bwd_pair"][1], "times_bound": pair_ms / best},
+         out_lines)
+    # What this card reaches on plain traffic, beside the gathering kernels:
+    # a copy of h, and a gather of whole H*F rows of g (a quarter of the
+    # edges' dst rows, read and written once each).
+    idx = csr.by_src_dst[: csr.num_edges // 4].long()
+    copy_ms = cuda_ms(lambda: h.clone(), reps=10, warmup=2)
+    gather_ms = cuda_ms(lambda: g.index_select(0, idx), reps=5, warmup=1)
+    emit({"phase": "yardsticks", "card": card,
+          "copy_bytes_per_s": 2 * h.numel() * 4 / (copy_ms / 1e3),
+          "row_gather_bytes_per_s": (2 * idx.numel() * g.shape[1] * 4
+                                     / (gather_ms / 1e3)),
+          "copy_ms": copy_ms, "row_gather_ms": gather_ms}, out_lines)
     check(all(r["max_rel_err"] <= REL_TOL for r in rows),
           "kernel parity at the train shapes failed")
     return rows

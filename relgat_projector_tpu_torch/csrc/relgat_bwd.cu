@@ -2,209 +2,480 @@
 //
 // Replaces the TPU kernel relgat_projector_tpu/ops/pallas/fused.py
 // `_bwd_src_kernel` (launched by `fused_relgat_backward_src`). Given the
-// output cotangent g, the forward's per-(dst, head) max m and sum l, and the
-// per-(dst, head) S = <out - bias, g>, each edge (s -> d, relation r) gives
+// output cotangent g, the forward's per-(dst, head) max m and sum l, the
+// per-(dst, head) S = <out - bias, g> and the per-dst gsum = sum_{h,f} g,
+// each edge (s -> d, relation r) gives
 //   alpha = exp(LeakyReLU(<h[s], attn[r]>) - m[d]) / max(l[d], eps)
 //   k     = keep / (1 - rate)            (the forward's dropout mask, replayed)
 //   de    = alpha * (k * <h[s], g[d]> - S[d]) * LeakyReLU'(.)
 //   dh[s]    += alpha * k * g[d] + de * attn[r]
 //   dattn[r] += de * h[s]
-//   dbias[r] += sum_{h,f} g[d]
+//   dbias[r] += gsum[d]
 //
-// The TPU kernel carries dattn and dbias across its sequential grid. Blocks
-// on this card run in no order, so the work is split in two kernels, both
-// without atomics, hence deterministic:
-//   relgat_bwd_src_kernel  one warp per (src row, head) walks the row's
-//       out-edges in src-CSR order, keeps h[s] and the dh accumulator in
-//       registers, writes every dh row once and stores de[edge, head];
-//   relgat_bwd_rel_*       walks the edges grouped by relation in chunks of
-//       at most 256 edges (one block per chunk and 256 columns of H*F), writes
-//       one partial per chunk, then sums each relation's partials in order.
+// dattn needs h once per source row, not once per edge:
+//   dattn[hd, r] = sum_s W[s, hd, r] * h[s, hd],  W[s, hd, r] = sum of de[e, hd]
+//   dbias[r]     = sum_s B[s, r],                 B[s, r]     = sum of gsum[dst_e]
+// over the edges e with src s and relation r. The TPU kernel carries dattn
+// and dbias across its sequential grid; blocks on this card run in no order,
+// so the work is two kernels, both without atomics, hence deterministic:
+//   relgat_bwd_src_kernel   one warp per (src row, head) walks the row's
+//       out-edges in src-CSR order with h[s] and the dh accumulator in
+//       registers and writes every dh row once. It folds each edge's de into
+//       a slab of R floats in shared memory that only this warp touches (the
+//       head-0 warp folds gsum[d] into one more), lane 0 adding edge by edge,
+//       and writes the slabs out as W[s, head, :] and B[s, :], zeros
+//       included. W costs N*H*R*4 bytes (256 MB at N = 100k, H = 16,
+//       R = 40), B N*R*4; no per-edge array is written (the per-edge de
+//       [E, H] of the first design was 64 MB at 1M edges).
+//   relgat_bwd_rel_*        a streaming reduction over node rows: each block
+//       takes a tile of kRelTileRows rows of one head, stages W and h through
+//       shared memory with cp.async (kRelStages buffers), accumulates an
+//       [R, F] partial in registers and writes it; a second kernel sums the
+//       partials in tile order.
 //
-// What bounds them: like the forward, the per-edge gathers of H*F-wide rows
-// (g[d] and attn[r] in the first kernel, h[s] in the second), not the bytes
-// they must move once; the flops per byte are few. The design gathers inside
-// the kernels (no edge-sized [E, H*F] stream is written) and keeps the
-// per-row operands in registers.
+// What bounds them: relgat_bwd_src gathers one F-wide row of g per (edge,
+// head) (E * H*F * 4 bytes, 8.2 GB at 1M edges and H*F = 2048), far more
+// than the bytes it must move once; it runs near the rate at which this
+// card gathers such rows, and that rate rises with the warps in flight.
+// So the design keeps registers at 40 (48 warps an SM): the lanes load the
+// indices and per-dst scalars of up to 32 edges at once into a per-warp
+// table in shared memory, rows are read 16 bytes a lane, and one 6-shuffle
+// reduction gives both dot products. Holding a second edge's rows in
+// registers, to overlap its loads with the reduction, needs 56 registers
+// and measured slower on this card, as did blocks of one head for several
+// rows. relgat_bwd_rel reads h and W once (1.09 GB at those shapes) for
+// 2*N*H*R*F flops, close to the card's balance point; each thread keeps an
+// RM x 4 tile of the [R, F] sum so shared-memory reads stay under the FMA
+// rate.
 #include "relgat_common.cuh"
 
 namespace relgat {
 
-constexpr int kColsPerBlock = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
+// Shared memory relgat_bwd_src may take for its edge tables and slabs.
+constexpr int kMaxBwdSmemBytes = 48 * 1024;
 
-template <int FPL>
-__global__ void __launch_bounds__(32 * kMaxWarpsPerBlock)
+// What relgat_bwd_src needs of one edge besides its rows.
+struct alignas(16) EdgeEntry {
+  float m_safe;  // m[d], -inf read as 0 (m_safe of fused.py; d has an edge)
+  float denom;   // max(l[d], eps)
+  float s;       // S[d]
+  float keep;    // dropout keep / (1 - rate), or 1
+  int dst;
+  int rel;
+  float gsum;  // gsum[d], loaded for the head-0 warp only
+  float pad;
+};
+
+// A lane's share of an F-wide row: NV vectors of VEC floats, vector i at
+// feature VEC * (lane + 32 * i). F is a multiple of VEC, so a vector lies
+// wholly inside the row or wholly past its end (and reads as zeros).
+template <int VEC, int NV>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         int feat, int lane,
+                                         float (&v)[VEC * NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int f = VEC * (lane + 32 * i);
+    if constexpr (VEC == 4) {
+      const float4 x = f < feat ? *reinterpret_cast<const float4*>(p + f)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * i] = x.x;
+      v[4 * i + 1] = x.y;
+      v[4 * i + 2] = x.z;
+      v[4 * i + 3] = x.w;
+    } else {
+      v[i] = f < feat ? p[f] : 0.f;
+    }
+  }
+}
+
+template <int VEC, int NV>
+__device__ __forceinline__ void store_row(float* __restrict__ p, int feat,
+                                          int lane,
+                                          const float (&v)[VEC * NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int f = VEC * (lane + 32 * i);
+    if (f >= feat) continue;
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(p + f) =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    } else {
+      p[f] = v[i];
+    }
+  }
+}
+
+// Sums a and b over the warp in 6 shuffles, not the 10 of two butterflies:
+// the first step leaves lanes 0-15 with pair sums of a and lanes 16-31 with
+// pair sums of b, four butterfly steps finish each half, and a last shuffle
+// swaps the halves. Every lane ends with the same bits of both sums.
+__device__ __forceinline__ void warp_sum2(float& a, float& b, int lane) {
+  const bool upper = (lane & 16) != 0;
+  float mine = upper ? b : a;
+  mine += __shfl_xor_sync(kFullMask, upper ? a : b, 16);
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) mine += __shfl_xor_sync(kFullMask, mine, o);
+  const float other = __shfl_xor_sync(kFullMask, mine, 16);
+  a = upper ? other : mine;
+  b = upper ? mine : other;
+}
+
+// Six blocks an SM (48 warps, at most 40 registers a thread) where a lane
+// holds at most 4 floats of a row; wider rows would spill under that bound.
+template <int VEC, int NV>
+__global__ void
+__launch_bounds__(32 * kMaxWarpsPerBlock, VEC * NV <= 4 ? 6 : 1)
 relgat_bwd_src_kernel(const float* __restrict__ h,      // [N, H*F]
                       const float* __restrict__ g,      // [N, H*F]
                       const float* __restrict__ attn,   // [H, R, F]
                       const float* __restrict__ m,      // [N, H]
                       const float* __restrict__ l,      // [N, H]
                       const float* __restrict__ s_dot,  // [N, H]
+                      const float* __restrict__ gsum,   // [N]
                       const int* __restrict__ src_ptr,  // [N + 1]
                       const int* __restrict__ dst,      // [E] src-sorted
                       const int* __restrict__ etype,    // [E] src-sorted
                       const int* __restrict__ eid,      // [E] src-sorted
                       float* __restrict__ dh,           // [N, H*F]
-                      float* __restrict__ de,           // [E, H] by edge id
+                      float* __restrict__ w_out,        // [N, H, R]
+                      float* __restrict__ b_out,        // [N, R]
                       int heads, int feat, int num_rel, float slope,
                       float eps, int use_dropout, uint32_t seed, uint32_t thr,
                       float keep_prob) {
+  constexpr int FPL = VEC * NV;
+  // One table of 32 edges per warp, then one slab of R floats per warp and
+  // the head-0 warp's B slab.
+  extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
-  const int head = blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int head = blockIdx.y * warps + warp;
   if (head >= heads) return;
   const int s = blockIdx.x;
   const int64_t hf = static_cast<int64_t>(heads) * feat;
   const int64_t row = s * hf + static_cast<int64_t>(head) * feat;
+  EdgeEntry* table = reinterpret_cast<EdgeEntry*>(smem) + warp * 32;
+  float* slabs = smem + warps * 32 * (sizeof(EdgeEntry) / sizeof(float));
+  float* slab = slabs + warp * num_rel;
+  float* bslab = head == 0 ? slabs + warps * num_rel : nullptr;
+  for (int r = lane; r < num_rel; r += 32) {
+    slab[r] = 0.f;
+    if (bslab != nullptr) bslab[r] = 0.f;
+  }
 
   float hv[FPL];
   float acc[FPL];
+  load_row<VEC, NV>(h + row, feat, lane, hv);
 #pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    hv[i] = f < feat ? h[row + f] : 0.f;
-    acc[i] = 0.f;
-  }
+  for (int i = 0; i < FPL; ++i) acc[i] = 0.f;
+  const float* g_head = g + static_cast<int64_t>(head) * feat;
+  const float* attn_head = attn + static_cast<int64_t>(head) * num_rel * feat;
 
-  const int p1 = src_ptr[s + 1];
-  for (int p = src_ptr[s]; p < p1; ++p) {
-    const int d = dst[p];
-    const int r = etype[p];
-    const int id = eid[p];
-    const float* gd = g + d * hf + static_cast<int64_t>(head) * feat;
-    const float* ar = attn + (static_cast<int64_t>(head) * num_rel + r) * feat;
-    float gv[FPL];
-    float av[FPL];
-    float eraw = 0.f;
-    float dalpha = 0.f;
-#pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      const int f = lane + 32 * i;
-      gv[i] = f < feat ? gd[f] : 0.f;
-      av[i] = f < feat ? ar[f] : 0.f;
-      eraw += hv[i] * av[i];
-      dalpha += hv[i] * gv[i];
+  const int p_end = src_ptr[s + 1];
+  for (int p0 = src_ptr[s]; p0 < p_end; p0 += 32) {
+    const int cnt = min(32, p_end - p0);
+    __syncwarp();  // the last batch's table reads (and slab zeroing) are done
+    if (lane < cnt) {
+      const int p = p0 + lane;
+      EdgeEntry e;
+      e.dst = dst[p];
+      e.rel = etype[p];
+      const int64_t di = static_cast<int64_t>(e.dst) * heads + head;
+      const float mv = m[di];
+      e.m_safe = mv == -INFINITY ? 0.f : mv;
+      e.denom = fmaxf(l[di], eps);
+      e.s = s_dot[di];
+      e.keep = use_dropout
+                   ? dropout_keep(eid[p], head, seed, thr) / keep_prob
+                   : 1.f;
+      e.gsum = bslab != nullptr ? gsum[e.dst] : 0.f;
+      e.pad = 0.f;
+      table[lane] = e;
     }
-    eraw = warp_sum(eraw);
-    dalpha = warp_sum(dalpha);
-    const int64_t dh_idx = static_cast<int64_t>(d) * heads + head;
-    float mv = m[dh_idx];
-    if (mv == -INFINITY) mv = 0.f;  // m_safe of fused.py; d has an edge here
-    const float alpha = expf(leaky_relu(eraw, slope) - mv) / fmaxf(l[dh_idx], eps);
-    const float k =
-        use_dropout ? dropout_keep(id, head, seed, thr) / keep_prob : 1.f;
-    const float dev =
-        alpha * (dalpha * k - s_dot[dh_idx]) * (eraw >= 0.f ? 1.f : slope);
-    const float aw = alpha * k;
+    __syncwarp();
+    for (int j = 0; j < cnt; ++j) {
+      const EdgeEntry e = table[j];
+      float gv[FPL];
+      float av[FPL];
+      load_row<VEC, NV>(g_head + e.dst * hf, feat, lane, gv);
+      load_row<VEC, NV>(attn_head + static_cast<int64_t>(e.rel) * feat, feat,
+                        lane, av);
+      float eraw = 0.f;
+      float dalpha = 0.f;
 #pragma unroll
-    for (int i = 0; i < FPL; ++i) acc[i] += aw * gv[i] + dev * av[i];
-    if (lane == 0) de[static_cast<int64_t>(id) * heads + head] = dev;
+      for (int i = 0; i < FPL; ++i) {
+        eraw += hv[i] * av[i];
+        dalpha += hv[i] * gv[i];
+      }
+      warp_sum2(eraw, dalpha, lane);
+      const float alpha = expf(leaky_relu(eraw, slope) - e.m_safe) / e.denom;
+      const float de =
+          alpha * (dalpha * e.keep - e.s) * (eraw >= 0.f ? 1.f : slope);
+      const float aw = alpha * e.keep;
+#pragma unroll
+      for (int i = 0; i < FPL; ++i) acc[i] += aw * gv[i] + de * av[i];
+      if (lane == 0) {
+        slab[e.rel] += de;
+        if (bslab != nullptr) bslab[e.rel] += e.gsum;
+      }
+    }
   }
 
-#pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    if (f < feat) dh[row + f] = acc[i];
+  store_row<VEC, NV>(dh + row, feat, lane, acc);
+  __syncwarp();
+  float* wrow = w_out + (static_cast<int64_t>(s) * heads + head) * num_rel;
+  for (int r = lane; r < num_rel; r += 32) {
+    wrow[r] = slab[r];
+    if (bslab != nullptr) b_out[static_cast<int64_t>(s) * num_rel + r] = bslab[r];
   }
 }
 
-__global__ void __launch_bounds__(kColsPerBlock)
-relgat_bwd_rel_partial_kernel(const float* __restrict__ h,      // [N, H*F]
-                              const float* __restrict__ de,     // [E, H]
-                              const float* __restrict__ gsum,   // [N]
-                              const int* __restrict__ src,      // [E] by id
-                              const int* __restrict__ dst,      // [E] by id
-                              const int* __restrict__ rel_eid,  // [E]
-                              const int* __restrict__ chunk_start,  // [C]
-                              const int* __restrict__ chunk_end,    // [C]
-                              float* __restrict__ part_attn,    // [C, H*F]
-                              float* __restrict__ part_bias,    // [C]
-                              int heads, int feat) {
-  const int c = blockIdx.x;
-  const int64_t hf = static_cast<int64_t>(heads) * feat;
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  const int i0 = chunk_start[c];
-  const int i1 = chunk_end[c];
-  if (col < hf) {
-    const int head = static_cast<int>(col / feat);
-    float acc = 0.f;
-#pragma unroll 4
-    for (int i = i0; i < i1; ++i) {
-      const int id = rel_eid[i];
-      acc += de[static_cast<int64_t>(id) * heads + head] *
-             h[static_cast<int64_t>(src[id]) * hf + col];
-    }
-    part_attn[static_cast<int64_t>(c) * hf + col] = acc;
-  }
-  if (blockIdx.y == 0 && threadIdx.x < 32) {
-    float b = 0.f;
-    for (int i = i0 + static_cast<int>(threadIdx.x); i < i1; i += 32)
-      b += gsum[dst[rel_eid[i]]];
-    b = warp_sum(b);
-    if (threadIdx.x == 0) part_bias[c] = b;
+// ---------------------------------------------------------------------------
+// dattn = W^T h per head and dbias = sum_s B[s], over node rows.
+
+constexpr int kRelWarps = 4;
+constexpr int kRelThreads = 32 * kRelWarps;
+constexpr int kRelStageRows = 16;  // node rows per shared-memory stage
+constexpr int kRelStages = 3;      // shared-memory buffers in flight
+constexpr int kRelTileRows = 512;  // node rows per block, one partial each
+constexpr int kRelCols = 128;      // features per block, 4 per lane
+
+// cp.async of VEC floats into shared memory; with valid false it writes
+// zeros there and reads nothing (src-size 0). 16-byte copies bypass L1.
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem,
+                                         bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (VEC == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(valid ? 4 : 0)
+                 : "memory");
   }
 }
 
-__global__ void __launch_bounds__(kColsPerBlock)
-relgat_bwd_rel_reduce_kernel(const float* __restrict__ part_attn,  // [C, H*F]
-                             const float* __restrict__ part_bias,  // [C]
-                             const int* __restrict__ rel_chunk_ptr,  // [Rg + 1]
-                             float* __restrict__ dattn,  // [H, R, F]
-                             float* __restrict__ dbias,  // [R]
-                             int heads, int feat, int num_rel,
-                             int num_rel_graph) {
-  const int r = blockIdx.x;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Block (tile, head, relation tile x feature tile): warp w sums relations
+// r0 + w*RM .. r0 + w*RM + RM - 1, lane i features f0 + i + 32*j (j < 4),
+// over the tile's rows. Blocks of head 0 and the first feature tile also
+// sum B over the tile's rows, one relation per thread. VH and VW are the
+// copy widths of h and of W/B rows (4 where rows are 16-byte aligned).
+template <int RM, int VH, int VW>
+__global__ void __launch_bounds__(kRelThreads)
+relgat_bwd_rel_tile_kernel(const float* __restrict__ h,  // [N, H*F]
+                           const float* __restrict__ w,  // [N, H, R]
+                           const float* __restrict__ b,  // [N, R]
+                           float* __restrict__ part_attn,  // [T, H, R, F]
+                           float* __restrict__ part_bias,  // [T, R]
+                           int num_nodes, int heads, int feat, int num_rel,
+                           int col_tiles) {
+  constexpr int RT = kRelWarps * RM;  // relations per block
+  constexpr int HC = kRelCols / VH;   // copies per h row
+  constexpr int HR = kRelThreads / HC;  // h rows per pass of the block
+  constexpr int WC = RT / VW;         // copies per W row
+  // Width of a warp's read of its RM relations of a W row.
+  constexpr int RV = RM % 4 == 0 ? 4 : (RM % 2 == 0 ? 2 : 1);
+  static_assert(RT % VW == 0 && kRelStageRows % HR == 0, "tile shapes");
+  __shared__ __align__(16) float hs[kRelStages][kRelStageRows][kRelCols];
+  __shared__ __align__(16) float ws[kRelStages][kRelStageRows][RT];
+  __shared__ __align__(16) float bs[kRelStages][kRelStageRows][RT];
+
+  const int tile = blockIdx.x;
+  const int head = blockIdx.y;
+  const int r0 = (blockIdx.z / col_tiles) * RT;
+  const int f0 = (blockIdx.z % col_tiles) * kRelCols;
+  const bool with_bias = head == 0 && f0 == 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n0 = tile * kRelTileRows;
+  const int n1 = min(n0 + kRelTileRows, num_nodes);
   const int64_t hf = static_cast<int64_t>(heads) * feat;
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-  int c0 = 0;
-  int c1 = 0;
-  if (r < num_rel_graph) {
-    c0 = rel_chunk_ptr[r];
-    c1 = rel_chunk_ptr[r + 1];
+  // This thread's h copies: column hc of rows hk, hk + HR, ...
+  const int hc = threadIdx.x % HC;
+  const int hk = threadIdx.x / HC;
+  const bool h_col_ok = f0 + VH * hc < feat;
+  const float* h_col = h + static_cast<int64_t>(head) * feat + f0 + VH * hc;
+
+  // Rows nb .. nb + kRelStageRows into buffer buf; rows past the tile and
+  // columns past F or R read as zeros, so they add exactly nothing.
+  auto stage = [&](int buf, int nb) {
+#pragma unroll
+    for (int k = hk; k < kRelStageRows; k += HR) {
+      const int n = nb + k;
+      const bool ok = h_col_ok && n < n1;
+      cp_async<VH>(&hs[buf][k][VH * hc], ok ? h_col + n * hf : h, ok);
+    }
+#pragma unroll
+    for (int i = threadIdx.x; i < kRelStageRows * WC; i += kRelThreads) {
+      const int k = i / WC;
+      const int c = VW * (i % WC);
+      const int n = nb + k;
+      const bool ok = n < n1 && r0 + c < num_rel;
+      const int64_t wi =
+          (static_cast<int64_t>(n) * heads + head) * num_rel + r0 + c;
+      cp_async<VW>(&ws[buf][k][c], ok ? w + wi : w, ok);
+      if (with_bias) {
+        const int64_t bi = static_cast<int64_t>(n) * num_rel + r0 + c;
+        cp_async<VW>(&bs[buf][k][c], ok ? b + bi : b, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[RM][4];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float bacc = 0.f;
+
+  const int steps = (n1 - n0 + kRelStageRows - 1) / kRelStageRows;
+#pragma unroll
+  for (int q = 0; q < kRelStages - 1; ++q) {
+    if (q < steps) stage(q, n0 + q * kRelStageRows);
+    else cp_async_commit();
   }
-  if (col < hf) {
-    float acc = 0.f;
-    for (int c = c0; c < c1; ++c) acc += part_attn[static_cast<int64_t>(c) * hf + col];
-    const int64_t head = col / feat;
-    const int64_t f = col - head * feat;
-    dattn[(head * num_rel + r) * feat + f] = acc;
+  for (int st = 0; st < steps; ++st) {
+    const int buf = st % kRelStages;
+    const int next = st + kRelStages - 1;
+    if (next < steps) stage(next % kRelStages, n0 + next * kRelStageRows);
+    else cp_async_commit();
+    cp_async_wait<kRelStages - 1>();
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kRelStageRows; ++k) {
+      float hv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hv[j] = hs[buf][k][lane + 32 * j];
+      float wv[RM];
+      const float* wr = &ws[buf][k][warp * RM];
+#pragma unroll
+      for (int q = 0; q < RM / RV; ++q) {
+        if constexpr (RV == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(wr + 4 * q);
+          wv[4 * q] = v.x;
+          wv[4 * q + 1] = v.y;
+          wv[4 * q + 2] = v.z;
+          wv[4 * q + 3] = v.w;
+        } else if constexpr (RV == 2) {
+          const float2 v = *reinterpret_cast<const float2*>(wr + 2 * q);
+          wv[2 * q] = v.x;
+          wv[2 * q + 1] = v.y;
+        } else {
+          wv[q] = wr[q];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(wv[i], hv[j], acc[i][j]);
+    }
+    if (with_bias && threadIdx.x < RT) {
+#pragma unroll
+      for (int k = 0; k < kRelStageRows; ++k) bacc += bs[buf][k][threadIdx.x];
+    }
+    __syncthreads();  // a later stage's copies overwrite this buffer
   }
-  if (blockIdx.y == 0 && threadIdx.x == 0) {
-    float b = 0.f;
-    for (int c = c0; c < c1; ++c) b += part_bias[c];
-    dbias[r] = b;
+
+  float* pa = part_attn +
+              (static_cast<int64_t>(tile) * heads + head) * num_rel * feat;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = r0 + warp * RM + i;
+    if (r >= num_rel) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int f = f0 + lane + 32 * j;
+      if (f < feat) pa[static_cast<int64_t>(r) * feat + f] = acc[i][j];
+    }
+  }
+  if (with_bias && threadIdx.x < RT && r0 + static_cast<int>(threadIdx.x) < num_rel)
+    part_bias[static_cast<int64_t>(tile) * num_rel + r0 + threadIdx.x] = bacc;
+}
+
+// Sums the partials of every tile in tile order: dattn [H, R, F] is the
+// flat sum of part_attn [T, H*R*F], dbias [R] that of part_bias [T, R].
+__global__ void __launch_bounds__(256)
+relgat_bwd_rel_reduce_kernel(const float* __restrict__ part_attn,
+                             const float* __restrict__ part_bias,
+                             float* __restrict__ dattn,
+                             float* __restrict__ dbias, int num_tiles,
+                             int64_t total, int num_rel) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < total) {
+    float a = 0.f;
+#pragma unroll 8
+    for (int t = 0; t < num_tiles; ++t) a += part_attn[t * total + i];
+    dattn[i] = a;
+  }
+  if (i < num_rel) {
+    float s = 0.f;
+    for (int t = 0; t < num_tiles; ++t) s += part_bias[t * num_rel + i];
+    dbias[i] = s;
   }
 }
 
 }  // namespace relgat
 
+namespace {
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
+
 extern "C" int relgat_bwd_src(const float* h, const float* g,
                               const float* attn, const float* m,
                               const float* l, const float* s_dot,
-                              const int* src_ptr, const int* dst,
-                              const int* etype, const int* eid, float* dh,
-                              float* de, int num_nodes, int heads, int feat,
-                              int num_rel, float slope, float eps,
-                              int use_dropout, int seed, unsigned int thr,
-                              float keep_prob, void* stream) {
+                              const float* gsum, const int* src_ptr,
+                              const int* dst, const int* etype, const int* eid,
+                              float* dh, float* w_out, float* b_out,
+                              int num_nodes, int heads, int feat, int num_rel,
+                              float slope, float eps, int use_dropout,
+                              int seed, unsigned int thr, float keep_prob,
+                              void* stream) {
   using namespace relgat;
   const int wpb = heads < kMaxWarpsPerBlock ? heads : kMaxWarpsPerBlock;
+  const size_t smem = static_cast<size_t>(wpb) * 32 * sizeof(EdgeEntry) +
+                      static_cast<size_t>(wpb + 1) * num_rel * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxBwdSmemBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(32 * wpb);
   const dim3 grid(num_nodes, (heads + wpb - 1) / wpb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int fpl = (feat + 31) / 32;
-#define RELGAT_BWD_LAUNCH(FPL)                                               \
-  relgat_bwd_src_kernel<FPL><<<grid, block, 0, st>>>(                        \
-      h, g, attn, m, l, s_dot, src_ptr, dst, etype, eid, dh, de, heads,      \
-      feat, num_rel, slope, eps, use_dropout, static_cast<uint32_t>(seed),   \
-      thr, keep_prob)
-  if (fpl <= 1) {
-    RELGAT_BWD_LAUNCH(1);
-  } else if (fpl <= 2) {
-    RELGAT_BWD_LAUNCH(2);
-  } else if (fpl <= 4) {
-    RELGAT_BWD_LAUNCH(4);
-  } else if (fpl <= kMaxFeatPerLane) {
-    RELGAT_BWD_LAUNCH(8);
+  const bool vec4 = feat % 4 == 0 && aligned16(h) && aligned16(g) &&
+                    aligned16(attn) && aligned16(dh);
+#define RELGAT_BWD_LAUNCH(VEC, NV)                                           \
+  relgat_bwd_src_kernel<VEC, NV><<<grid, block, smem, st>>>(                 \
+      h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype, eid, dh, w_out,    \
+      b_out, heads, feat, num_rel, slope, eps, use_dropout,                  \
+      static_cast<uint32_t>(seed), thr, keep_prob)
+  if (vec4 && feat <= 128) {
+    RELGAT_BWD_LAUNCH(4, 1);
+  } else if (vec4 && feat <= 256) {
+    RELGAT_BWD_LAUNCH(4, 2);
+  } else if (feat <= 32) {
+    RELGAT_BWD_LAUNCH(1, 1);
+  } else if (feat <= 64) {
+    RELGAT_BWD_LAUNCH(1, 2);
+  } else if (feat <= 128) {
+    RELGAT_BWD_LAUNCH(1, 4);
+  } else if (feat <= 32 * kMaxFeatPerLane) {
+    RELGAT_BWD_LAUNCH(1, 8);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -212,30 +483,85 @@ extern "C" int relgat_bwd_src(const float* h, const float* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int relgat_bwd_rel(const float* h, const float* de,
-                              const float* gsum, const int* src,
-                              const int* dst, const int* rel_eid,
-                              const int* chunk_start, const int* chunk_end,
-                              const int* rel_chunk_ptr, float* part_attn,
-                              float* part_bias, float* dattn, float* dbias,
-                              int num_chunks, int heads, int feat,
-                              int num_rel, int num_rel_graph, void* stream) {
+namespace {
+
+template <int RM, int VH, int VW>
+void launch_rel_tiles(dim3 grid, cudaStream_t st, const float* h,
+                      const float* w, const float* b, float* part_attn,
+                      float* part_bias, int num_nodes, int heads, int feat,
+                      int num_rel, int col_tiles) {
+  relgat::relgat_bwd_rel_tile_kernel<RM, VH, VW>
+      <<<grid, relgat::kRelThreads, 0, st>>>(h, w, b, part_attn, part_bias,
+                                             num_nodes, heads, feat, num_rel,
+                                             col_tiles);
+}
+
+template <int RM>
+void launch_rel_tiles_rm(bool vh, bool vw, dim3 grid, cudaStream_t st,
+                         const float* h, const float* w, const float* b,
+                         float* part_attn, float* part_bias, int num_nodes,
+                         int heads, int feat, int num_rel, int col_tiles) {
+  if (vh && vw) {
+    launch_rel_tiles<RM, 4, 4>(grid, st, h, w, b, part_attn, part_bias,
+                               num_nodes, heads, feat, num_rel, col_tiles);
+  } else if (vh) {
+    launch_rel_tiles<RM, 4, 1>(grid, st, h, w, b, part_attn, part_bias,
+                               num_nodes, heads, feat, num_rel, col_tiles);
+  } else {
+    launch_rel_tiles<RM, 1, 1>(grid, st, h, w, b, part_attn, part_bias,
+                               num_nodes, heads, feat, num_rel, col_tiles);
+  }
+}
+
+}  // namespace
+
+extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,
+                              float* part_attn, float* part_bias,
+                              float* dattn, float* dbias, int num_nodes,
+                              int heads, int feat, int num_rel, int num_tiles,
+                              void* stream) {
   using namespace relgat;
+  if (num_tiles != (num_nodes + kRelTileRows - 1) / kRelTileRows)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t hf = static_cast<int64_t>(heads) * feat;
-  const unsigned col_blocks =
-      static_cast<unsigned>((hf + kColsPerBlock - 1) / kColsPerBlock);
-  if (num_chunks > 0) {
-    relgat_bwd_rel_partial_kernel<<<dim3(num_chunks, col_blocks),
-                                    kColsPerBlock, 0, st>>>(
-        h, de, gsum, src, dst, rel_eid, chunk_start, chunk_end, part_attn,
-        part_bias, heads, feat);
+  if (num_tiles > 0) {
+    const int rm_need = (num_rel + kRelWarps - 1) / kRelWarps;
+    const int rm = rm_need <= 1    ? 1
+                   : rm_need <= 2  ? 2
+                   : rm_need <= 4  ? 4
+                   : rm_need <= 6  ? 6
+                   : rm_need <= 8  ? 8
+                   : rm_need <= 10 ? 10
+                   : rm_need <= 12 ? 12
+                                   : 16;
+    const int col_tiles = (feat + kRelCols - 1) / kRelCols;
+    const int rel_tiles = (num_rel + kRelWarps * rm - 1) / (kRelWarps * rm);
+    const dim3 grid(num_tiles, heads, rel_tiles * col_tiles);
+    // 16-byte copies where every row starts 16-byte aligned.
+    const bool vh = feat % 4 == 0 && aligned16(h);
+    const bool vw = vh && num_rel % 4 == 0 && aligned16(w) && aligned16(b);
+#define RELGAT_REL_LAUNCH(RM)                                                \
+  launch_rel_tiles_rm<RM>(vh, vw, grid, st, h, w, b, part_attn, part_bias,   \
+                          num_nodes, heads, feat, num_rel, col_tiles)
+    switch (rm) {
+      case 1: RELGAT_REL_LAUNCH(1); break;
+      case 2: RELGAT_REL_LAUNCH(2); break;
+      case 4: RELGAT_REL_LAUNCH(4); break;
+      case 6: RELGAT_REL_LAUNCH(6); break;
+      case 8: RELGAT_REL_LAUNCH(8); break;
+      case 10: RELGAT_REL_LAUNCH(10); break;
+      case 12: RELGAT_REL_LAUNCH(12); break;
+      default: RELGAT_REL_LAUNCH(16); break;
+    }
+#undef RELGAT_REL_LAUNCH
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  relgat_bwd_rel_reduce_kernel<<<dim3(num_rel, col_blocks), kColsPerBlock, 0,
-                                 st>>>(part_attn, part_bias, rel_chunk_ptr,
-                                       dattn, dbias, heads, feat, num_rel,
-                                       num_rel_graph);
+  const int64_t total = static_cast<int64_t>(heads) * num_rel * feat;
+  const int64_t threads = total > num_rel ? total : num_rel;
+  relgat_bwd_rel_reduce_kernel<<<static_cast<unsigned>((threads + 255) / 256),
+                                 256, 0, st>>>(part_attn, part_bias, dattn,
+                                               dbias, num_tiles, total,
+                                               num_rel);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,6 +3,7 @@
 from relgat_projector_tpu_torch.ops.cuda.fused import (  # noqa: F401
     KERNELS,
     launch_counts,
+    max_num_rel,
     relgat_bwd_rel,
     relgat_bwd_rel_plain,
     relgat_bwd_src,

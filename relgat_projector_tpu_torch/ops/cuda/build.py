@@ -38,9 +38,9 @@ SIGNATURES = {
     "relgat_fwd": ("relgat_fwd", [_P] * 10 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _P]),
     "relgat_bwd_src": (
         "relgat_bwd",
-        [_P] * 12 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _P],
+        [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _P],
     ),
-    "relgat_bwd_rel": ("relgat_bwd", [_P] * 13 + [_I] * 5 + [_P]),
+    "relgat_bwd_rel": ("relgat_bwd", [_P] * 7 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

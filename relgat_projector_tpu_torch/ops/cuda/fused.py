@@ -4,9 +4,12 @@ Port of ``relgat_projector_tpu/ops/pallas/fused.py``:
 
 - ``relgat_fwd`` (``csrc/relgat_fwd.cu``) replaces ``_fused_kernel``;
 - ``relgat_bwd_src`` and ``relgat_bwd_rel`` (``csrc/relgat_bwd.cu``) together
-  replace ``_bwd_src_kernel``: dh and the per-edge logit gradient ``de`` in
-  src order, then dattn/dbias reduced per relation (the TPU kernel sums
-  those across its sequential grid, which this card does not have).
+  replace ``_bwd_src_kernel``. The first computes dh in src order and folds
+  each edge's logit gradient ``de`` per (src row, relation) into ``W``, and
+  ``gsum[dst]`` into ``B``; the second reduces ``dattn = W^T h`` per head and
+  ``dbias = sum_s B[s]`` over the node rows, reading h and W once (the TPU
+  kernel sums dattn and dbias across its sequential grid, which this card
+  does not have).
 
 A wrapper given CPU tensors computes its plain PyTorch version (the
 ``*_plain`` function beside it); given CUDA tensors it launches its kernel
@@ -17,7 +20,8 @@ its launches in a plain int attribute, ``<wrapper>.launches``.
 Shapes: ``h``/``g``/``out``/``dh`` are ``[N, H*F]`` fp32 over the layout's
 N (padded) node rows; ``attn``/``dattn`` ``[H, R, F]``; the statistics
 ``m``, ``l`` (un-dropped softmax sum) and ``s_dot`` (``<out - bias, g>``)
-``[N, H]``; ``de`` ``[E, H]`` by canonical edge id.
+``[N, H]``; ``gsum`` (``sum_{h,f} g``) ``[N]``; ``W`` ``[N, H, R]`` and
+``B`` ``[N, R]``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ from relgat_projector_tpu_torch.ops.dropout import (
 from relgat_projector_tpu_torch.ops.segment import segment_max, segment_sum
 
 MAX_FEAT = 256  # csrc/relgat_common.cuh kMaxFeatPerLane * 32
+MAX_WARPS_PER_BLOCK = 8  # csrc/relgat_common.cuh kMaxWarpsPerBlock
+MAX_BWD_SMEM_BYTES = 48 * 1024  # csrc/relgat_bwd.cu kMaxBwdSmemBytes
+EDGE_TABLE_BYTES = 32 * 32  # csrc/relgat_bwd.cu 32 EdgeEntry a warp
+REL_TILE_ROWS = 512  # csrc/relgat_bwd.cu kRelTileRows
 
 
 def _dropout_args(seed: Optional[int], rate: float):
@@ -54,14 +62,17 @@ def _keep_scale(csr: CSRGraph, heads, seed, rate, device) -> Optional[torch.Tens
     return edge_keep_mask_all_heads(eids, heads, seed, rate) / (1.0 - rate)
 
 
-def _on_card(name: str, csr: CSRGraph, *tensors: torch.Tensor) -> bool:
+def _on_card(
+    name: str, csr: Optional[CSRGraph], *tensors: torch.Tensor
+) -> bool:
     """True for CUDA inputs (after checking them), False for CPU ones."""
     dev = tensors[0].device
     if dev.type == "cpu":
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    for t in tensors + (csr.dst_ptr,):
+    layout = (csr.dst_ptr,) if csr is not None else ()
+    for t in tensors + layout:
         if t.device != dev:
             raise ValueError(f"{name}: inputs lie on {t.device} and {dev}")
     for t in tensors:
@@ -160,16 +171,26 @@ relgat_fwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Backward: dh and de in src order
+# Backward: dh, and de folded per (src row, relation), in src order
 # ---------------------------------------------------------------------------
 
+def max_num_rel(heads: int) -> int:
+    """Most relations ``relgat_bwd_src`` takes at ``heads`` heads: a block
+    of up to 8 warps holds a 1 KB edge table per warp, one slab of R floats
+    per warp and one more, in 48 KB of shared memory (1137 at 16 heads)."""
+    warps = min(int(heads), MAX_WARPS_PER_BLOCK)
+    return ((MAX_BWD_SMEM_BYTES - EDGE_TABLE_BYTES * warps)
+            // (4 * (warps + 1)))
+
+
 def relgat_bwd_src_plain(
-    h, g, attn, m, l, s_dot, csr: CSRGraph, *, seed, rate, negative_slope,
-    eps,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``relgat_bwd_src``: ``(dh [N, H*F], de [E, H])``."""
+    h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    negative_slope, eps,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``relgat_bwd_src``: ``(dh [N, H*F], W [N, H, R],
+    B [N, R])``, W and B as segment sums over the key ``src * R + etype``."""
     n, hf = h.shape
-    heads, _, f = attn.shape
+    heads, num_rel, f = attn.shape
     src, dst, et = csr.src.long(), csr.dst.long(), csr.etype.long()
     hs = h.view(n, heads, f)[src]
     gd = g.view(n, heads, f)[dst]
@@ -185,80 +206,89 @@ def relgat_bwd_src_plain(
     de = alpha * (dalpha * k - s_dot[dst])
     de = de * torch.where(eraw >= 0, 1.0, negative_slope)
     contrib = (alpha * k)[..., None] * gd + de[..., None] * ar
-    return segment_sum(contrib, src, n).reshape(n, hf), de
+    dh = segment_sum(contrib, src, n).reshape(n, hf)
+    key = src * num_rel + et
+    w = segment_sum(de, key, n * num_rel).view(n, num_rel, heads)
+    b = segment_sum(gsum[dst], key, n * num_rel).view(n, num_rel)
+    return dh, w.transpose(1, 2).contiguous(), b
 
 
 def relgat_bwd_src(
-    h, g, attn, m, l, s_dot, csr: CSRGraph, *, seed, rate, negative_slope,
-    eps,
+    h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    negative_slope, eps,
 ):
-    """Gradient wrt ``h`` (every row written) and the per-edge logit
-    gradient ``de [E, H]`` by canonical edge id."""
-    if not _on_card("relgat_bwd_src", csr, h, g, attn, m, l, s_dot):
+    """Gradient wrt ``h`` and the per-(src row, relation) sums ``W`` of the
+    logit gradient and ``B`` of ``gsum[dst]``, every row written."""
+    if not _on_card("relgat_bwd_src", csr, h, g, attn, m, l, s_dot, gsum):
         return relgat_bwd_src_plain(
-            h, g, attn, m, l, s_dot, csr, seed=seed, rate=rate,
+            h, g, attn, m, l, s_dot, gsum, csr, seed=seed, rate=rate,
             negative_slope=negative_slope, eps=eps,
         )
     n, heads, num_rel, f = _check_shapes("relgat_bwd_src", h, attn, csr)
-    if g.shape != h.shape or not (m.shape == l.shape == s_dot.shape == (n, heads)):
+    if (g.shape != h.shape or gsum.shape != (n,)
+            or not (m.shape == l.shape == s_dot.shape == (n, heads))):
         raise ValueError("relgat_bwd_src: g or statistics have wrong shapes")
+    if num_rel > max_num_rel(heads):
+        raise ValueError(
+            f"relgat_bwd_src: {num_rel} relations exceed the limit of "
+            f"{max_num_rel(heads)} at {heads} heads (edge tables and one "
+            f"slab of R floats per warp, and one more, in "
+            f"{MAX_BWD_SMEM_BYTES} bytes of shared memory)"
+        )
     dh = torch.empty_like(h)
-    de = h.new_empty((csr.num_edges, heads))
+    w = h.new_empty((n, heads, num_rel))
+    b = h.new_empty((n, num_rel))
     use, s, thr, keep = _dropout_args(seed, rate)
     rc = entry_point("relgat_bwd_src")(
         h.data_ptr(), g.data_ptr(), attn.data_ptr(), m.data_ptr(),
-        l.data_ptr(), s_dot.data_ptr(), csr.src_ptr.data_ptr(),
-        csr.by_src_dst.data_ptr(), csr.by_src_etype.data_ptr(),
-        csr.by_src_eid.data_ptr(), dh.data_ptr(), de.data_ptr(),
+        l.data_ptr(), s_dot.data_ptr(), gsum.data_ptr(),
+        csr.src_ptr.data_ptr(), csr.by_src_dst.data_ptr(),
+        csr.by_src_etype.data_ptr(), csr.by_src_eid.data_ptr(),
+        dh.data_ptr(), w.data_ptr(), b.data_ptr(),
         n, heads, f, num_rel, float(negative_slope), float(eps),
         use, s, thr, keep, _stream(),
     )
     _raise_on(rc, "relgat_bwd_src")
     relgat_bwd_src.launches += 1
-    return dh, de
+    return dh, w, b
 
 
 relgat_bwd_src.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Backward: dattn and dbias per relation
+# Backward: dattn and dbias, a streaming reduction over node rows
 # ---------------------------------------------------------------------------
 
-def relgat_bwd_rel_plain(
-    h, de, gsum, csr: CSRGraph, num_rel: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
+def relgat_bwd_rel_plain(h, w, b) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``relgat_bwd_rel``: ``(dattn [H, R, F], dbias [R])``."""
-    n, hf = h.shape
-    heads = de.shape[1]
-    src, dst, et = csr.src.long(), csr.dst.long(), csr.etype.long()
-    hs = h.view(n, heads, hf // heads)[src]
-    dattn = segment_sum(de[..., None] * hs, et, num_rel).transpose(0, 1)
-    return dattn.contiguous(), segment_sum(gsum[dst], et, num_rel)
+    n, heads, _ = w.shape
+    dattn = torch.einsum("nhr,nhf->hrf", w, h.view(n, heads, -1))
+    return dattn, b.sum(0)
 
 
-def relgat_bwd_rel(h, de, gsum, csr: CSRGraph, num_rel: int):
-    """``dattn[r] = sum_{e: etype=r} de[e] * h[src_e]`` and
-    ``dbias[r] = sum_{e: etype=r} gsum[dst_e]``, deterministic."""
-    if not _on_card("relgat_bwd_rel", csr, h, de, gsum):
-        return relgat_bwd_rel_plain(h, de, gsum, csr, num_rel)
+def relgat_bwd_rel(h, w, b):
+    """``dattn[hd] = W[:, hd, :]^T h[:, hd, :]`` and ``dbias = sum_s B[s]``
+    over the node rows, deterministic."""
+    if not _on_card("relgat_bwd_rel", None, h, w, b):
+        return relgat_bwd_rel_plain(h, w, b)
     n, hf = h.shape
-    heads = de.shape[1]
+    _, heads, num_rel = w.shape
     f = hf // heads
-    if (heads * f != hf or n != csr.num_nodes or gsum.shape != (n,)
-            or de.shape[0] != csr.num_edges or csr.num_rel > num_rel):
-        raise ValueError("relgat_bwd_rel: inputs do not match the layout")
-    part_attn = h.new_empty((csr.num_chunks, hf))
-    part_bias = h.new_empty((csr.num_chunks,))
+    if w.shape[0] != n or heads * f != hf or b.shape != (n, num_rel):
+        raise ValueError(
+            f"relgat_bwd_rel: h {tuple(h.shape)}, W {tuple(w.shape)} and "
+            f"B {tuple(b.shape)} do not match"
+        )
+    tiles = -(-n // REL_TILE_ROWS)
+    part_attn = h.new_empty((tiles, heads, num_rel, f))
+    part_bias = h.new_empty((tiles, num_rel))
     dattn = h.new_empty((heads, num_rel, f))
     dbias = h.new_empty((num_rel,))
     rc = entry_point("relgat_bwd_rel")(
-        h.data_ptr(), de.data_ptr(), gsum.data_ptr(), csr.src.data_ptr(),
-        csr.dst.data_ptr(), csr.rel_eid.data_ptr(),
-        csr.chunk_start.data_ptr(), csr.chunk_end.data_ptr(),
-        csr.rel_chunk_ptr.data_ptr(), part_attn.data_ptr(),
+        h.data_ptr(), w.data_ptr(), b.data_ptr(), part_attn.data_ptr(),
         part_bias.data_ptr(), dattn.data_ptr(), dbias.data_ptr(),
-        csr.num_chunks, heads, f, num_rel, csr.num_rel, _stream(),
+        n, heads, f, num_rel, tiles, _stream(),
     )
     _raise_on(rc, "relgat_bwd_rel")
     relgat_bwd_rel.launches += 1

@@ -5,8 +5,10 @@ with ``_segment_fwd``, ``_packed_stream`` and ``_bwd_from_packed``). The
 forward runs ``relgat_fwd`` and saves ``out`` with the softmax statistics.
 The backward computes, as plain reductions (XLA code in the JAX package),
 ``S = <out - bias, g>`` per (dst, head) and ``gsum = sum_{h,f} g`` per dst,
-then runs ``relgat_bwd_src`` for dh and ``relgat_bwd_rel`` for dattn and
-dbias. On CPU tensors each kernel wrapper computes its plain version.
+then runs ``relgat_bwd_src`` for dh and the per-(src row, relation) sums
+``W`` (of the logit gradient) and ``B`` (of ``gsum[dst]``), and
+``relgat_bwd_rel`` for ``dattn = W^T h`` per head and ``dbias = sum_s B[s]``.
+On CPU tensors each kernel wrapper computes its plain version.
 """
 
 from __future__ import annotations
@@ -45,16 +47,16 @@ class RelGATPropagate(torch.autograd.Function):
     def backward(ctx, g):
         h2, attn, out, m, l, bias = ctx.saved_tensors
         csr, seed, rate, negative_slope, eps = ctx.cfg
-        heads, num_rel, f = attn.shape
+        heads, _, f = attn.shape
         n = h2.shape[0]
         g2 = g.reshape(n, heads * f).contiguous()
         s_dot = ((out - bias[:, None]) * g2).view(n, heads, f).sum(-1)
         gsum = g2.sum(1)
-        dh, de = relgat_bwd_src(
-            h2, g2, attn, m, l, s_dot, csr, seed=seed, rate=rate,
+        dh, w, b = relgat_bwd_src(
+            h2, g2, attn, m, l, s_dot, gsum, csr, seed=seed, rate=rate,
             negative_slope=negative_slope, eps=eps,
         )
-        dattn, dbias = relgat_bwd_rel(h2, de, gsum, csr, num_rel)
+        dattn, dbias = relgat_bwd_rel(h2, w, b)
         drel = dbias if ctx.needs_input_grad[2] else None
         return dh.view(n, heads, f), dattn, drel, None, None, None, None, None
 

@@ -58,11 +58,15 @@ def _case(heads, feat, num_rel=7, n=400, e=3000, seed=0):
     return g, h, gr, attn, bias
 
 
-@pytest.mark.parametrize("heads,feat", [(1, 8), (3, 40), (16, 128), (9, 200)])
+@pytest.mark.parametrize(
+    "heads,feat,num_rel",
+    [(1, 8, 7), (3, 40, 7), (16, 128, 7), (9, 200, 7), (4, 32, 1),
+     (16, 128, 300)],
+)
 @pytest.mark.parametrize("rate", (0.0, 0.3))
-def test_kernels_match_plain(card, heads, feat, rate):
-    g, h, gr, attn, bias = _case(heads, feat)
-    csr, num_rel = g.csr, attn.shape[1]
+def test_kernels_match_plain(card, heads, feat, num_rel, rate):
+    g, h, gr, attn, bias = _case(heads, feat, num_rel=num_rel)
+    csr = g.csr
     kw = dict(seed=-987654321, rate=rate, negative_slope=0.2, eps=1e-16)
     before = kern.launch_counts()
     out_k, m_k, l_k, b_k = kern.relgat_fwd(h, attn, bias, csr, **kw)
@@ -72,13 +76,13 @@ def test_kernels_match_plain(card, heads, feat, rate):
     assert torch.equal(torch.isinf(m_k), torch.isinf(m))
     n = h.shape[0]
     s_dot = ((out_k - b_k[:, None]) * gr).view(n, heads, feat).sum(-1)
-    args = (h, gr, attn, m_k, l_k, s_dot, csr)
-    dh_k, de_k = kern.relgat_bwd_src(*args, **kw)
-    dh_p, de_p = _exact(kern.relgat_bwd_src_plain, *args, **kw)
-    assert _rel(dh_k, dh_p) <= REL_TOL and _rel(de_k, de_p) <= REL_TOL
-    gsum = gr.sum(1)
-    da_k, db_k = kern.relgat_bwd_rel(h, de_k, gsum, csr, num_rel)
-    da_p, db_p = _exact(kern.relgat_bwd_rel_plain, h, de_k, gsum, csr, num_rel)
+    args = (h, gr, attn, m_k, l_k, s_dot, gr.sum(1), csr)
+    dh_k, w_k, bb_k = kern.relgat_bwd_src(*args, **kw)
+    dh_p, w_p, bb_p = _exact(kern.relgat_bwd_src_plain, *args, **kw)
+    assert _rel(dh_k, dh_p) <= REL_TOL
+    assert _rel(w_k, w_p) <= REL_TOL and _rel(bb_k, bb_p) <= REL_TOL
+    da_k, db_k = kern.relgat_bwd_rel(h, w_k, bb_k)
+    da_p, db_p = _exact(kern.relgat_bwd_rel_plain, h, w_k, bb_k)
     assert _rel(da_k, da_p) <= REL_TOL and _rel(db_k, db_p) <= REL_TOL
     torch.cuda.synchronize()
     after = kern.launch_counts()
@@ -115,3 +119,21 @@ def test_cuda_tensors_never_fall_back(card):
     with pytest.raises(ValueError):
         kern.relgat_fwd(h[:, :-1].contiguous(), attn, bias, g.csr, seed=None,
                         rate=0.0, negative_slope=0.2, eps=1e-16)
+
+
+def test_bwd_src_limits_relations_to_shared_memory(card):
+    heads, feat = 16, 8
+    limit = kern.max_num_rel(heads)
+    for num_rel in (limit, limit + 1):
+        g, h, gr, attn, _ = _case(heads, feat, num_rel=num_rel, n=100, e=300)
+        n = h.shape[0]
+        stats = [torch.zeros((n, heads), device="cuda") for _ in range(3)]
+        args = (h, gr, attn, *stats, gr.sum(1), g.csr)
+        kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+        if num_rel == limit:
+            _, w, _ = kern.relgat_bwd_src(*args, **kw)
+            assert tuple(w.shape) == (n, heads, limit)
+        else:
+            with pytest.raises(ValueError, match=f"limit of {limit}"):
+                kern.relgat_bwd_src(*args, **kw)
+    torch.cuda.synchronize()

@@ -10,7 +10,6 @@ import pytest
 
 from relgat_projector_tpu.data.blocked import _build_one_np
 from relgat_projector_tpu.data.graph import build_graph as jax_build_graph
-from relgat_projector_tpu_torch.data.csr import REL_CHUNK_EDGES
 from relgat_projector_tpu_torch.data.graph import build_graph
 
 
@@ -18,7 +17,7 @@ def _edges(seed=0, n=300, e=2000, r=9):
     rng = np.random.default_rng(seed)
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n, e)
-    dst[:700] = 7  # one relation-heavy, multi-chunk row
+    dst[:700] = 7  # one heavy row, mostly of one relation
     et = rng.integers(0, r, e)
     et[:600] = 2
     return src, dst, et, n, r
@@ -67,19 +66,15 @@ def test_csr_layout_invariants():
     assert (np.diff(srcs) >= 0).all()
     for s in (0, 5, n - 1):
         assert (srcs[sptr[s]:sptr[s + 1]] == s).all()
-    # by relation: chunks cover every edge once, never straddle relations
-    rel_eid = c.rel_eid.numpy()
-    np.testing.assert_array_equal(np.sort(rel_eid), np.arange(e))
-    cs, ce = c.chunk_start.numpy(), c.chunk_end.numpy()
-    rptr = c.rel_chunk_ptr.numpy()
-    assert rptr.shape == (r + 1,) and rptr[-1] == c.num_chunks
-    covered = np.concatenate([np.arange(a, b) for a, b in zip(cs, ce)])
-    np.testing.assert_array_equal(covered, np.arange(e))
-    assert ((ce - cs) <= REL_CHUNK_EDGES).all() and ((ce - cs) > 0).all()
-    for rel in range(r):
-        for k in range(rptr[rel], rptr[rel + 1]):
-            assert (c.etype.numpy()[rel_eid[cs[k]:ce[k]]] == rel).all()
-    assert rptr[3] - rptr[2] == -(-(et == 2).sum() // REL_CHUNK_EDGES)
+    # src-CSR rows: out-degrees, with each row's edges in id order (the
+    # order relgat_bwd_src folds them into W and B); padded rows are empty
+    np.testing.assert_array_equal(
+        np.diff(sptr), np.bincount(src, minlength=g.num_nodes))
+    assert sptr.shape == (g.num_nodes + 1,) and sptr[0] == 0 and sptr[-1] == e
+    for s in range(g.num_nodes):
+        assert (np.diff(eid[sptr[s]:sptr[s + 1]]) > 0).all()
+    assert (c.by_src_etype.numpy() == 2).sum() == (et == 2).sum()
+    assert (sptr[n:] == e).all()
 
 
 @pytest.mark.parametrize(
