@@ -51,7 +51,6 @@
 
 namespace relgat {
 
-constexpr unsigned kFullMask = 0xffffffffu;
 // Shared memory relgat_bwd_src may take for its edge tables and slabs.
 constexpr int kMaxBwdSmemBytes = 48 * 1024;
 
@@ -66,46 +65,6 @@ struct alignas(16) EdgeEntry {
   float gsum;  // gsum[d], loaded for the head-0 warp only
   float pad;
 };
-
-// A lane's share of an F-wide row: NV vectors of VEC floats, vector i at
-// feature VEC * (lane + 32 * i). F is a multiple of VEC, so a vector lies
-// wholly inside the row or wholly past its end (and reads as zeros).
-template <int VEC, int NV>
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         int feat, int lane,
-                                         float (&v)[VEC * NV]) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int f = VEC * (lane + 32 * i);
-    if constexpr (VEC == 4) {
-      const float4 x = f < feat ? *reinterpret_cast<const float4*>(p + f)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[4 * i] = x.x;
-      v[4 * i + 1] = x.y;
-      v[4 * i + 2] = x.z;
-      v[4 * i + 3] = x.w;
-    } else {
-      v[i] = f < feat ? p[f] : 0.f;
-    }
-  }
-}
-
-template <int VEC, int NV>
-__device__ __forceinline__ void store_row(float* __restrict__ p, int feat,
-                                          int lane,
-                                          const float (&v)[VEC * NV]) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int f = VEC * (lane + 32 * i);
-    if (f >= feat) continue;
-    if constexpr (VEC == 4) {
-      *reinterpret_cast<float4*>(p + f) =
-          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-    } else {
-      p[f] = v[i];
-    }
-  }
-}
 
 // Sums a and b over the warp in 6 shuffles, not the 10 of two butterflies:
 // the first step leaves lanes 0-15 with pair sums of a and lanes 16-31 with

@@ -1,5 +1,6 @@
 // Shared device helpers of the RelGAT propagate kernels (relgat_fwd.cu,
-// relgat_bwd.cu): the warp sum, the LeakyReLU and the attention-dropout hash.
+// relgat_bwd.cu): the warp sum, a lane's share of a row, the LeakyReLU and
+// the attention-dropout hash.
 #pragma once
 
 #include <math.h>
@@ -14,13 +15,54 @@ namespace relgat {
 // wider heads.
 constexpr int kMaxFeatPerLane = 8;
 constexpr int kMaxWarpsPerBlock = 8;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // Butterfly sum: every lane ends with the same bits, since each step adds
 // the same two values (a + b == b + a in IEEE arithmetic).
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
   return v;
+}
+
+// A lane's share of an F-wide row: NV vectors of VEC floats, vector i at
+// feature VEC * (lane + 32 * i). F is a multiple of VEC, so a vector lies
+// wholly inside the row or wholly past its end (and reads as zeros).
+template <int VEC, int NV>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         int feat, int lane,
+                                         float (&v)[VEC * NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int f = VEC * (lane + 32 * i);
+    if constexpr (VEC == 4) {
+      const float4 x = f < feat ? *reinterpret_cast<const float4*>(p + f)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * i] = x.x;
+      v[4 * i + 1] = x.y;
+      v[4 * i + 2] = x.z;
+      v[4 * i + 3] = x.w;
+    } else {
+      v[i] = f < feat ? p[f] : 0.f;
+    }
+  }
+}
+
+template <int VEC, int NV>
+__device__ __forceinline__ void store_row(float* __restrict__ p, int feat,
+                                          int lane,
+                                          const float (&v)[VEC * NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int f = VEC * (lane + 32 * i);
+    if (f >= feat) continue;
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(p + f) =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    } else {
+      p[f] = v[i];
+    }
+  }
 }
 
 __device__ __forceinline__ float leaky_relu(float x, float slope) {

@@ -9,92 +9,237 @@
 //   out  = acc / max(l, eps) + sum_e rel_bias[etype]
 // and saves m, l and the bias sum for the backward.
 //
-// What bounds it: the gather of one H*F row of h per edge (E * H*F * 4 bytes,
-// about 8.4 GB at 1M edges and H*F = 2048), which is far more than the bytes
-// it must move (h and out once each). Logits and weights cost a few flops per
-// byte, so the kernel is bound by memory traffic and by the latency of the
-// dependent index -> row loads.
+// What bounds it: the gather of one H*F row of h per edge, E * H*F * 4 bytes
+// (8.19 GB at 1M edges and H*F = 2048), five times the 1.66 GB it must move
+// once. At 100k rows h is 819 MB, far beyond the 50 MB L2, and a uniform
+// random graph has no order that reuses rows, so the kernel runs at the rate
+// this card gathers 8 KB rows. On an H100 80GB HBM3 (700 W) the first design,
+// one warp per (row, head), moved 2.86 TB/s on such a graph, against 2.90
+// TB/s for an index_select of whole rows and 3.02 TB/s for a copy.
 //
-// What the design does about it: one warp per (dst row, head) walks the row's
-// edges and gathers h[src] and attn[etype] itself, so no [E, H*F] array is
-// written (the TPU path gathers `ps` to edge size first). Each lane holds
-// F/32 features in registers; one butterfly sum gives the logit on every
-// lane, so the online softmax needs no shared memory and no second pass.
-// Every row is written, rows without in-edges as zeros, so no mask pass is
-// needed afterwards. The TPU kernel's per-chunk reference shift and its
-// one-hot matmuls (which stand in for gathers and scatters) have no
-// counterpart here: the running max is the true per-row max.
+// What the design does about it:
+// - Work items, not rows. data/csr.py cuts the dst-CSR once per graph: a row
+//   of at most kItemEdges in-edges is one item (rows without in-edges too),
+//   a longer row is kItemEdges-edge chunks in order. A chunk writes its
+//   partial (m_c, l_c, acc_c per head, fp64 bias sum) to scratch, and
+//   relgat_fwd_merge_kernel combines each split row's chunks in one fixed
+//   order: m = max m_c, l = sum l_c e^(m_c - m), acc = sum acc_c e^(m_c - m),
+//   eight warps a (row, head), each over a contiguous run of chunks. So no
+//   warp walks more than kItemEdges edges one after the other: a hub row with
+//   83k in-edges (the head of a zipf graph at 100k nodes and 1M edges) is 323
+//   items spread over the card, not one warp's serial walk that outlasts the
+//   rest of the grid (49 ms for that graph against 3.15 ms for a uniform one
+//   in the first design, on the card above). Nothing is atomic, so two calls
+//   give the same bits. Dropout stays keyed by the canonical edge id (the
+//   dst-CSR position).
+// - One warp per head, 8 to a block, and the blocks of an item's head groups
+//   adjacent in the grid, so the 16 heads' 512-byte segments of a source row
+//   (8 KB) are requested together. The block loads the item's (src, etype)
+//   pairs once into a shared table, which takes the index loads off each
+//   edge's dependent chain; a lane reads its share of a row 16 bytes at a
+//   time (F = 128).
+// - Registers capped at 32 so 64 warps fit an SM: on this card the warps in
+//   flight, not the instructions per edge, set the rate of a gather-bound
+//   kernel. The same design at 48 warps, and two edges in flight a warp
+//   (more registers, fewer warps), measured slower.
 #include "relgat_common.cuh"
 
 namespace relgat {
 
-template <int FPL>
-__global__ void __launch_bounds__(32 * kMaxWarpsPerBlock)
+// Most edges of one work item (data/csr.py FWD_ITEM_EDGES): the size of the
+// block's shared edge table.
+constexpr int kItemEdges = 256;
+// Warps of a forward block: one per head of its item, up to this many; the
+// blocks of one item's head groups are adjacent in the grid.
+constexpr int kFwdWarps = 8;
+// Blocks of kFwdWarps an SM: 8 caps registers at 32 a thread, 64 warps.
+constexpr int kFwdMinBlocks = 8;
+// Warps that merge one (split row, head), each a contiguous run of chunks.
+constexpr int kMergeWarps = 8;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+  return v;
+}
+
+// Block (item, head group): warp w takes head group * warps + w over the
+// item's edges [e0, e1) of row d. slot < 0: the item is the whole row, and
+// the warp writes out, m, l (and bias) itself; else it writes its partial to
+// slot `slot` of the scratch.
+template <int VEC, int NV>
+__global__ void
+__launch_bounds__(32 * kFwdWarps, VEC * NV <= 4 ? kFwdMinBlocks : 1)
 relgat_fwd_kernel(const float* __restrict__ h,         // [N, H*F]
                   const float* __restrict__ attn,      // [H, R, F]
                   const float* __restrict__ rel_bias,  // [R]
-                  const int* __restrict__ dst_ptr,     // [N + 1]
+                  const int4* __restrict__ items,      // [I] (d, e0, e1, slot)
                   const int* __restrict__ src,         // [E] dst-sorted
                   const int* __restrict__ etype,       // [E] dst-sorted
                   float* __restrict__ out,             // [N, H*F]
                   float* __restrict__ m_out,           // [N, H]
                   float* __restrict__ l_out,           // [N, H]
                   float* __restrict__ bias_out,        // [N]
-                  int heads, int feat, int num_rel, float slope, float eps,
-                  int use_dropout, uint32_t seed, uint32_t thr,
-                  float keep_prob) {
+                  float* __restrict__ part_acc,        // [P, H, F]
+                  float2* __restrict__ part_ml,        // [P, H] (m_c, l_c)
+                  double* __restrict__ part_bias,      // [P]
+                  int head_groups, int heads, int feat, int num_rel,
+                  float slope, float eps, int use_dropout, uint32_t seed,
+                  uint32_t thr, float keep_prob) {
+  constexpr int FPL = VEC * NV;
+  __shared__ __align__(16) int2 table[kItemEdges];  // (src, etype)
   const int lane = threadIdx.x & 31;
-  const int head = blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int warps = blockDim.x >> 5;
+  const int4 item = items[blockIdx.x / head_groups];
+  const int d = item.x;
+  const int e0 = item.y;
+  const int cnt = item.z - item.y;
+  const int slot = item.w;
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x)
+    table[i] = make_int2(src[e0 + i], etype[e0 + i]);
+  __syncthreads();
+  const int head = (blockIdx.x % head_groups) * warps + (threadIdx.x >> 5);
   if (head >= heads) return;
-  const int d = blockIdx.x;
-  const int64_t hf = static_cast<int64_t>(heads) * feat;
-  const int e0 = dst_ptr[d];
-  const int e1 = dst_ptr[d + 1];
 
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  const float* h_head = h + static_cast<int64_t>(head) * feat;
+  const float* a_head = attn + static_cast<int64_t>(head) * num_rel * feat;
   float acc[FPL];
 #pragma unroll
   for (int i = 0; i < FPL; ++i) acc[i] = 0.f;
   float m = -INFINITY;
   float l = 0.f;
-  // One bias term per in-edge, never rescaled: summed in fp32, a row of a
-  // few thousand edges would lose ~1e-5 of it relative, so it is summed in
-  // fp64 (one scalar add per edge).
+  // One bias term per in-edge, never rescaled: summed in fp64 (in fp32 a
+  // row of a few thousand edges would lose ~1e-5 of it), edge by edge, off
+  // the chain of the row gather.
   double bsum = 0.0;
-
-  for (int e = e0; e < e1; ++e) {
-    const int s = src[e];
-    const int r = etype[e];
-    const float* hs = h + s * hf + static_cast<int64_t>(head) * feat;
-    const float* ar = attn + (static_cast<int64_t>(head) * num_rel + r) * feat;
+  for (int j = 0; j < cnt; ++j) {
+    const int2 t = table[j];
+    bsum += rel_bias[t.y];
     float hv[FPL];
+    float av[FPL];
+    load_row<VEC, NV>(h_head + t.x * hf, feat, lane, hv);
+    load_row<VEC, NV>(a_head + static_cast<int64_t>(t.y) * feat, feat, lane,
+                      av);
     float dot = 0.f;
 #pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      const int f = lane + 32 * i;
-      hv[i] = f < feat ? hs[f] : 0.f;
-      dot += f < feat ? hv[i] * ar[f] : 0.f;
-    }
+    for (int i = 0; i < FPL; ++i) dot += hv[i] * av[i];
     const float ev = leaky_relu(warp_sum(dot), slope);
     const float m_new = fmaxf(m, ev);
     const float scale = expf(m - m_new);  // 0 on the first edge (m = -inf)
     const float p = expf(ev - m_new);
     l = l * scale + p;
     const float pk =
-        use_dropout ? p * dropout_keep(e, head, seed, thr) / keep_prob : p;
+        use_dropout ? p * dropout_keep(e0 + j, head, seed, thr) / keep_prob : p;
 #pragma unroll
     for (int i = 0; i < FPL; ++i) acc[i] = acc[i] * scale + pk * hv[i];
     m = m_new;
-    bsum += rel_bias[r];
+  }
+
+  if (slot < 0) {
+    const float denom = fmaxf(l, eps);
+    const float bias = static_cast<float>(bsum);
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) acc[i] = acc[i] / denom + bias;
+    store_row<VEC, NV>(out + d * hf + static_cast<int64_t>(head) * feat, feat,
+                       lane, acc);
+    if (lane == 0) {
+      m_out[static_cast<int64_t>(d) * heads + head] = m;
+      l_out[static_cast<int64_t>(d) * heads + head] = l;
+      if (head == 0) bias_out[d] = bias;
+    }
+  } else {
+    const int64_t ps = static_cast<int64_t>(slot) * heads + head;
+    store_row<VEC, NV>(part_acc + ps * feat, feat, lane, acc);
+    if (lane == 0) {
+      part_ml[ps] = make_float2(m, l);
+      if (head == 0) part_bias[slot] = bsum;
+    }
+  }
+}
+
+// Block (split row, head): the row's slots [c0, c1) hold its chunks in
+// order. Warp w sums the w-th contiguous run of them in order, and warp 0
+// adds the warps' sums in warp order, so the result has one fixed order.
+template <int VEC, int NV>
+__global__ void __launch_bounds__(32 * kMergeWarps)
+relgat_fwd_merge_kernel(const int* __restrict__ merge,  // [S, 3] (d, c0, c1)
+                        const float* __restrict__ part_acc,
+                        const float2* __restrict__ part_ml,
+                        const double* __restrict__ part_bias,
+                        float* __restrict__ out, float* __restrict__ m_out,
+                        float* __restrict__ l_out,
+                        float* __restrict__ bias_out, int heads, int feat,
+                        float eps) {
+  constexpr int FPL = VEC * NV;
+  __shared__ float s_max[kMergeWarps];
+  __shared__ float s_l[kMergeWarps];
+  __shared__ double s_bias[kMergeWarps];
+  __shared__ float s_acc[kMergeWarps][32 * FPL];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row = blockIdx.x / heads;
+  const int head = blockIdx.x % heads;
+  const int d = merge[3 * row];
+  const int c0 = merge[3 * row + 1];
+  const int c1 = merge[3 * row + 2];
+
+  // m = max m_c. Every chunk holds an edge, so every m_c is finite.
+  float m = -INFINITY;
+  for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x)
+    m = fmaxf(m, part_ml[static_cast<int64_t>(c) * heads + head].x);
+  m = warp_max(m);
+  if (lane == 0) s_max[warp] = m;
+  __syncthreads();
+  m = s_max[0];
+  for (int w = 1; w < kMergeWarps; ++w) m = fmaxf(m, s_max[w]);
+
+  // l = sum l_c e^(m_c - m), acc = sum acc_c e^(m_c - m), bias = sum bias_c
+  const int run = (c1 - c0 + kMergeWarps - 1) / kMergeWarps;
+  const int a = min(c1, c0 + warp * run);
+  const int b = min(c1, a + run);
+  float acc[FPL];
+#pragma unroll
+  for (int i = 0; i < FPL; ++i) acc[i] = 0.f;
+  float l = 0.f;
+  double bsum = 0.0;
+#pragma unroll 4
+  for (int c = a; c < b; ++c) {
+    const int64_t ps = static_cast<int64_t>(c) * heads + head;
+    const float2 ml = part_ml[ps];
+    const float w = expf(ml.x - m);
+    l += ml.y * w;
+    bsum += part_bias[c];
+    float cv[FPL];
+    load_row<VEC, NV>(part_acc + ps * feat, feat, lane, cv);
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) acc[i] += cv[i] * w;
+  }
+  if (warp > 0) {
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) s_acc[warp][FPL * lane + i] = acc[i];
+    if (lane == 0) {
+      s_l[warp] = l;
+      s_bias[warp] = bsum;
+    }
+  }
+  __syncthreads();
+  if (warp > 0) return;
+  for (int w = 1; w < kMergeWarps; ++w) {
+#pragma unroll
+    for (int i = 0; i < FPL; ++i) acc[i] += s_acc[w][FPL * lane + i];
+    l += s_l[w];
+    bsum += s_bias[w];
   }
 
   const float denom = fmaxf(l, eps);
   const float bias = static_cast<float>(bsum);
-  float* o = out + d * hf + static_cast<int64_t>(head) * feat;
 #pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    if (f < feat) o[f] = acc[i] / denom + bias;
-  }
+  for (int i = 0; i < FPL; ++i) acc[i] = acc[i] / denom + bias;
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  store_row<VEC, NV>(out + d * hf + static_cast<int64_t>(head) * feat, feat,
+                     lane, acc);
   if (lane == 0) {
     m_out[static_cast<int64_t>(d) * heads + head] = m;
     l_out[static_cast<int64_t>(d) * heads + head] = l;
@@ -104,32 +249,65 @@ relgat_fwd_kernel(const float* __restrict__ h,         // [N, H*F]
 
 }  // namespace relgat
 
+namespace {
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
+
+// items [I, 4] and merge [S, 3] are data/csr.py's work plan; part_acc,
+// part_ml and part_bias have a slot for each chunk of a split row.
 extern "C" int relgat_fwd(const float* h, const float* attn,
-                          const float* rel_bias, const int* dst_ptr,
-                          const int* src, const int* etype, float* out,
-                          float* m_out, float* l_out, float* bias_out,
-                          int num_nodes, int heads, int feat, int num_rel,
+                          const float* rel_bias, const int* items,
+                          const int* src, const int* etype, const int* merge,
+                          float* out, float* m_out, float* l_out,
+                          float* bias_out, float* part_acc, float* part_ml,
+                          double* part_bias, int num_items, int num_split,
+                          int item_edges, int heads, int feat, int num_rel,
                           float slope, float eps, int use_dropout, int seed,
                           unsigned int thr, float keep_prob, void* stream) {
   using namespace relgat;
-  const int wpb = heads < kMaxWarpsPerBlock ? heads : kMaxWarpsPerBlock;
+  if (item_edges > kItemEdges || !aligned16(items) || heads < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int wpb = heads < kFwdWarps ? heads : kFwdWarps;
+  const int groups = (heads + wpb - 1) / wpb;
   const dim3 block(32 * wpb);
-  const dim3 grid(num_nodes, (heads + wpb - 1) / wpb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int fpl = (feat + 31) / 32;
-#define RELGAT_FWD_LAUNCH(FPL)                                              \
-  relgat_fwd_kernel<FPL><<<grid, block, 0, st>>>(                           \
-      h, attn, rel_bias, dst_ptr, src, etype, out, m_out, l_out, bias_out,  \
-      heads, feat, num_rel, slope, eps, use_dropout,                        \
-      static_cast<uint32_t>(seed), thr, keep_prob)
-  if (fpl <= 1) {
-    RELGAT_FWD_LAUNCH(1);
-  } else if (fpl <= 2) {
-    RELGAT_FWD_LAUNCH(2);
-  } else if (fpl <= 4) {
-    RELGAT_FWD_LAUNCH(4);
-  } else if (fpl <= kMaxFeatPerLane) {
-    RELGAT_FWD_LAUNCH(8);
+  const bool vec4 = feat % 4 == 0 && aligned16(h) && aligned16(attn) &&
+                    aligned16(out) && aligned16(part_acc);
+  const int4* it = reinterpret_cast<const int4*>(items);
+  float2* ml = reinterpret_cast<float2*>(part_ml);
+#define RELGAT_FWD_LAUNCH(VEC, NV)                                            \
+  do {                                                                        \
+    if (num_items > 0) {                                                      \
+      relgat_fwd_kernel<VEC, NV><<<num_items * groups, block, 0, st>>>(       \
+          h, attn, rel_bias, it, src, etype, out, m_out, l_out, bias_out,     \
+          part_acc, ml, part_bias, groups, heads, feat, num_rel, slope, eps,  \
+          use_dropout, static_cast<uint32_t>(seed), thr, keep_prob);          \
+      const cudaError_t err = cudaGetLastError();                             \
+      if (err != cudaSuccess) return static_cast<int>(err);                   \
+    }                                                                         \
+    if (num_split > 0) {                                                      \
+      relgat_fwd_merge_kernel<VEC, NV>                                        \
+          <<<num_split * heads, 32 * kMergeWarps, 0, st>>>(                   \
+              merge, part_acc, ml, part_bias, out, m_out, l_out, bias_out,    \
+              heads, feat, eps);                                              \
+    }                                                                         \
+  } while (0)
+  if (vec4 && feat <= 128) {
+    RELGAT_FWD_LAUNCH(4, 1);
+  } else if (vec4 && feat <= 256) {
+    RELGAT_FWD_LAUNCH(4, 2);
+  } else if (feat <= 32) {
+    RELGAT_FWD_LAUNCH(1, 1);
+  } else if (feat <= 64) {
+    RELGAT_FWD_LAUNCH(1, 2);
+  } else if (feat <= 128) {
+    RELGAT_FWD_LAUNCH(1, 4);
+  } else if (feat <= 32 * kMaxFeatPerLane) {
+    RELGAT_FWD_LAUNCH(1, 8);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,6 +9,15 @@ CUDA kernels gather and reduce rows directly, so they read plain CSR:
   in dst-sorted order. An edge's id, the key of the attention-dropout hash,
   is its position here, which is its index in ``GraphData``'s dst-sorted COO,
   the same id the JAX layouts carry in ``chunk_meta`` row 3;
+- the forward's work plan: ``fwd_items [I, 4]``, one work item a row of
+  ``(row, first edge, end edge, partial slot)``, in dst-CSR order. A row of
+  at most ``FWD_ITEM_EDGES`` in-edges (rows without in-edges included) is
+  one item, slot -1, and the kernel writes its output row directly. A
+  longer row is cut into ``ceil(deg / FWD_ITEM_EDGES)`` consecutive
+  chunks, each writing a partial (running max, sum, accumulator, bias sum)
+  into its own slot; ``fwd_merge [S, 3]`` lists each such row with its
+  slots ``[first, end)`` in chunk order for the merge kernel. So no row,
+  however many in-edges it has, is one warp's serial walk;
 - by source (backward): ``src_ptr [N+1]`` with ``by_src_dst``,
   ``by_src_etype`` and ``by_src_eid [E]``, each row's edges in id order.
 
@@ -23,6 +32,10 @@ import dataclasses
 import numpy as np
 import torch
 
+# Most edges of one forward work item: csrc/relgat_fwd.cu kItemEdges, the
+# size of the kernel's shared-memory edge table.
+FWD_ITEM_EDGES = 256
+
 
 @dataclasses.dataclass(frozen=True)
 class CSRGraph:
@@ -34,15 +47,50 @@ class CSRGraph:
     by_src_dst: torch.Tensor    # [E] src-sorted
     by_src_etype: torch.Tensor  # [E] src-sorted
     by_src_eid: torch.Tensor    # [E] src-sorted
+    fwd_items: torch.Tensor     # [I, 4] (row, e0, e1, slot or -1)
+    fwd_merge: torch.Tensor     # [S, 3] (row, first slot, end slot)
     num_nodes: int
     num_edges: int
     num_rel: int                # relations the layout indexes (> max etype)
+    fwd_item_edges: int         # the plan's most edges per item
+    fwd_num_parts: int          # partial slots of the split rows
+
+    @property
+    def fwd_num_items(self) -> int:
+        return int(self.fwd_items.shape[0])
+
+    @property
+    def fwd_num_split(self) -> int:
+        return int(self.fwd_merge.shape[0])
 
 
 def _row_ptr(keys: np.ndarray, num_rows: int) -> np.ndarray:
     ptr = np.zeros(num_rows + 1, np.int64)
     np.cumsum(np.bincount(keys, minlength=num_rows), out=ptr[1:])
     return ptr
+
+
+def build_fwd_plan(dst_ptr: np.ndarray, item_edges: int):
+    """The forward's work items ``[I, 4]`` and merge list ``[S, 3]`` (int64)
+    over a dst-CSR ``dst_ptr``, ``item_edges`` edges an item at most."""
+    if item_edges < 1:
+        raise ValueError(f"item_edges must be positive, got {item_edges}")
+    dst_ptr = np.asarray(dst_ptr, np.int64)
+    deg = np.diff(dst_ptr)
+    chunks = np.maximum(1, -(-deg // item_edges))
+    row = np.repeat(np.arange(deg.shape[0]), chunks)
+    first = np.cumsum(chunks) - chunks         # each row's first item
+    k = np.arange(row.shape[0]) - first[row]   # chunk index within the row
+    e0 = dst_ptr[row] + k * item_edges
+    e1 = np.minimum(e0 + item_edges, dst_ptr[row + 1])
+    split = chunks[row] > 1
+    slot = np.full(row.shape[0], -1, np.int64)
+    slot[split] = np.arange(int(split.sum()))
+    items = np.stack([row, e0, e1, slot], axis=1)
+    split_rows = np.flatnonzero(chunks > 1)
+    ends = np.cumsum(chunks[split_rows])
+    merge = np.stack([split_rows, ends - chunks[split_rows], ends], axis=1)
+    return items, merge.reshape(-1, 3)
 
 
 def build_csr_graph(
@@ -53,18 +101,21 @@ def build_csr_graph(
     num_rel: int,
     device: torch.device,
 ) -> CSRGraph:
-    """Build the two orderings from real edges that are already sorted by
-    dst (``data/graph.py`` sorts them stably), bounds already checked."""
+    """Build the two orderings and the forward's work plan from real edges
+    that are already sorted by dst (``data/graph.py`` sorts them stably),
+    bounds already checked."""
     e = int(src.shape[0])
     if e >= 2**31:
         raise ValueError("the kernels index edges with int32")
     by_src = np.argsort(src, kind="stable")
+    dst_ptr = _row_ptr(dst, num_nodes)
+    items, merge = build_fwd_plan(dst_ptr, FWD_ITEM_EDGES)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
 
     return CSRGraph(
-        dst_ptr=t(_row_ptr(dst, num_nodes)),
+        dst_ptr=t(dst_ptr),
         src=t(src),
         dst=t(dst),
         etype=t(etype),
@@ -72,7 +123,11 @@ def build_csr_graph(
         by_src_dst=t(dst[by_src]),
         by_src_etype=t(etype[by_src]),
         by_src_eid=t(by_src),
+        fwd_items=t(items),
+        fwd_merge=t(merge),
         num_nodes=int(num_nodes),
         num_edges=e,
         num_rel=int(num_rel),
+        fwd_item_edges=FWD_ITEM_EDGES,
+        fwd_num_parts=int(merge[-1, 2]) if len(merge) else 0,
     )

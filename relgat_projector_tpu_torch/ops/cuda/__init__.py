@@ -10,5 +10,6 @@ from relgat_projector_tpu_torch.ops.cuda.fused import (  # noqa: F401
     relgat_bwd_src_plain,
     relgat_fwd,
     relgat_fwd_plain,
+    relgat_fwd_split_plain,
     reset_launch_counts,
 )

@@ -35,7 +35,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); each returns cudaGetLastError.
 SIGNATURES = {
-    "relgat_fwd": ("relgat_fwd", [_P] * 10 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _P]),
+    "relgat_fwd": ("relgat_fwd", [_P] * 14 + [_I] * 6 + [_F, _F, _I, _I, _U, _F, _P]),
     "relgat_bwd_src": (
         "relgat_bwd",
         [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _P],

@@ -2,7 +2,12 @@
 
 Port of ``relgat_projector_tpu/ops/pallas/fused.py``:
 
-- ``relgat_fwd`` (``csrc/relgat_fwd.cu``) replaces ``_fused_kernel``;
+- ``relgat_fwd`` (``csrc/relgat_fwd.cu``) replaces ``_fused_kernel``. It
+  walks the work items of ``CSRGraph.fwd_items`` (a row of at most
+  ``FWD_ITEM_EDGES`` in-edges, or one such chunk of a longer row); the
+  chunks of a split row leave partials in scratch, which a second kernel
+  merges in a fixed order (``relgat_fwd_split_plain`` is that route in
+  plain PyTorch);
 - ``relgat_bwd_src`` and ``relgat_bwd_rel`` (``csrc/relgat_bwd.cu``) together
   replace ``_bwd_src_kernel``. The first computes dh in src order and folds
   each edge's logit gradient ``de`` per (src row, relation) into ``W``, and
@@ -31,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from relgat_projector_tpu_torch.data.csr import CSRGraph
+from relgat_projector_tpu_torch.data.csr import FWD_ITEM_EDGES, CSRGraph
 from relgat_projector_tpu_torch.ops.cuda.build import entry_point
 from relgat_projector_tpu_torch.ops.dropout import (
     edge_keep_mask_all_heads,
@@ -40,6 +45,7 @@ from relgat_projector_tpu_torch.ops.dropout import (
 from relgat_projector_tpu_torch.ops.segment import segment_max, segment_sum
 
 MAX_FEAT = 256  # csrc/relgat_common.cuh kMaxFeatPerLane * 32
+# FWD_ITEM_EDGES (data/csr.py) is csrc/relgat_fwd.cu kItemEdges.
 MAX_WARPS_PER_BLOCK = 8  # csrc/relgat_common.cuh kMaxWarpsPerBlock
 MAX_BWD_SMEM_BYTES = 48 * 1024  # csrc/relgat_bwd.cu kMaxBwdSmemBytes
 EDGE_TABLE_BYTES = 32 * 32  # csrc/relgat_bwd.cu 32 EdgeEntry a warp
@@ -139,6 +145,43 @@ def relgat_fwd_plain(
     return out.reshape(n, hf), m, l, bias
 
 
+def relgat_fwd_split_plain(
+    h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope, eps
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``relgat_fwd_plain`` by the kernels' route: a partial ``(m_c, l_c,
+    acc_c, bias_c)`` per work item of ``csr.fwd_items``, then each row's
+    items merged, ``m = max m_c``, ``l = sum l_c e^(m_c - m)``, ``acc`` alike
+    and the bias summed. The tests hold it to ``relgat_fwd_plain``."""
+    n, hf = h.shape
+    heads, _, f = attn.shape
+    items = csr.fwd_items.long()
+    row = items[:, 0]
+    num_items = items.shape[0]
+    item = torch.repeat_interleave(
+        torch.arange(num_items, device=h.device), items[:, 2] - items[:, 1])
+    src, et = csr.src.long(), csr.etype.long()
+    hs = h.view(n, heads, f)[src]                                # [E, H, F]
+    e = F.leaky_relu(
+        (hs * attn[:, et].transpose(0, 1)).sum(-1), negative_slope
+    )                                                            # [E, H]
+    m_c = segment_max(e, item, num_items)                        # [I, H]
+    p = torch.exp(e - m_c[item])
+    l_c = segment_sum(p, item, num_items)
+    keep = _keep_scale(csr, heads, seed, rate, h.device)
+    if keep is not None:
+        p = p * keep
+    acc_c = segment_sum(hs * p[..., None], item, num_items)
+    bias_c = segment_sum(rel_bias[et], item, num_items)
+    m = segment_max(m_c, row, n)
+    # only the one item of a row without in-edges has m_c = -inf
+    w = torch.exp(m_c - torch.where(torch.isfinite(m), m, 0.0)[row])
+    l = segment_sum(l_c * w, row, n)
+    acc = segment_sum(acc_c * w[..., None], row, n)
+    bias = segment_sum(bias_c, row, n)
+    out = acc / l.clamp_min(eps)[..., None] + bias[:, None, None]
+    return out.reshape(n, hf), m, l, bias
+
+
 def relgat_fwd(
     h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope, eps
 ):
@@ -150,17 +193,28 @@ def relgat_fwd(
             negative_slope=negative_slope, eps=eps,
         )
     n, heads, num_rel, f = _check_shapes("relgat_fwd", h, attn, csr)
+    if csr.fwd_item_edges > FWD_ITEM_EDGES:
+        raise ValueError(
+            f"relgat_fwd: work items of {csr.fwd_item_edges} edges exceed "
+            f"the kernel's edge table of {FWD_ITEM_EDGES}"
+        )
     out = torch.empty_like(h)
     m = h.new_empty((n, heads))
     l = h.new_empty((n, heads))
     bias = h.new_empty((n,))
+    parts = csr.fwd_num_parts
+    part_acc = h.new_empty((parts, heads, f))
+    part_ml = h.new_empty((parts, heads, 2))
+    part_bias = h.new_empty((parts,), dtype=torch.float64)
     use, s, thr, keep = _dropout_args(seed, rate)
     rc = entry_point("relgat_fwd")(
         h.data_ptr(), attn.data_ptr(), rel_bias.data_ptr(),
-        csr.dst_ptr.data_ptr(), csr.src.data_ptr(), csr.etype.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), bias.data_ptr(),
-        n, heads, f, num_rel, float(negative_slope), float(eps),
-        use, s, thr, keep, _stream(),
+        csr.fwd_items.data_ptr(), csr.src.data_ptr(), csr.etype.data_ptr(),
+        csr.fwd_merge.data_ptr(), out.data_ptr(), m.data_ptr(),
+        l.data_ptr(), bias.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), part_bias.data_ptr(), csr.fwd_num_items,
+        csr.fwd_num_split, csr.fwd_item_edges, heads, f, num_rel,
+        float(negative_slope), float(eps), use, s, thr, keep, _stream(),
     )
     _raise_on(rc, "relgat_fwd")
     relgat_fwd.launches += 1

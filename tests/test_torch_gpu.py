@@ -12,10 +12,13 @@ rounding (the kernels keep a true per-row running max like the plain
 version).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from relgat_projector_tpu_torch.data.csr import FWD_ITEM_EDGES, build_fwd_plan
 from relgat_projector_tpu_torch.data.graph import build_graph
 from relgat_projector_tpu_torch.ops import cuda as kern
 from relgat_projector_tpu_torch.ops.propagate import relgat_propagate_kernels
@@ -119,6 +122,70 @@ def test_cuda_tensors_never_fall_back(card):
     with pytest.raises(ValueError):
         kern.relgat_fwd(h[:, :-1].contiguous(), attn, bias, g.csr, seed=None,
                         rate=0.0, negative_slope=0.2, eps=1e-16)
+
+
+def _hub_case(degree, heads=16, feat=128, num_rel=40, n=3000, e=30_000):
+    """A uniform graph and one row (77) with ``degree`` in-edges."""
+    rng = np.random.default_rng(degree)
+    src = rng.integers(0, n, e + degree)
+    dst = np.concatenate([rng.integers(100, n, e), np.full(degree, 77)])
+    et = rng.integers(0, num_rel, e + degree)
+    g = build_graph(src, dst, et, n, num_rel=num_rel, csr=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(degree)
+    h = torch.randn((g.num_nodes, heads * feat), generator=gen,
+                    device="cuda") * 0.5
+    attn = torch.randn((heads, num_rel, feat), generator=gen,
+                       device="cuda") * 0.1
+    bias = torch.randn((num_rel,), generator=gen, device="cuda") * 0.1
+    return g, h, attn, bias
+
+
+@pytest.mark.parametrize(
+    "degree", (FWD_ITEM_EDGES, FWD_ITEM_EDGES + 1, 50_000))
+def test_split_rows_match_plain(card, degree):
+    g, h, attn, bias = _hub_case(degree)
+    csr = g.csr
+    assert int(np.diff(csr.dst_ptr.cpu().numpy())[77]) == degree
+    assert csr.fwd_num_split == (degree > FWD_ITEM_EDGES)
+    kw = dict(seed=-987654321, rate=0.3, negative_slope=0.2, eps=1e-16)
+    out_k, m_k, l_k, b_k = kern.relgat_fwd(h, attn, bias, csr, **kw)
+    out_p, m, l, b = _exact(kern.relgat_fwd_plain, h, attn, bias, csr, **kw)
+    assert _rel(out_k, out_p) <= REL_TOL
+    assert _rel(out_k[77], out_p[77]) <= REL_TOL
+    assert _rel(l_k, l) <= REL_TOL and _rel(b_k, b) <= REL_TOL
+    fin = torch.isfinite(m)
+    assert torch.equal(torch.isfinite(m_k), fin)
+    assert _rel(m_k[fin], m[fin]) <= REL_TOL
+
+
+def test_forward_is_deterministic(card):
+    g, h, attn, bias = _hub_case(50_000)
+    kw = dict(seed=5, rate=0.3, negative_slope=0.2, eps=1e-16)
+    first = kern.relgat_fwd(h, attn, bias, g.csr, **kw)
+    second = kern.relgat_fwd(h, attn, bias, g.csr, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_split_path_never_falls_back(card):
+    g, h, attn, bias = _hub_case(3 * FWD_ITEM_EDGES + 5, heads=2, feat=16)
+    kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+    before = kern.relgat_fwd.launches
+    out, _, _, _ = kern.relgat_fwd(h, attn, bias, g.csr, **kw)
+    torch.cuda.synchronize()
+    assert out.is_cuda and kern.relgat_fwd.launches == before + 1
+    # a plan whose items outgrow the kernel's edge table is refused
+    wide = 2 * FWD_ITEM_EDGES
+    items, merge = build_fwd_plan(g.csr.dst_ptr.cpu().numpy(), wide)
+    csr = dataclasses.replace(
+        g.csr,
+        fwd_items=torch.from_numpy(items.astype(np.int32)).cuda(),
+        fwd_merge=torch.from_numpy(merge.astype(np.int32)).cuda(),
+        fwd_item_edges=wide, fwd_num_parts=int(merge[-1, 2]),
+    )
+    with pytest.raises(ValueError, match="edge table"):
+        kern.relgat_fwd(h, attn, bias, csr, **kw)
+    assert kern.relgat_fwd.launches == before + 1
 
 
 def test_bwd_src_limits_relations_to_shared_memory(card):

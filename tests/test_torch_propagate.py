@@ -28,7 +28,7 @@ from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
 TD, TE = 16, 64
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
-CASES = ("uniform", "empty_rows", "heavy_dst", "no_bias", "dropout")
+CASES = ("uniform", "empty_rows", "heavy_dst", "no_bias", "dropout", "zipf")
 DROPOUT_KEY = 3
 
 
@@ -41,6 +41,10 @@ def _inputs(case):
         dst = rng.integers(0, 32, e)  # most rows get no in-edge
     if case == "heavy_dst":
         dst[:200] = 5  # 200 in-edges span 4 chunks of TE = 64
+    if case == "zipf":
+        # in-degree on hubs, dst drawn with p ~ 1/rank (bench.py's recipe)
+        p = 1.0 / np.arange(1, n + 1) ** 1.0
+        dst = rng.choice(n, size=e, p=p / p.sum())
     et = rng.integers(0, r, e)
     g = build_graph(src, dst, et, n, num_rel=r, csr=True, device="cpu")
     n_pad = g.num_nodes
@@ -141,6 +145,12 @@ def test_kernel_path_zeroes_rows_without_in_edges():
 def test_heavy_dst_spans_three_tpu_chunks():
     g = _inputs("heavy_dst")[0]
     assert np.bincount(g.csr.dst.numpy()).max() >= 2 * TE + 1
+
+
+def test_zipf_puts_in_degree_on_hubs():
+    g = _inputs("zipf")[0]
+    deg = np.bincount(g.csr.dst.numpy(), minlength=g.num_nodes)
+    assert deg.max() >= 20 * deg.mean() and (deg == 0).sum() >= 20
 
 
 def test_kernel_path_needs_the_csr_layout():
