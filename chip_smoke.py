@@ -44,29 +44,58 @@ Phases, in order; any failure exits non-zero:
               in-edges): 3 warm-up and 5 timed train steps, and relgat_fwd
               timed on that graph and held to its float64 plain version on
               the in-edges of the 16 heaviest and 1,024 random rows.
+8. trainer  - the port's CLI (cli.main, in process) on the card with the
+              production script's flags (preset small, 16 heads x 128, 2
+              GAT layers, projection to the input with 2 layers, distmult,
+              batch 128, 32 negatives, self-adversarial, loss weights
+              1/1/1/0, dropout 0.3, weight decay 1e-4, lr 2e-5 linear,
+              early-stop patience 10, --use-pallas) on a synthetic KG of
+              in_dim 1152 and 40 relations (seed 0). Leg 1 trains one epoch
+              with eval and best-checkpoint saves; leg 2 is the same argv
+              with --resume. Checked: the checkpoint layout and pruning, the
+              saved step counts, each kernel's launches (one relgat_fwd per
+              layer per step and per eval, one of each backward kernel per
+              layer per step), that leg 2 resumed from leg 1's final
+              directory. Then through the Python API: one step after
+              maybe_resume is bit-identical to the step from the live state,
+              and the trainer's epoch per step is within 1.10x of a bare
+              make_train_step loop over the same batches. Cuts, against
+              production: the graph is 20,000 nodes and 50,000 triplets
+              (the generator's nn-pool 256), not plWordNet's size; one epoch
+              per leg, not 60; eval and save every 100 steps, not 500, so
+              that they fire within the epoch's 352 steps.
 
 The last lines are the kernels JSON line, nvidia-smi's name and power limit,
-and {"ok": true, "device": {...}}. With --out DIR the result lines and a
-profiler trace of two train steps are also written there.
+and {"ok": true, "device": {...}}. With --out DIR the result lines, a
+profiler trace of two train steps and the trainer's console logs are also
+written there (its checkpoints go to a temporary directory, removed after).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
+import itertools
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from relgat_projector_tpu_torch import cli
 from relgat_projector_tpu_torch.config import ModelConfig, TrainConfig
 from relgat_projector_tpu_torch.data.graph import (
     build_graph,
     pad_node_embeddings,
 )
+from relgat_projector_tpu_torch.data.synthetic import generate_synthetic_kg
 from relgat_projector_tpu_torch.models.model import get_node_repr, init_model
 from relgat_projector_tpu_torch.ops import cuda as kern
 from relgat_projector_tpu_torch.ops.cuda.build import build_all
@@ -82,6 +111,7 @@ from relgat_projector_tpu_torch.train.step import (
     loss_and_grads,
     make_train_step,
 )
+from relgat_projector_tpu_torch.train.trainer import RelGATTrainer
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 from relgat_projector_tpu_torch.utils.tree import tree_leaves
 
@@ -98,6 +128,10 @@ TRAIN = dict(num_nodes=100_000, num_edges=1_000_000, num_rel=40, in_dim=1152,
              heads=16, feat=128, layers=2, batch=128, num_neg=32,
              warmup_steps=3, timed_steps=10, epochs=60)
 ZIPF = dict(warmup_steps=3, timed_steps=5, heavy_rows=16, random_rows=1_024)
+TRAINER = dict(nodes=20_000, triplets=50_000, num_rel=40, in_dim=1152,
+               nn_pool=256, heads=16, feat=128, layers=2, batch=128,
+               num_neg=32, every=100, train_ratio=0.9, bare_steps=100,
+               max_over_bare=1.10, max_checkpoints=5)
 KERNEL_SOURCES = {
     "relgat_fwd": ("relgat_projector_tpu_torch/csrc/relgat_fwd.cu",
                    "relgat_projector_tpu/ops/pallas/fused.py:116"),
@@ -478,13 +512,13 @@ def phase_train(card, out_lines, out_dir):
 
 
 def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
-                  matmul_flops, card, out_lines, out_dir):
+                  matmul_flops, card, out_lines, out_dir, phase="profile"):
     """Where the step's device time goes, from torch.profiler over two
     steps. The idle share is one minus the device's busy time per step over
     ``step_ms``, the step time measured without the profiler (the profiled
     window's own wall time includes the profiler's start-up). Diagnostic
     only: a profiler that cannot trace here is reported as not measured and
-    fails nothing."""
+    fails nothing. The line and the trace are named after ``phase``."""
     from torch.profiler import ProfilerActivity, profile
 
     steps = 2
@@ -513,7 +547,7 @@ def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
             top.append((us, name[:90]))
         busy_ms = sum(groups.values()) / 1e3 / steps
         top.sort(reverse=True)
-        emit({"phase": "profile", "card": card, "steps": steps,
+        emit({"phase": phase, "card": card, "steps": steps,
               "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
               "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
               "device_ms_per_step_by_group": {
@@ -525,9 +559,10 @@ def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
                                           for u, n in top[:12]]},
              out_lines)
         if out_dir is not None:
-            prof.export_chrome_trace(str(out_dir / "chip_smoke_trace.json"))
+            name = "trace" if phase == "profile" else f"{phase}_trace"
+            prof.export_chrome_trace(str(out_dir / f"chip_smoke_{name}.json"))
     except Exception as exc:  # the profiler is diagnostic, not a phase
-        emit({"phase": "profile", "card": card,
+        emit({"phase": phase, "card": card,
               "not_measured": f"{type(exc).__name__}: {exc}"}, out_lines)
 
 
@@ -779,6 +814,225 @@ def phase_zipf(card, uniform_step_ms, out_lines):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the trainer through the CLI
+# ---------------------------------------------------------------------------
+
+def trainer_argv(save_dir):
+    """``training_scripts/run-relgat-trainer-base-model.sh``'s flags, on a
+    synthetic KG of ``TRAINER``'s size, one epoch, eval and save every
+    ``TRAINER["every"]`` steps."""
+    c = TRAINER
+    return [
+        "--synthetic", "--synthetic-nodes", str(c["nodes"]),
+        "--synthetic-edges", str(c["triplets"]),
+        "--synthetic-rels", str(c["num_rel"]),
+        "--synthetic-dim", str(c["in_dim"]),
+        "--synthetic-nn-pool", str(c["nn_pool"]), "--seed", str(SEED),
+        "--architecture-name", "small", "--epochs", "1",
+        "--batch-size", str(c["batch"]), "--num-neg", str(c["num_neg"]),
+        "--gat-out-dim", str(c["feat"]), "--gat-num-layers", str(c["layers"]),
+        "--heads", str(c["heads"]), "--scorer", "distmult",
+        "--project-to-input-size", "--projection-layers", "2",
+        "--projection-dropout", "0.3", "--dropout", "0.3", "--lr", "2e-5",
+        "--lr-scheduler", "linear", "--weight-decay", "1e-4",
+        "--use-self-adv-neg", "--self-adv-alpha", "1.0",
+        "--relgat-weight", "1.0", "--pos-cosine-weight", "1.0",
+        "--neg-cosine-weight", "1.0", "--mse-weight", "0.0",
+        "--early-stop-patience", "10",
+        "--eval-every-n-steps", str(c["every"]),
+        "--save-every-n-steps", str(c["every"]),
+        "--log-every-n-steps", str(c["every"]),
+        "--max-checkpoints", str(c["max_checkpoints"]),
+        "--save-dir", str(save_dir), "--use-pallas", "--device", DEVICE,
+    ]
+
+
+def logged(log, key):
+    """Every value the trainer logged under ``key`` (its console JSON)."""
+    return [float(v) for v in re.findall(rf'"{re.escape(key)}": ([^,\n]+)',
+                                         log)]
+
+
+def run_cli_leg(argv, name, out_dir):
+    """``cli.main(argv)`` with its console captured (and written to
+    ``out_dir``); returns (seconds, launch counts, console text)."""
+    buf = io.StringIO()
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kern.launch_counts()
+    if out_dir is not None:
+        (out_dir / f"chip_smoke_trainer_{name}.log").write_text(buf.getvalue())
+    return seconds, counts, buf.getvalue()
+
+
+def saved_counts(ckpt_dir):
+    """(step + nonfinite_steps, loop-state dispatch_step) of a checkpoint."""
+    state = torch.load(ckpt_dir / "train-state.pt", map_location="cpu",
+                       weights_only=True)
+    loop = json.loads((ckpt_dir / "loop-state.json").read_text())
+    return int(state["step"]) + int(state["nonfinite_steps"]), \
+        loop["dispatch_step"], loop["best_metric_value"]
+
+
+def check_leg(what, counts, log, steps, layers):
+    evals = len(logged(log, "eval/mrr"))
+    check(counts["relgat_bwd_src"] == counts["relgat_bwd_rel"]
+          == layers * steps,
+          f"{what}: backward launches {counts}, expected {layers * steps}")
+    check(counts["relgat_fwd"] == layers * (steps + evals),
+          f"{what}: relgat_fwd launched {counts['relgat_fwd']} times, "
+          f"expected {layers} x ({steps} steps + {evals} evals)")
+    losses = logged(log, "train/loss_step")
+    check(bool(losses) and np.isfinite(losses[-1]),
+          f"{what}: last logged loss {losses[-1:]}")
+    return evals
+
+
+def state_leaves(state):
+    return (tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
+            + tree_leaves(state.opt_state.nu)
+            + [state.opt_state.count, state.step, state.nonfinite_steps])
+
+
+def resume_and_overhead(argv, work, steps, bs, card, out_lines, out_dir):
+    """Through the Python API, on the same data and run config without
+    eval: trainer A trains one epoch (timed per step) and saves; trainer B
+    resumes from that directory; each takes one step on the same batch, and
+    every parameter, Adam moment and counter must be bit-identical. Then a
+    bare ``make_train_step`` loop over the first ``bare_steps`` batches of
+    the same epoch, timed the same way."""
+    c = TRAINER
+    base = cli.build_run_config(cli.get_args(argv))
+    run = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, eval_every_n_steps=None, save_every_n_steps=None,
+        out_dir=str(work / "resume")))
+    kg = generate_synthetic_kg(
+        num_nodes=c["nodes"], num_edges=c["triplets"], num_rel=c["num_rel"],
+        emb_dim=c["in_dim"], seed=SEED, nn_pool=c["nn_pool"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        a = RelGATTrainer(run, *kg, log_to_console=False, device=DEVICE)
+        check(a.dataset.steps_per_epoch(bs) == steps,
+              f"trainer has {a.dataset.steps_per_epoch(bs)} steps an epoch")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a._single_epoch(1, 1)
+        torch.cuda.synchronize()
+        trainer_step_ms = (time.perf_counter() - t0) / steps * 1e3
+        ckpt = a._save_checkpoint("resume_check")
+        a.storage.wait_for_writes()
+        b = RelGATTrainer(run, *kg, log_to_console=False, device=DEVICE)
+        check(b.maybe_resume(ckpt), "maybe_resume found nothing")
+    batch = a._device_batch(next(iter(a.dataset.train_batches(bs))))
+    a.state, _ = a._train_step(a.state, a.node_emb, a.graph, *batch)
+    b.state, _ = b._train_step(b.state, b.node_emb, b.graph, *batch)
+    identical = all(torch.equal(x, y) for x, y in
+                    zip(state_leaves(a.state), state_leaves(b.state)))
+    identical = identical and all(
+        torch.equal(getattr(a.state.rng, k).get_state(),
+                    getattr(b.state.rng, k).get_state())
+        for k in ("host", "device"))
+    graph = a.graph
+    indeg = np.diff(graph.csr.dst_ptr.cpu().numpy())
+    stats = {"max_in_degree": int(indeg.max()),
+             "rows_without_in_edges": int((indeg[:graph.num_real_nodes]
+                                           == 0).sum()),
+             "split_rows": graph.csr.fwd_num_split}
+    del a
+
+    step = make_train_step(b.model_cfg, b.train_cfg, b.optimizer,
+                           b.lr_schedule)
+    batches = [b._device_batch(x) for x in itertools.islice(
+        b.dataset.train_batches(bs), c["bare_steps"])]
+    state = b.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in batches:
+        state, _ = step(state, b.node_emb, b.graph, *x)
+    torch.cuda.synchronize()
+    bare_step_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    if out_dir is not None:
+        (out_dir / "chip_smoke_trainer_resume.log").write_text(buf.getvalue())
+    # The device's busy time per step against the trainer's step time: the
+    # idle share is what the trainer's host loop leaves the card.
+    profile_steps(step, state, b.node_emb, b.graph, batches[0][:3],
+                  batches[0][3], trainer_step_ms,
+                  step_matmul_flops(b.graph.num_nodes), card, out_lines,
+                  out_dir, phase="trainer_profile")
+    return identical, trainer_step_ms, bare_step_ms, stats
+
+
+def phase_trainer(card, out_lines, out_dir):
+    c = TRAINER
+    bs, layers = c["batch"], c["layers"]
+    steps = -(-int(c["train_ratio"] * c["triplets"]) // bs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        work = Path(tmp)
+        argv = trainer_argv(work / "cli")
+        final = work / "cli" / "relgat_scorer-distmult_lrscheduler-linear"
+
+        leg1_s, counts1, log1 = run_cli_leg(argv, "leg1", out_dir)
+        evals1 = check_leg("trainer leg 1", counts1, log1, steps, layers)
+        files = sorted(p.name for p in final.iterdir())
+        check(files == sorted([
+            "config.json", "training-config.json", "relations-map.json",
+            "loop-state.json", "relgat-model.pt", "train-state.pt"]),
+            f"final checkpoint holds {files}")
+        best = [p for p in final.parent.iterdir()
+                if p.name.startswith("best_checkpoint_")]
+        check(0 < len(best) <= c["max_checkpoints"],
+              f"{len(best)} best checkpoints kept")
+        ckpt_bytes = sum(p.stat().st_size for p in final.iterdir())
+        done1, dispatch1, best1 = saved_counts(final)
+        check(done1 == dispatch1 == steps,
+              f"leg 1 saved step+nonfinite {done1}, dispatch {dispatch1}, "
+              f"expected {steps}")
+        check(best1 is not None and np.isfinite(best1),
+              f"leg 1 best eval cosine {best1}")
+
+        leg2_s, counts2, log2 = run_cli_leg(argv + ["--resume"], "leg2",
+                                            out_dir)
+        evals2 = check_leg("trainer leg 2", counts2, log2, steps, layers)
+        resumed = f"Resumed from {final} at step" in log2
+        check(resumed, "leg 2 did not resume from leg 1's final directory")
+        done2, dispatch2, _ = saved_counts(final)
+        check(done2 == dispatch2 == 2 * steps,
+              f"leg 2 saved step+nonfinite {done2}, dispatch {dispatch2}, "
+              f"expected {2 * steps}")
+        peak = torch.cuda.max_memory_allocated()
+
+        identical, trainer_ms, bare_ms, stats = resume_and_overhead(
+            argv, work, steps, bs, card, out_lines, out_dir)
+    ratio = trainer_ms / bare_ms
+    emit({"phase": "trainer", "card": card,
+          "nodes": c["nodes"], "triplets": c["triplets"],
+          "in_dim": c["in_dim"], "num_rel": c["num_rel"],
+          "steps_per_epoch": steps, **stats,
+          "leg1_s": leg1_s, "leg2_s": leg2_s,
+          "trainer_step_ms": trainer_ms, "bare_step_ms": bare_ms,
+          "trainer_over_bare": ratio, "bare_steps": c["bare_steps"],
+          "edges_per_sec_last_flush": [logged(log1, "train/edges_per_sec")[-1],
+                                       logged(log2, "train/edges_per_sec")[-1]],
+          "evals": [evals1, evals2],
+          "launches": {"leg1": counts1, "leg2": counts2},
+          "checkpoint_bytes": ckpt_bytes,
+          "max_memory_allocated_bytes": peak,
+          "resumed_from_final": resumed,
+          "resume_bit_identical": identical}, out_lines)
+    check(identical, "one step after resume differs from the live step")
+    check(ratio <= c["max_over_bare"],
+          f"trainer step {trainer_ms:.3f} ms is {ratio:.3f}x the bare loop's "
+          f"{bare_ms:.3f} ms (limit {c['max_over_bare']})")
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -822,6 +1076,7 @@ def main(argv=None) -> int:
         kernels = phase_kernels(graph, counts, card, out_lines)
         del graph
         kernels.append(phase_zipf(card, step_ms, out_lines))
+        phase_trainer(card, out_lines, args.out)
         emit({"parity_max_rel_err": worst, "card": card}, out_lines)
     emit({"kernels": kernels}, out_lines)
     if args.out is not None:

@@ -10,7 +10,9 @@ In this package:
   and are accepted and ignored: the CUDA path reads CSR;
 - mesh, scan, halo and partition fields are accepted; a value this package
   cannot run yet (scanned propagate, remat, bf16 compute or kernel streams,
-  more than one device) raises ``NotImplementedError``.
+  more than one device, more than one step per call) raises
+  ``NotImplementedError`` naming the field, so a ``training-config.json``
+  from the JAX package that asks for one fails when it is loaded.
 """
 
 from __future__ import annotations
@@ -33,16 +35,34 @@ class Defaults:
     GAT_HEADS = 12
     GAT_NUM_LAYERS = 1
     GAT_DROPOUT = 0.25
+    PROJECTION_DROPOUT = 0.25
     GAT_ATT_DROPOUT = 0.0
     GAT_OUT_DIM = 300
 
     LR = 2e-4
     LR_SCHEDULER = "linear"  # {"linear", "cosine", "constant"}
+    WARMUP_STEPS = None
     DEFAULT_WARMUP_RATIO = 0.1
 
     GAT_SCORER = "distmult"  # {"distmult", "transe"}
 
+    # This package's weights file; the JAX package writes
+    # ``relgat-model.msgpack`` beside the same JSON sidecars.
+    OUT_MODEL_NAME = "relgat-model.pt"
     DEFAULT_TRAINER_OUT_DIR = "relgat-out"
+    TRAINING_CONFIG_FILE_NAME = "training-config.json"
+    TRAINING_CONFIG_REL_TO_IDX = "relations-map.json"
+    TRAIN_STATE_DIR_NAME = "train-state"
+    MODEL_CONFIG_FILE_NAME = "config.json"
+
+
+# Architecture presets, the JAX package's (the reference left them as
+# unwired stubs, ``core/architecture/_todo_available.py:5-11``).
+ARCHITECTURE_PRESETS: Dict[str, Dict[str, int]] = {
+    "small": {"gat_out_dim": 128, "gat_num_layers": 2, "gat_heads": 8},
+    "medium": {"gat_out_dim": 128, "gat_num_layers": 3, "gat_heads": 10},
+    "large": {"gat_out_dim": 256, "gat_num_layers": 4, "gat_heads": 12},
+}
 
 
 @dataclass(frozen=True)
@@ -200,7 +220,11 @@ class MeshConfig:
 
     def __post_init__(self) -> None:
         if self.num_devices > 1:
-            raise NotImplementedError("multi-device meshes are not ported yet")
+            raise NotImplementedError(
+                f"mesh data_axis={self.data_axis}, "
+                f"graph_axis={self.graph_axis}, model_axis={self.model_axis}:"
+                " multi-device meshes are not ported yet"
+            )
 
     @property
     def num_devices(self) -> int:
@@ -246,3 +270,15 @@ class RunConfig:
     def from_json(s: str) -> "RunConfig":
         return RunConfig.from_dict(json.loads(s))
 
+
+def apply_architecture_preset(
+    name: Optional[str], overrides: Dict[str, Any]
+) -> Dict[str, Any]:
+    """Merge a named preset under explicit overrides (overrides win).
+    Unknown names pass through, as in the reference."""
+    merged = dict(overrides)
+    preset = ARCHITECTURE_PRESETS.get((name or "").lower())
+    if preset:
+        for k, v in preset.items():
+            merged.setdefault(k, v)
+    return merged

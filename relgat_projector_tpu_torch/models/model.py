@@ -10,16 +10,24 @@ tensors in the JAX layout::
 and every apply function is a plain function of them. Stacked layers have
 ELU between them (not after the last); the projection head maps back to the
 input dim; ``single_gat_step`` computes every node's representation.
+
+``save_pretrained`` / ``load_from_pretrained`` keep the JAX package's
+directory: ``config.json`` and the ``add_files`` JSON sidecars, with the
+weights in this package's own file, ``relgat-model.pt`` (``torch.save`` of
+the parameter tree as CPU tensors, read back with ``weights_only=True``).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from relgat_projector_tpu_torch.config import ModelConfig
+from relgat_projector_tpu_torch.config import Defaults, ModelConfig
 from relgat_projector_tpu_torch.data.graph import GraphData
 from relgat_projector_tpu_torch.device import (
     DeviceLike,
@@ -36,7 +44,7 @@ from relgat_projector_tpu_torch.models.projection import (
     init_projection_head,
 )
 from relgat_projector_tpu_torch.utils.rng import RngStreams
-from relgat_projector_tpu_torch.utils.tree import tree_map
+from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
 
@@ -163,3 +171,59 @@ def transform(
     """Gather node representations, then apply the relation operator."""
     x = single_gat_step(params, cfg, node_emb, graph, train=False)
     return transform_from_vectors(params, cfg, x[src_ids], rel_ids)
+
+
+# ---------------------------------------------------------------------------
+# Persistence (HF-style directory: config.json + weights)
+# ---------------------------------------------------------------------------
+
+def save_pretrained(
+    output_dir: str,
+    params: Params,
+    cfg: ModelConfig,
+    add_files: Optional[list] = None,
+) -> None:
+    """Write ``config.json``, the ``(file name, JSON content)`` pairs of
+    ``add_files`` and the weights (reference ``model.py:196-215``)."""
+    os.makedirs(output_dir, exist_ok=True)
+    files = list(add_files or [])
+    files.append((Defaults.MODEL_CONFIG_FILE_NAME, cfg.to_dict()))
+    for fname, content in files:
+        with open(os.path.join(output_dir, fname), "w", encoding="utf-8") as f:
+            json.dump(content, f, ensure_ascii=False, indent=2)
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    torch.save(host, os.path.join(output_dir, Defaults.OUT_MODEL_NAME))
+
+
+def load_from_pretrained(
+    input_dir: str,
+    *,
+    node_emb: Any,
+    device: DeviceLike = "cuda",
+) -> Tuple[Params, ModelConfig]:
+    """Read config and weights onto ``device``, checking the input dim
+    against the embeddings that will be fed (reference ``model.py:217-272``)
+    and every weight's shape against the config's."""
+    dev = resolve_device(device)
+    cfg_path = os.path.join(input_dir, Defaults.MODEL_CONFIG_FILE_NAME)
+    w_path = os.path.join(input_dir, Defaults.OUT_MODEL_NAME)
+    if not os.path.isfile(cfg_path):
+        raise FileNotFoundError(f"Config file not found: {cfg_path}")
+    if not os.path.isfile(w_path):
+        raise FileNotFoundError(f"Weights file not found: {w_path}")
+    with open(cfg_path, "r", encoding="utf-8") as f:
+        cfg = ModelConfig.from_dict(json.load(f))
+    in_dim = int(np.shape(node_emb)[1])
+    if int(cfg.in_dim) != in_dim:
+        raise ValueError(
+            f"Input dim mismatch: config={cfg.in_dim} vs node_emb={in_dim}"
+        )
+    params = torch.load(w_path, map_location="cpu", weights_only=True)
+    want = [tuple(t.shape) for t in tree_leaves(init_model(cfg, device="cpu"))]
+    got = [tuple(t.shape) for t in tree_leaves(params)]
+    if got != want:
+        raise ValueError(
+            f"weights in {w_path} do not fit {cfg_path}: shapes {got} "
+            f"against {want}"
+        )
+    return tree_map(lambda t: t.to(dev), params), cfg

@@ -56,10 +56,7 @@ def make_lr_schedule(
             after = torch.ones_like(step)
         mult = torch.where(step < ws, warm, after)
         if lr_decay != 1.0:
-            mult = mult * torch.pow(
-                torch.tensor(lr_decay, dtype=torch.float32, device=step.device),
-                (step - ws).clamp_min(0.0),
-            )
+            mult = mult * torch.pow(float(lr_decay), (step - ws).clamp_min(0.0))
         return base_lr * mult
 
     return schedule

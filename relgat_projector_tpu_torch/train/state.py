@@ -68,8 +68,10 @@ class Optimizer:
         nu = tree_map(lambda g, v: (1 - _B2) * g.square() + _B2 * v, grads, state.nu)
         count = state.count + 1
         c = count.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(_B1, device=c.device), c)
-        bc2 = 1 - torch.pow(torch.tensor(_B2, device=c.device), c)
+        # A Python base, not a tensor made on the device: copying a host
+        # value to the card would wait for the stream every step.
+        bc1 = 1 - torch.pow(_B1, c)
+        bc2 = 1 - torch.pow(_B2, c)
         upd = tree_map(
             lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + _EPS), mu, nu
         )

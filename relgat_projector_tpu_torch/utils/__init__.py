@@ -1,1 +1,1 @@
-"""Helpers: pytrees of tensors and random streams."""
+"""Helpers: pytrees of tensors, random streams, seeding and logging."""

@@ -24,6 +24,9 @@ setup(
             "relgat-projector-import-torch=relgat_projector_tpu.interop:main",
             "relgat-projector-export-torch="
             "relgat_projector_tpu.interop:main_export",
+            # The PyTorch/CUDA port's trainer (same flags, plus --device).
+            "relgat-projector-train-torch="
+            "relgat_projector_tpu_torch.cli:main",
         ]
     },
 )

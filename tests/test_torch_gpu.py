@@ -18,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from relgat_projector_tpu_torch.config import ModelConfig, RunConfig, TrainConfig
 from relgat_projector_tpu_torch.data.csr import FWD_ITEM_EDGES, build_fwd_plan
+from relgat_projector_tpu_torch.data.synthetic import generate_synthetic_kg
 from relgat_projector_tpu_torch.data.graph import build_graph
 from relgat_projector_tpu_torch.ops import cuda as kern
 from relgat_projector_tpu_torch.ops.propagate import relgat_propagate_kernels
@@ -204,3 +206,33 @@ def test_bwd_src_limits_relations_to_shared_memory(card):
             with pytest.raises(ValueError, match=f"limit of {limit}"):
                 kern.relgat_bwd_src(*args, **kw)
     torch.cuda.synchronize()
+
+
+def test_trainer_runs_every_step_through_the_kernels(card, tmp_path):
+    """A tiny trainer on the card: one relgat_fwd per layer per train step
+    and per evaluation, one of each backward kernel per layer per step."""
+    layers, steps_per_eval = 2, 4
+    kg = generate_synthetic_kg(num_nodes=400, num_edges=3000, num_rel=5,
+                               emb_dim=32, seed=1)
+    run = RunConfig(
+        model=ModelConfig(in_dim=32, num_rel=5, gat_out_dim=16, gat_heads=4,
+                          gat_num_layers=layers, dropout=0.3,
+                          rel_attn_dropout=0.2, projection_layers=2,
+                          use_pallas=True),
+        train=TrainConfig(epochs=1, train_batch_size=128, num_neg=8,
+                          eval_every_n_steps=steps_per_eval,
+                          save_every_n_steps=steps_per_eval,
+                          log_every_n_steps=5, out_dir=str(tmp_path)),
+    )
+    from relgat_projector_tpu_torch.train.trainer import RelGATTrainer
+
+    trainer = RelGATTrainer(run, *kg, log_to_console=False, device="cuda")
+    steps = trainer.dataset.steps_per_epoch(128)
+    evals = steps // steps_per_eval
+    kern.reset_launch_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = kern.launch_counts()
+    assert counts["relgat_fwd"] == layers * (steps + evals)
+    assert counts["relgat_bwd_src"] == counts["relgat_bwd_rel"] == layers * steps
+    assert int(trainer.state.step) + int(trainer.state.nonfinite_steps) == steps

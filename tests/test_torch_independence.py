@@ -5,7 +5,8 @@
   imports them.
 - Without a CUDA device, ``chip_smoke.py`` exits non-zero (from the repo and
   from a directory that holds only the script), and the entry points given
-  no device raise instead of running on the CPU.
+  no device (the model, the graph, the weights bridge, the trainer and the
+  CLI) raise instead of running on the CPU.
 """
 
 import ast
@@ -100,3 +101,29 @@ def test_entry_points_without_device_need_a_card():
         build_graph(np.array([0]), np.array([1]), np.array([0]), 2, csr=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"w": np.zeros(2)})
+
+
+def test_trainer_and_cli_without_device_need_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from relgat_projector_tpu_torch import cli
+    from relgat_projector_tpu_torch.config import (
+        ModelConfig,
+        RunConfig,
+        TrainConfig,
+    )
+    from relgat_projector_tpu_torch.data.synthetic import generate_synthetic_kg
+    from relgat_projector_tpu_torch.train.trainer import RelGATTrainer
+
+    kg = generate_synthetic_kg(num_nodes=30, num_edges=100, num_rel=2,
+                               emb_dim=8, seed=0)
+    run = RunConfig(model=ModelConfig(in_dim=8, num_rel=2, gat_out_dim=4,
+                                      gat_heads=2),
+                    train=TrainConfig(out_dir=str(tmp_path / "trainer")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RelGATTrainer(run, *kg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--synthetic", "--synthetic-nodes", "30",
+                  "--synthetic-edges", "100", "--epochs", "1",
+                  "--save-dir", str(tmp_path / "cli")])
+    assert not (tmp_path / "cli").exists()
