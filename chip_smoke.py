@@ -9,17 +9,27 @@ Phases, in order; any failure exits non-zero:
 
 1. device   - fails without a CUDA card; prints nvidia-smi's name and limit.
 2. build    - builds every kernel from csrc/ with nvcc; prints ptxas' report.
-3. parity   - each kernel against its plain PyTorch version on the card, at
-              H=16, F=128, R=40 on a 20k-node / 200k-edge graph with rows
-              without in-edges, rows of degree 2,500, one row of 50,000
-              in-edges (split by the forward's work plan), self-loops and
-              multi-edges; attention dropout 0.0 and 0.3, with and without
-              rel_bias. Max relative error (max|a-b| / max|b|) <= 1e-5
-              against the plain version run in float64 on the same inputs.
+3. parity   - each kernel, fp32 and bf16 variant, against its plain
+              PyTorch version on the card, at H=16, F=128, R=40 on a
+              20k-node / 200k-edge graph with rows without in-edges, rows of
+              degree 2,500, one row of 50,000 in-edges (split by the
+              forward's work plan), self-loops and multi-edges; attention
+              dropout 0.0 and 0.3, with and without rel_bias. Max relative
+              error (max|a-b| / max|b|) <= 1e-5 against the plain version
+              run in float64 on the same inputs (for the bf16 variants the
+              same bf16 values, widened exactly).
    agree    - one training forward and backward of a small model through
               the kernels and through the plain path on the card, with the
               same weights, negatives and dropout draws: loss and every
               gradient within 1e-4 relative.
+   agree_bf16 - the same model with kernel_precision="default" (fp32
+              compute): through the bf16 kernels on the card against the
+              same route on a CPU copy (plain versions), within 1e-2 (bf16
+              precision: the fp32 bits of the two devices differ, and
+              rounding to bf16 turns some of those differences into a bf16
+              step); and the bf16 kernels against the fp32 kernels,
+              printed, and on the JAX bf16 envelope's own inputs (scripts/
+              tpu_kernel_check.py's) within 1.25x that envelope.
 4. train    - the production model (training_scripts/
               run-relgat-trainer-base-model.sh: in_dim 1152, 40 relations,
               2 GAT layers of 16 heads x 128, projection back to the input
@@ -31,14 +41,20 @@ Phases, in order; any failure exits non-zero:
               kernels. Each kernel's launch count must equal layers x steps.
               Then torch.profiler over two more steps: device time by
               kernel group and the device's idle share (diagnostic).
+   train_bf16 - the same model, graph, weights and batches in the bf16
+              mode (kernel_precision="default", compute_dtype="bfloat16"):
+              each bf16 kernel launches layers x steps times and the fp32
+              ones never; the first step's loss within 1e-2 relative of the
+              fp32 first step's; step time, peak memory and the profile.
 5. export   - one forward-only get_node_repr at the same size.
-6. kernels  - each kernel held to its plain version and timed with CUDA
-              events at the train phase's shapes, beside its bound on this
-              card and, for relgat_bwd_rel, one torch.einsum on the same
-              inputs; then the backward pair's combined time against the
-              bound of the whole TPU backward kernel's function, and the
-              rates of a plain copy, a row gather and a sparse product
-              (torch.sparse.mm of the dst-CSR against h) on this card.
+6. kernels  - each kernel, fp32 and bf16 variant, held to its plain version
+              and timed with CUDA events at the train phase's shapes, beside
+              its bound on this card (bf16 rows counted at 2 bytes) and, for
+              relgat_bwd_rel, one torch.einsum on the same inputs; then each
+              variant's backward pair against the bound of the whole TPU
+              backward kernel's function, and the rates of a plain copy, a
+              row gather and a sparse product (torch.sparse.mm of the
+              dst-CSR against h) on this card.
 7. zipf     - the same size with in-degree on hubs (dst drawn with
               p ~ 1/rank, bench.py's zipf class; the heaviest row has ~83k
               in-edges): 3 warm-up and 5 timed train steps, and relgat_fwd
@@ -52,14 +68,18 @@ Phases, in order; any failure exits non-zero:
               early-stop patience 10, --use-pallas) on a synthetic KG of
               in_dim 1152 and 40 relations (seed 0). Leg 1 trains one epoch
               with eval and best-checkpoint saves; leg 2 is the same argv
-              with --resume. Checked: the checkpoint layout and pruning, the
-              saved step counts, each kernel's launches (one relgat_fwd per
-              layer per step and per eval, one of each backward kernel per
-              layer per step), that leg 2 resumed from leg 1's final
-              directory. Then through the Python API: one step after
-              maybe_resume is bit-identical to the step from the live state,
-              and the trainer's epoch per step is within 1.10x of a bare
-              make_train_step loop over the same batches. Cuts, against
+              with --resume; leg 3 is leg 1's argv with --compute-dtype
+              bfloat16 --kernel-precision default in a fresh directory.
+              Checked: the checkpoint layout and pruning, the saved step
+              counts, each kernel's launches (one forward per layer per
+              step and per eval, one of each backward kernel per layer per
+              step; the bf16 variants in leg 3, the fp32 kernels in legs 1
+              and 2), that leg 2 resumed from leg 1's final directory, a
+              finite last loss, and both bf16 fields in leg 3's
+              training-config.json. Then through the Python API: one step
+              after maybe_resume is bit-identical to the step from the live
+              state, and the trainer's epoch per step is within 1.10x of a
+              bare make_train_step loop over the same batches. Cuts, against
               production: the graph is 20,000 nodes and 50,000 triplets
               (the generator's nn-pool 256), not plWordNet's size; one epoch
               per leg, not 60; eval and save every 100 steps, not 500, so
@@ -98,7 +118,9 @@ from relgat_projector_tpu_torch.data.graph import (
 from relgat_projector_tpu_torch.data.synthetic import generate_synthetic_kg
 from relgat_projector_tpu_torch.models.model import get_node_repr, init_model
 from relgat_projector_tpu_torch.ops import cuda as kern
+from relgat_projector_tpu_torch.ops import propagate
 from relgat_projector_tpu_torch.ops.cuda.build import build_all
+from relgat_projector_tpu_torch.ops.propagate import relgat_propagate_kernels
 from relgat_projector_tpu_torch.schedules import (
     compute_total_and_warmup_steps,
     make_lr_schedule,
@@ -132,29 +154,68 @@ TRAINER = dict(nodes=20_000, triplets=50_000, num_rel=40, in_dim=1152,
                nn_pool=256, heads=16, feat=128, layers=2, batch=128,
                num_neg=32, every=100, train_ratio=0.9, bare_steps=100,
                max_over_bare=1.10, max_checkpoints=5)
+FWD_CU = "relgat_projector_tpu_torch/csrc/relgat_fwd.cu"
+BWD_CU = "relgat_projector_tpu_torch/csrc/relgat_bwd.cu"
+TPU_FWD = "relgat_projector_tpu/ops/pallas/fused.py:116"  # _fused_kernel
+TPU_BWD = "relgat_projector_tpu/ops/pallas/fused.py:433"  # _bwd_src_kernel
 KERNEL_SOURCES = {
-    "relgat_fwd": ("relgat_projector_tpu_torch/csrc/relgat_fwd.cu",
-                   "relgat_projector_tpu/ops/pallas/fused.py:116"),
-    "relgat_bwd_src": ("relgat_projector_tpu_torch/csrc/relgat_bwd.cu",
-                       "relgat_projector_tpu/ops/pallas/fused.py:433"),
-    "relgat_bwd_rel": ("relgat_projector_tpu_torch/csrc/relgat_bwd.cu",
-                       "relgat_projector_tpu/ops/pallas/fused.py:433"),
+    "relgat_fwd": (FWD_CU, TPU_FWD),
+    "relgat_bwd_src": (BWD_CU, TPU_BWD),
+    "relgat_bwd_rel": (BWD_CU, TPU_BWD),
+    # the TPU kernels' bf16 bodies: the bf16 `ps` stream of _fused_kernel,
+    # the `packed_bf16` branch of _bwd_src_kernel
+    "relgat_fwd_bf16": (FWD_CU, TPU_FWD),
+    "relgat_bwd_src_bf16": (BWD_CU, TPU_BWD),
+    "relgat_bwd_rel_bf16": (BWD_CU, TPU_BWD),
 }
+# (forward, backward src pass, backward relation reduction) of each variant
+VARIANTS = {False: ("relgat_fwd", "relgat_bwd_src", "relgat_bwd_rel"),
+            True: ("relgat_fwd_bf16", "relgat_bwd_src_bf16",
+                   "relgat_bwd_rel_bf16")}
 # At the train shapes a float64 copy of the fwd and bwd_src plain versions
 # would need more than the card's 80 GB ([E, H, F] float64 temporaries are
 # 16 GB each); relgat_bwd_rel's sums over 100k node rows are where fp32
 # rounding in the plain version itself would reach ~1e-5 (W in float64 is
-# 512 MB there).
-EXACT_AT_TRAIN_SHAPES = ("relgat_bwd_rel",)
+# 512 MB there). relgat_bwd_src is held to float64 on the out-edges of
+# SRC_ROWS random source rows: among 16M (edge, head) logits a few lie
+# within fp32 rounding of 0, where LeakyReLU's slope jumps from 1 to 0.2,
+# and an fp32 reference may take the other side there.
+EXACT_AT_TRAIN_SHAPES = ("relgat_bwd_rel", "relgat_bwd_rel_bf16")
+SRC_ROWS = 3_000
 # The kernels that read one H*F row per edge (h[src], g[dst]).
-ROW_GATHERS = ("relgat_fwd", "relgat_bwd_src")
+ROW_GATHERS = ("relgat_fwd", "relgat_bwd_src", "relgat_fwd_bf16",
+               "relgat_bwd_src_bf16")
 AGREE = dict(num_nodes=3_000, num_edges=30_000, num_rel=8, in_dim=64, heads=4,
              feat=32, layers=2, batch=64, num_neg=8)
 AGREE_TOL = 1e-4  # the repo's activation parity contract
+# The bf16 mode end to end against its plain route: any fp32 difference
+# upstream of a bf16 rounding (of h in the forward, of g in the backward)
+# moves a value near a rounding midpoint by a whole bf16 step (2^-8
+# relative), so the two routes agree to bf16 precision, not to 1e-4. The
+# plain route on the card against the same route on the CPU shows the size
+# of those steps beside the kernels' result.
+AGREE_BF16_TOL = 1e-2
+# The JAX package's bf16 mode against fp32 (BENCH_NOTES.md, "End-of-round
+# kernel revalidation"): relative to the largest value, the larger of its
+# two dropout rates, measured on a TPU by scripts/tpu_kernel_check.py on the
+# inputs ENVELOPE_CASE rebuilds. It is one draw of the TPU's rounding, which
+# also rounds inside its dots; the port rounds only h and g, as JAX does on
+# the CPU, and fails past ENVELOPE_MARGIN times it.
+ENVELOPE = {"fwd": 8.372e-3, "dh": 8.500e-2, "dattn": 5.414e-3,
+            "dbias": 3.399e-4}
+ENVELOPE_MARGIN = 1.25
+ENVELOPE_CASE = dict(num_nodes=20_000, num_edges=200_000, num_rel=12,
+                     heads=4, feat=64, dropout_seed=7)  # seed_from_key(7)
+TRAIN_LOSS_TOL = 1e-2  # first bf16 step's loss against the fp32 step's
+BF16_MODE = dict(kernel_precision="default", compute_dtype="bfloat16")
+BF16_FLAGS = ["--compute-dtype", "bfloat16", "--kernel-precision", "default"]
 KERNELS = {k.__name__: k for k in kern.KERNELS}
 PLAIN = {"relgat_fwd": kern.relgat_fwd_plain,
          "relgat_bwd_src": kern.relgat_bwd_src_plain,
-         "relgat_bwd_rel": kern.relgat_bwd_rel_plain}
+         "relgat_bwd_rel": kern.relgat_bwd_rel_plain,
+         "relgat_fwd_bf16": kern.relgat_fwd_bf16_plain,
+         "relgat_bwd_src_bf16": kern.relgat_bwd_src_bf16_plain,
+         "relgat_bwd_rel_bf16": kern.relgat_bwd_rel_bf16_plain}
 
 
 class PhaseFailed(RuntimeError):
@@ -218,16 +279,21 @@ def parity_graph(rng):
     return src, dst, et
 
 
-def run_kernel_pair(inputs, *, seed, rate, exact):
-    """Each kernel and its plain version on the same fp32 inputs; returns
-    the errors per output. The plain versions named in ``exact`` run on
-    float64 copies of those inputs, so their own rounding (and the
+def run_kernel_pair(inputs, *, seed, rate, exact, bf16=False):
+    """Each kernel of a variant and its plain version on the same inputs;
+    returns the errors per output. The plain versions named in ``exact``
+    run on float64 copies of those inputs, so their own rounding (and the
     run-to-run order of ``index_add_``'s atomics) stays out of the error.
     The backward kernels take the forward kernel's statistics as inputs,
-    and relgat_bwd_rel takes relgat_bwd_src's W and B."""
+    and relgat_bwd_rel takes relgat_bwd_src's W and B. The bf16 variants
+    read h and g rounded to bf16 (float64 copies of those values are
+    exact); S and gsum come from the fp32 g, as in the propagate."""
     h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
     csr = inputs["csr"]
     kw = dict(seed=seed, rate=rate, negative_slope=0.2, eps=1e-16)
+    fwd, bwd_src, bwd_rel = VARIANTS[bf16]
+    rows_h, rows_g = ((h.to(torch.bfloat16), g.to(torch.bfloat16)) if bf16
+                      else (h, g))
 
     def ref(name, *args, **kwargs):
         if name in exact:
@@ -235,23 +301,21 @@ def run_kernel_pair(inputs, *, seed, rate, exact):
                     for a in args]
         return PLAIN[name](*args, **kwargs)
 
-    out_k, m, l, b = KERNELS["relgat_fwd"](h, attn, bias, csr, **kw)
-    out_p = ref("relgat_fwd", h, attn, bias, csr, **kw)[0]
+    out_k, m, l, b = KERNELS[fwd](rows_h, attn, bias, csr, **kw)
+    out_p = ref(fwd, rows_h, attn, bias, csr, **kw)[0]
     heads, _, f = attn.shape
     n = h.shape[0]
     s_dot = ((out_k - b[:, None]) * g).view(n, heads, f).sum(-1)
     gsum = g.sum(1)
-    args = (h, g, attn, m, l, s_dot, gsum, csr)
-    dh_k, w_k, b_k = KERNELS["relgat_bwd_src"](*args, **kw)
-    dh_p, w_p, b_p = ref("relgat_bwd_src", *args, **kw)
-    dattn_k, dbias_k = KERNELS["relgat_bwd_rel"](h, w_k, b_k)
-    dattn_p, dbias_p = ref("relgat_bwd_rel", h, w_k, b_k)
+    args = (rows_h, rows_g, attn, m, l, s_dot, gsum, csr)
+    dh_k, w_k, b_k = KERNELS[bwd_src](*args, **kw)
+    dh_p, w_p, b_p = ref(bwd_src, *args, **kw)
+    dattn_k, dbias_k = KERNELS[bwd_rel](rows_h, w_k, b_k)
+    dattn_p, dbias_p = ref(bwd_rel, rows_h, w_k, b_k)
     pairs = {
-        "relgat_fwd": {"out": (out_k, out_p)},
-        "relgat_bwd_src": {"dh": (dh_k, dh_p), "w": (w_k, w_p),
-                           "b": (b_k, b_p)},
-        "relgat_bwd_rel": {"dattn": (dattn_k, dattn_p),
-                           "dbias": (dbias_k, dbias_p)},
+        fwd: {"out": (out_k, out_p)},
+        bwd_src: {"dh": (dh_k, dh_p), "w": (w_k, w_p), "b": (b_k, b_p)},
+        bwd_rel: {"dattn": (dattn_k, dattn_p), "dbias": (dbias_k, dbias_p)},
     }
     errs = {
         name: {
@@ -295,23 +359,58 @@ def phase_parity(card, out_lines):
                                 p["feat"], p["num_rel"], SEED)
     seed = 123456789
     worst = 0.0
-    for rate in (0.0, 0.3):
-        for with_bias in (True, False):
-            case = dict(inputs)
-            if not with_bias:
-                case["bias"] = torch.zeros_like(inputs["bias"])
-            errs = run_kernel_pair(case, seed=seed, rate=rate,
-                                   exact=KERNEL_SOURCES)
-            torch.cuda.synchronize()
-            for outs in errs.values():
-                for e in outs.values():
-                    worst = max(worst, e["max_rel_err"])
-            emit({"phase": "parity", "attn_dropout": rate,
-                  "rel_bias": with_bias, "errors": errs, "card": card},
-                 out_lines)
+    for bf16, rate, with_bias in itertools.product(
+            (False, True), (0.0, 0.3), (True, False)):
+        case = dict(inputs)
+        if not with_bias:
+            case["bias"] = torch.zeros_like(inputs["bias"])
+        errs = run_kernel_pair(case, seed=seed, rate=rate,
+                               exact=KERNEL_SOURCES, bf16=bf16)
+        torch.cuda.synchronize()
+        for outs in errs.values():
+            for e in outs.values():
+                worst = max(worst, e["max_rel_err"])
+        emit({"phase": "parity", "variant": "bf16" if bf16 else "fp32",
+              "attn_dropout": rate, "rel_bias": with_bias, "errors": errs,
+              "card": card}, out_lines)
     check(worst <= REL_TOL,
           f"kernel parity: max relative error {worst} > {REL_TOL}")
     return worst
+
+
+def agree_grads(device, **model):
+    """Loss and gradient leaves of one training forward and backward of
+    the ``AGREE`` model on ``device``: its graph, batch and negatives from a
+    seed, its weights and dropout draws from ``SEED``."""
+    a = AGREE
+    rng = np.random.default_rng(SEED + 3)
+    n, e, b = a["num_nodes"], a["num_edges"], a["batch"]
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    et = rng.integers(0, a["num_rel"], e)
+    emb = rng.standard_normal((n, a["in_dim"]), dtype=np.float32)
+    batch = [torch.from_numpy(v).to(device) for v in (
+        rng.integers(0, n, b), rng.integers(0, a["num_rel"], b),
+        rng.integers(0, n, b))]
+    neg = torch.from_numpy(rng.integers(0, n, (b, a["num_neg"]))).to(device)
+    weight = torch.ones(b, device=device)
+    graph = build_graph(src, dst, et, n, num_rel=a["num_rel"], csr=True,
+                        device=device)
+    x = torch.from_numpy(
+        pad_node_embeddings(emb, graph.num_nodes)).to(device)
+    tcfg = TrainConfig(train_batch_size=b, num_neg=a["num_neg"],
+                       use_self_adv_neg=True)
+    mcfg = ModelConfig(
+        in_dim=a["in_dim"], num_rel=a["num_rel"], gat_out_dim=a["feat"],
+        gat_heads=a["heads"], projection_layers=2,
+        **{"gat_num_layers": a["layers"], "dropout": 0.3,
+           "rel_attn_dropout": 0.3, "projection_dropout": 0.3, **model},
+    )
+    params = init_model(mcfg, seed=SEED, device=device)
+    loss, _, grads = loss_and_grads(
+        params, mcfg, tcfg, x, graph, *batch, weight,
+        rng=RngStreams.from_seed(SEED, device), neg_dst=neg,
+    )
+    return [loss] + tree_leaves(grads)
 
 
 def phase_agree(card, out_lines):
@@ -321,36 +420,7 @@ def phase_agree(card, out_lines):
     and every gradient leaf agree to AGREE_TOL relative to the leaf's
     largest value."""
     a = AGREE
-    rng = np.random.default_rng(SEED + 3)
-    n, e, b = a["num_nodes"], a["num_edges"], a["batch"]
-    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
-    et = rng.integers(0, a["num_rel"], e)
-    emb = rng.standard_normal((n, a["in_dim"]), dtype=np.float32)
-    batch = [torch.from_numpy(v).to(DEVICE) for v in (
-        rng.integers(0, n, b), rng.integers(0, a["num_rel"], b),
-        rng.integers(0, n, b))]
-    neg = torch.from_numpy(rng.integers(0, n, (b, a["num_neg"]))).to(DEVICE)
-    weight = torch.ones(b, device=DEVICE)
-    graph = build_graph(src, dst, et, n, num_rel=a["num_rel"], csr=True,
-                             device=DEVICE)
-    x = torch.from_numpy(
-        pad_node_embeddings(emb, graph.num_nodes)).to(DEVICE)
-    tcfg = TrainConfig(train_batch_size=b, num_neg=a["num_neg"],
-                            use_self_adv_neg=True)
-    results = {}
-    for use_pallas in (True, False):
-        mcfg = ModelConfig(
-            in_dim=a["in_dim"], num_rel=a["num_rel"], gat_out_dim=a["feat"],
-            gat_heads=a["heads"], gat_num_layers=a["layers"], dropout=0.3,
-            rel_attn_dropout=0.3, projection_layers=2, projection_dropout=0.3,
-            use_pallas=use_pallas,
-        )
-        params = init_model(mcfg, seed=SEED, device=DEVICE)
-        loss, _, grads = loss_and_grads(
-            params, mcfg, tcfg, x, graph, *batch, weight,
-            rng=RngStreams.from_seed(SEED, DEVICE), neg_dst=neg,
-        )
-        results[use_pallas] = [loss] + tree_leaves(grads)
+    results = {p: agree_grads(DEVICE, use_pallas=p) for p in (True, False)}
     torch.cuda.synchronize()
     errs = [rel_err(k, p) for k, p in zip(results[True], results[False])]
     emit({"phase": "agree", "card": card, **a, "loss": float(results[True][0]),
@@ -360,6 +430,108 @@ def phase_agree(card, out_lines):
           "kernel path gave non-finite loss or gradients")
     check(max(errs) <= AGREE_TOL,
           f"kernel path and plain path differ by {max(errs)} > {AGREE_TOL}")
+
+
+def envelope_errors():
+    """The propagate on ``ENVELOPE_CASE`` (scripts/tpu_kernel_check.py's
+    inputs: seed 0, h ~ N(0, 1), attn x 0.3, bias x 0.1, the gradients of
+    sum(sin(out))) through the bf16 and the fp32 kernels; per dropout rate,
+    the bf16 result's error against the fp32 one relative to its largest
+    value, for out, dh, dattn and dbias."""
+    c = ENVELOPE_CASE
+    rng = np.random.default_rng(0)
+    n, e, r = c["num_nodes"], c["num_edges"], c["num_rel"]
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    et = rng.integers(0, r, e)
+    graph = build_graph(src, dst, et, n, num_rel=r, csr=True, device=DEVICE)
+    shape = (graph.num_nodes, c["heads"], c["feat"])
+    h = rng.standard_normal(shape).astype(np.float32)
+    attn = (rng.standard_normal((c["heads"], r, c["feat"])) * 0.3).astype(
+        np.float32)
+    bias = (rng.standard_normal(r) * 0.1).astype(np.float32)
+    errs = {}
+    for rate in (0.0, 0.3):
+        res = {}
+        for prec in ("default", "highest"):
+            leaves = [torch.tensor(v, device=DEVICE, requires_grad=True)
+                      for v in (h, attn, bias)]
+            out = relgat_propagate_kernels(
+                *leaves, graph.csr, attn_dropout_rate=rate,
+                dropout_seed=c["dropout_seed"] if rate else None,
+                kernel_precision=prec)[:n]
+            grads = torch.autograd.grad(torch.sin(out).sum(), leaves)
+            res[prec] = (out.detach(),) + grads
+        errs[rate] = {k: rel_err(a, b) for k, a, b in zip(
+            ENVELOPE, res["default"], res["highest"])}
+    return errs
+
+
+@contextlib.contextmanager
+def plain_bf16_propagate():
+    """The propagate's bf16 kernels replaced by their plain versions for
+    the block: the kernels' route, in plain PyTorch, on the card. A
+    reference for ``phase_agree_bf16`` only."""
+    saved = propagate._KERNELS[True]
+    propagate._KERNELS[True] = (kern.relgat_fwd_bf16_plain,
+                                kern.relgat_bwd_src_bf16_plain,
+                                kern.relgat_bwd_rel_bf16_plain)
+    try:
+        yield
+    finally:
+        propagate._KERNELS[True] = saved
+
+
+def phase_agree_bf16(card, out_lines):
+    """The ``AGREE`` model with ``kernel_precision="default"`` and fp32
+    compute, so that only the kernels' bf16 rows differ from fp32.
+    Attention dropout is on (its seeds come from the host generator);
+    output and projection dropout are off, since the CPU's generator does
+    not draw the card's masks.
+
+    - the bf16 kernels on the card against the plain route on a CPU copy,
+      loss and every gradient within AGREE_BF16_TOL, beside the plain route
+      on the card against the same CPU copy (``plain_bf16_propagate``);
+      the kernels themselves are held to 1e-5 in ``parity`` and
+      ``kernels``;
+    - the bf16 kernels against the fp32 kernels on the card, on that model
+      (printed) and on the JAX envelope's own inputs (``envelope_errors``),
+      which must stay within ENVELOPE_MARGIN x ENVELOPE."""
+    mode = dict(use_pallas=True, kernel_precision="default", dropout=0.0,
+                projection_dropout=0.0)
+    card_bf16 = agree_grads(DEVICE, **mode)
+    with plain_bf16_propagate():
+        card_plain = agree_grads(DEVICE, **mode)
+    cpu_bf16 = [v.to(DEVICE) for v in agree_grads("cpu", **mode)]
+    card_fp32 = agree_grads(DEVICE, **dict(mode, kernel_precision="highest"))
+    torch.cuda.synchronize()
+    cpu_errs = [rel_err(k, p) for k, p in zip(card_bf16, cpu_bf16)]
+    plain_errs = [rel_err(k, p) for k, p in zip(card_bf16, card_plain)]
+    plain_cpu_errs = [rel_err(k, p) for k, p in zip(card_plain, cpu_bf16)]
+    vs_fp32 = [rel_err(k, p) for k, p in zip(card_bf16, card_fp32)]
+    env = envelope_errors()
+    worst_env = {k: max(e[k] for e in env.values()) for k in ENVELOPE}
+    emit({"phase": "agree_bf16", "card": card, **AGREE, **mode,
+          "loss": float(card_bf16[0]), "loss_plain_cpu": float(cpu_bf16[0]),
+          "max_rel_err_vs_cpu": max(cpu_errs),
+          "max_rel_err_vs_plain_on_card": max(plain_errs),
+          "plain_card_max_rel_err_vs_cpu": max(plain_cpu_errs),
+          "tol": AGREE_BF16_TOL,
+          "vs_fp32_kernels": {"loss": vs_fp32[0],
+                              "max_grad": max(vs_fp32[1:]),
+                              "per_leaf": vs_fp32[1:]},
+          "envelope_case": ENVELOPE_CASE,
+          "envelope_vs_fp32": {str(k): v for k, v in env.items()},
+          "jax_envelope": ENVELOPE, "envelope_margin": ENVELOPE_MARGIN},
+         out_lines)
+    check(all(np.isfinite(float(v.abs().max())) for v in card_bf16),
+          "bf16 kernel path gave non-finite loss or gradients")
+    check(max(cpu_errs) <= AGREE_BF16_TOL,
+          f"bf16 kernel path on the card and the plain route on the CPU "
+          f"differ by {max(cpu_errs)} > {AGREE_BF16_TOL}")
+    for k, err in worst_env.items():
+        check(err <= ENVELOPE_MARGIN * ENVELOPE[k],
+              f"bf16 {k} is {err} from fp32 on the envelope's inputs, past "
+              f"{ENVELOPE_MARGIN} x the JAX envelope {ENVELOPE[k]}")
 
 
 # ---------------------------------------------------------------------------
@@ -378,13 +550,14 @@ def train_inputs(rng):
     return src, dst, et, emb, picks
 
 
-def production_configs():
+def production_configs(**model):
     t = TRAIN
     mcfg = ModelConfig(
         in_dim=t["in_dim"], num_rel=t["num_rel"], gat_out_dim=t["feat"],
         gat_heads=t["heads"], gat_num_layers=t["layers"], dropout=0.3,
         project_to_input_size=True, projection_layers=2,
         projection_dropout=0.3, scorer_type="distmult", use_pallas=True,
+        **model,
     )
     tcfg = TrainConfig(
         epochs=t["epochs"], train_batch_size=t["batch"],
@@ -416,14 +589,15 @@ def edge_batches(src, et, dst, picks):
             for i in picks]
 
 
-def train_steps(node_emb, graph, batches, warmup):
-    """The production model from a seed and its Adam state, trained on
-    ``batches``: ``warmup`` steps, then the rest timed. The launch counts
-    and the peak memory cover all of them; no reference to an earlier state
-    outlives its step. Returns (model config, train step, state, metrics,
-    seconds per timed step, launch counts)."""
+def train_steps(node_emb, graph, batches, warmup, **model):
+    """The production model (``model`` overriding its config) from a seed
+    and its Adam state, trained on ``batches``: ``warmup`` steps, then the
+    rest timed. The launch counts and the peak memory cover all of them; no
+    reference to an earlier state outlives its step. Returns (model config,
+    train step, state, metrics, seconds per timed step, launch counts, the
+    first step's loss)."""
     t = TRAIN
-    mcfg, tcfg = production_configs()
+    mcfg, tcfg = production_configs(**model)
     total, warm = compute_total_and_warmup_steps(
         t["num_edges"], t["batch"], t["epochs"], None)
     sched = make_lr_schedule(tcfg.lr, "linear", total, warm)
@@ -434,25 +608,34 @@ def train_steps(node_emb, graph, batches, warmup):
     weight = torch.ones(t["batch"], device=DEVICE)
     torch.cuda.reset_peak_memory_stats()
     kern.reset_launch_counts()
+    first_loss = None
     for batch in batches[:warmup]:
         state, metrics = step(state, node_emb, graph, *batch, weight)
+        if first_loss is None:
+            first_loss = float(metrics["loss"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for batch in batches[warmup:]:
         state, metrics = step(state, node_emb, graph, *batch, weight)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / (len(batches) - warmup)
-    return mcfg, step, state, metrics, step_s, kern.launch_counts()
+    return (mcfg, step, state, metrics, step_s, kern.launch_counts(),
+            first_loss)
 
 
-def check_train(metrics, counts, launches_per_kernel, what):
+def expected_launches(bf16, launches):
+    """``launches`` of each kernel of the variant, none of the other's."""
+    return {name: launches if name in VARIANTS[bf16] else 0
+            for name in KERNELS}
+
+
+def check_train(metrics, counts, expected, what):
     loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
     check(np.isfinite(loss), f"{what} loss is not finite: {loss}")
     check(grad_norm > 0, f"{what} grad norm is {grad_norm}")
     for name, c in counts.items():
-        check(c == launches_per_kernel,
-              f"{what}: {name} launched {c} times, expected "
-              f"{launches_per_kernel}")
+        check(c == expected[name],
+              f"{what}: {name} launched {c} times, expected {expected[name]}")
 
 
 def phase_train(card, out_lines, out_dir):
@@ -468,7 +651,7 @@ def phase_train(card, out_lines, out_dir):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    mcfg, step, state, metrics, step_s, counts = train_steps(
+    mcfg, step, state, metrics, step_s, counts, first_loss = train_steps(
         node_emb, graph, batches, t["warmup_steps"])
     record = {
         "phase": "train", "card": card,
@@ -480,10 +663,12 @@ def phase_train(card, out_lines, out_dir):
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "setup_s": setup_s, "loss": float(metrics["loss"]),
         "grad_norm": float(metrics["grad_norm"]),
-        "step": int(state.step), "launches": counts,
+        "step": int(state.step), "first_step_loss": first_loss,
+        "launches": counts,
     }
     emit(record, out_lines)
-    check_train(metrics, counts, t["layers"] * len(batches), "train")
+    check_train(metrics, counts,
+                expected_launches(False, t["layers"] * len(batches)), "train")
 
     weight = torch.ones(t["batch"], device=DEVICE)
     profile_steps(step, state, node_emb, graph, batches[0], weight,
@@ -508,7 +693,44 @@ def phase_train(card, out_lines, out_dir):
     check(after["relgat_bwd_src"] == before["relgat_bwd_src"]
           and after["relgat_bwd_rel"] == before["relgat_bwd_rel"],
           "export ran a backward kernel")
-    return counts, graph, step_s * 1e3
+    return counts, graph, step_s * 1e3, node_emb, batches, first_loss
+
+
+def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
+                     fp32_first_loss):
+    """``TRAIN`` in the bf16 mode (``kernel_precision="default"``,
+    ``compute_dtype="bfloat16"``) on the train phase's graph, embeddings,
+    batches, weights and generator seeds: the first step's loss against
+    the fp32 one's, the launches of each variant, and the profile."""
+    t = TRAIN
+    torch.cuda.empty_cache()
+    mcfg, step, state, metrics, step_s, counts, first_loss = train_steps(
+        node_emb, graph, batches, t["warmup_steps"], **BF16_MODE)
+    loss_rel = abs(first_loss - fp32_first_loss) / abs(fp32_first_loss)
+    emit({"phase": "train_bf16", "card": card, **BF16_MODE,
+          "nodes": t["num_nodes"], "edges": t["num_edges"],
+          "layers": t["layers"], "heads": t["heads"], "feat": t["feat"],
+          "in_dim": t["in_dim"], "steps": len(batches),
+          "timed_steps": t["timed_steps"], "step_ms": step_s * 1e3,
+          "edge_messages_per_s": t["num_edges"] * t["layers"] / step_s,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "loss": float(metrics["loss"]),
+          "grad_norm": float(metrics["grad_norm"]), "step": int(state.step),
+          "first_step_loss": first_loss,
+          "first_step_loss_fp32": fp32_first_loss,
+          "first_step_loss_rel_diff": loss_rel, "tol": TRAIN_LOSS_TOL,
+          "launches": counts}, out_lines)
+    check_train(metrics, counts,
+                expected_launches(True, t["layers"] * len(batches)),
+                "train_bf16")
+    check(loss_rel <= TRAIN_LOSS_TOL,
+          f"first bf16 step's loss {first_loss} is {loss_rel} from the fp32 "
+          f"step's {fp32_first_loss}")
+    weight = torch.ones(t["batch"], device=DEVICE)
+    profile_steps(step, state, node_emb, graph, batches[0], weight,
+                  step_s * 1e3, step_matmul_flops(graph.num_nodes), card,
+                  out_lines, out_dir, phase="profile_bf16")
+    return counts, step_s * 1e3
 
 
 def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
@@ -540,7 +762,7 @@ def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
             low = name.lower()
             if "relgat" in low:
                 groups["relgat_kernels"] += us
-            elif "gemm" in low or "cutlass" in low or "sm90_" in low:
+            elif any(k in low for k in ("gemm", "cutlass", "sm90_", "nvjet")):
                 groups["gemm"] += us
             else:
                 groups["other"] += us
@@ -570,34 +792,36 @@ def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
 # Phase 6: kernels line
 # ---------------------------------------------------------------------------
 
-def bounds(n, e, heads, feat, num_rel):
+def bounds(n, e, heads, feat, num_rel, row_bytes=4):
     """(bytes, flops) each kernel must move and do on these inputs: every
-    input read once, every output written once. ``bwd_pair`` is the whole
-    function of the TPU backward kernel that the two backward kernels
-    share: h, g, attn, the statistics and the src-CSR in, dh, dattn and
-    dbias out."""
+    input read once, every output written once; the rows of h and g are
+    ``row_bytes`` a value (2 in the bf16 variants), all else 4 (fp32,
+    int32). ``bwd_pair`` is the whole function of the TPU backward kernel
+    that the two backward kernels share: h, g, attn, the statistics and the
+    src-CSR in, dh, dattn and dbias out."""
     hf = heads * feat
     w = 4  # bytes of fp32 and int32
+    rows = row_bytes * n * hf  # one [N, H*F] array of h or g
     attn = heads * num_rel * feat
     stats = 3 * n * heads + n + (n + 1) + 3 * e  # m, l, S, gsum, src-CSR
     de_flops = e * heads * (8 * feat + 16)
     return {
         "relgat_fwd": (
-            w * (2 * n * hf + attn + num_rel + (n + 1)
-                 + 2 * e + 2 * n * heads + n),
+            rows + w * (n * hf + attn + num_rel + (n + 1)
+                        + 2 * e + 2 * n * heads + n),
             e * heads * (5 * feat + 10) + 2 * n * hf,
         ),
         "relgat_bwd_src": (
-            w * (3 * n * hf + attn + stats + n * heads * num_rel
-                 + n * num_rel),
+            2 * rows + w * (n * hf + attn + stats + n * heads * num_rel
+                            + n * num_rel),
             de_flops + e,
         ),
         "relgat_bwd_rel": (
-            w * (n * hf + n * heads * num_rel + n * num_rel + attn + num_rel),
+            rows + w * (n * heads * num_rel + n * num_rel + attn + num_rel),
             2 * n * heads * num_rel * feat + n * num_rel,
         ),
         "bwd_pair": (
-            w * (3 * n * hf + 2 * attn + stats + num_rel),
+            2 * rows + w * (n * hf + 2 * attn + stats + num_rel),
             de_flops + 2 * e * hf,
         ),
     }
@@ -611,45 +835,49 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), by
 
 
-def phase_kernels(graph, counts, card, out_lines):
+def kernel_rows(inputs, bf16, counts, card, out_lines):
+    """The kernels line's rows of one variant at ``TRAIN``'s shapes, and
+    its ``bwd_pair`` line."""
     t = TRAIN
-    torch.cuda.empty_cache()
-    csr = graph.csr
-    n = graph.num_nodes
-    inputs = make_kernel_inputs(csr, n, t["heads"], t["feat"],
-                                t["num_rel"], SEED + 7)
+    csr = inputs["csr"]
+    n = inputs["h"].shape[0]
     kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
     h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
-    out, m, l, b = KERNELS["relgat_fwd"](h, attn, bias, csr, **kw)
+    fwd, bwd_src, bwd_rel = VARIANTS[bf16]
+    rh, rg = (h.to(torch.bfloat16), g.to(torch.bfloat16)) if bf16 else (h, g)
+    out, m, l, b = KERNELS[fwd](rh, attn, bias, csr, **kw)
     s_dot = ((out - b[:, None]) * g).view(n, t["heads"], t["feat"]).sum(-1)
     gsum = g.sum(1)
-    _, w, bsum = KERNELS["relgat_bwd_src"](h, g, attn, m, l, s_dot, gsum, csr,
-                                           **kw)
-    h3 = h.view(n, t["heads"], t["feat"])
+    _, w, bsum = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
     calls = {
-        "relgat_fwd": lambda f: f(h, attn, bias, csr, **kw),
-        "relgat_bwd_src": lambda f: f(h, g, attn, m, l, s_dot, gsum, csr,
-                                      **kw),
-        "relgat_bwd_rel": lambda f: f(h, w, bsum),
+        fwd: lambda f: f(rh, attn, bias, csr, **kw),
+        bwd_src: lambda f: f(rh, rg, attn, m, l, s_dot, gsum, csr, **kw),
+        bwd_rel: lambda f: f(rh, w, bsum),
     }
     # One PyTorch call computing the same function, timed as a yardstick
-    # only: dattn of relgat_bwd_rel is W^T h per head. The other two
-    # kernels' functions have no such call.
-    library = {
-        "relgat_bwd_rel": lambda: torch.einsum("nhr,nhf->hrf", w, h3),
-    }
+    # only: dattn of relgat_bwd_rel is W^T h per head. The other kernels'
+    # functions have no such call, nor has relgat_bwd_rel_bf16's (fp32 W
+    # against bf16 h: einsum takes one type).
+    h3 = h.view(n, t["heads"], t["feat"])
+    library = ({} if bf16 else
+               {bwd_rel: lambda: torch.einsum("nhr,nhf->hrf", w, h3)})
     # Comparisons and timings here are not part of the main path's counts.
     errs = run_kernel_pair(inputs, seed=None, rate=0.0,
-                           exact=EXACT_AT_TRAIN_SHAPES)
+                           exact=EXACT_AT_TRAIN_SHAPES, bf16=bf16)
+    errs[bwd_src] = src_rows_errors(bwd_src, (rh, rg, attn, m, l, s_dot, gsum),
+                                    csr, kw)
     torch.cuda.synchronize()
-    bnd = bounds(n, csr.num_edges, t["heads"], t["feat"], t["num_rel"])
+    row_bytes = rh.element_size()
+    bnd = bounds(n, csr.num_edges, t["heads"], t["feat"], t["num_rel"],
+                 row_bytes=row_bytes)
     rows = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
+    for name, kind in zip(VARIANTS[bf16], VARIANTS[False]):
+        source, replaces = KERNEL_SOURCES[name]
         ms = cuda_ms(lambda: calls[name](KERNELS[name]), reps=10, warmup=2)
         plain_ms = cuda_ms(lambda: calls[name](PLAIN[name]), reps=2)
         lib_ms = (cuda_ms(library[name], reps=10, warmup=2)
                   if name in library else None)
-        nbytes, flops = bnd[name]
+        nbytes, flops = bnd[kind]
         best, by = bound_ms(nbytes, flops)
         worst = max(errs[name].values(), key=lambda x: x["max_rel_err"])
         row = {
@@ -660,23 +888,67 @@ def phase_kernels(graph, counts, card, out_lines):
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": best, "bound_by": by, "library_ms": lib_ms,
             "reference": ("float64" if name in EXACT_AT_TRAIN_SHAPES
-                          else "float32"),
+                          else f"float64, {SRC_ROWS} src rows"
+                          if name == bwd_src else "float32"),
             "bytes": nbytes, "flops": flops, "card": card,
         }
         if name in ROW_GATHERS:
             # what the design reads besides: one H*F row per edge (h[src]
             # in the forward, g[dst] in relgat_bwd_src)
-            row["row_gather_bytes"] = (4 * csr.num_edges * t["heads"]
-                                       * t["feat"])
+            row["row_gather_bytes"] = (row_bytes * csr.num_edges
+                                       * t["heads"] * t["feat"])
+        emit({"phase": "kernel", **row, "errors": errs[name]}, out_lines)
         rows.append(row)
         torch.cuda.synchronize()
-    pair_ms = sum(r["ms"] for r in rows if r["name"].startswith("relgat_bwd"))
+    pair_ms = sum(r["ms"] for r in rows if r["name"] != fwd)
     best, by = bound_ms(*bnd["bwd_pair"])
-    emit({"phase": "bwd_pair", "card": card,
-          "of": ["relgat_bwd_src", "relgat_bwd_rel"], "ms": pair_ms,
-          "bound_ms": best, "bound_by": by, "bytes": bnd["bwd_pair"][0],
-          "flops": bnd["bwd_pair"][1], "times_bound": pair_ms / best},
-         out_lines)
+    emit({"phase": "bwd_pair", "card": card, "of": [bwd_src, bwd_rel],
+          "ms": pair_ms, "bound_ms": best, "bound_by": by,
+          "bytes": bnd["bwd_pair"][0], "flops": bnd["bwd_pair"][1],
+          "times_bound": pair_ms / best}, out_lines)
+    return rows
+
+
+def src_rows_errors(name, args, csr, kw):
+    """``name`` (relgat_bwd_src or its bf16 variant) on the whole graph
+    against its plain version in float64 on the out-edges of ``SRC_ROWS``
+    random source rows: errors of dh, W and B on those rows, whose outputs
+    depend on their out-edges alone and must equal the whole graph's bits.
+    ``args`` are the kernel's inputs before the layout."""
+    t = TRAIN
+    full = KERNELS[name](*args, csr, **kw)
+    src, dst, et = (a.cpu().numpy() for a in (csr.src, csr.dst, csr.etype))
+    rows = np.random.default_rng(SEED + 13).choice(
+        t["num_nodes"], SRC_ROWS, replace=False)
+    keep = np.isin(src, rows)
+    sub = build_graph(src[keep], dst[keep], et[keep], t["num_nodes"],
+                      num_rel=t["num_rel"], csr=True, device=DEVICE).csr
+    got = KERNELS[name](*args, sub, **kw)
+    h, g, *rest = args
+    want = PLAIN[name](h.double(), g.double(), *(a.double() for a in rest),
+                       sub, **kw)
+    r = torch.from_numpy(rows).to(DEVICE)
+    errs = {}
+    for key, a, b, c in zip(("dh", "w", "b"), got, want, full):
+        check(torch.equal(a[r], c[r]), f"{name}: {key} of the chosen rows "
+              "differs between the subset and the whole graph")
+        errs[key] = {"max_rel_err": rel_err(a[r], b[r]),
+                     "max_abs_err": abs_err(a[r], b[r])}
+    return errs
+
+
+def phase_kernels(graph, counts, card, out_lines):
+    t = TRAIN
+    torch.cuda.empty_cache()
+    csr = graph.csr
+    n = graph.num_nodes
+    inputs = make_kernel_inputs(csr, n, t["heads"], t["feat"],
+                                t["num_rel"], SEED + 7)
+    h, g = inputs["h"], inputs["g"]
+    rows = []
+    for bf16 in (False, True):
+        rows += kernel_rows(inputs, bf16, counts, card, out_lines)
+        torch.cuda.empty_cache()
     # What this card reaches on plain traffic, beside the gathering kernels:
     # a copy of h, a gather of whole H*F rows of g (a quarter of the edges'
     # dst rows, read and written once each), and cuSPARSE's product of the
@@ -749,7 +1021,7 @@ def phase_zipf(card, uniform_step_ms, out_lines):
     steps = z["warmup_steps"] + z["timed_steps"]
     batches = edge_batches(
         src, et, dst, rng.integers(0, t["num_edges"], (steps, t["batch"])))
-    _, step, state, metrics, step_s, counts = train_steps(
+    _, step, state, metrics, step_s, counts, _ = train_steps(
         node_emb, graph, batches, z["warmup_steps"])
     emit({"phase": "train_zipf", "card": card, "nodes": t["num_nodes"],
           "edges": t["num_edges"], "max_in_degree": int(indeg.max()),
@@ -765,7 +1037,8 @@ def phase_zipf(card, uniform_step_ms, out_lines):
           "loss": float(metrics["loss"]),
           "grad_norm": float(metrics["grad_norm"]), "launches": counts},
          out_lines)
-    check_train(metrics, counts, t["layers"] * steps, "train_zipf")
+    check_train(metrics, counts, expected_launches(False, t["layers"] * steps),
+                "train_zipf")
     del state, step, node_emb, batches
     torch.cuda.empty_cache()
 
@@ -879,14 +1152,16 @@ def saved_counts(ckpt_dir):
         loop["dispatch_step"], loop["best_metric_value"]
 
 
-def check_leg(what, counts, log, steps, layers):
+def check_leg(what, counts, log, steps, layers, bf16=False):
     evals = len(logged(log, "eval/mrr"))
-    check(counts["relgat_bwd_src"] == counts["relgat_bwd_rel"]
-          == layers * steps,
+    fwd, bwd_src, bwd_rel = VARIANTS[bf16]
+    check(counts[bwd_src] == counts[bwd_rel] == layers * steps,
           f"{what}: backward launches {counts}, expected {layers * steps}")
-    check(counts["relgat_fwd"] == layers * (steps + evals),
-          f"{what}: relgat_fwd launched {counts['relgat_fwd']} times, "
+    check(counts[fwd] == layers * (steps + evals),
+          f"{what}: {fwd} launched {counts[fwd]} times, "
           f"expected {layers} x ({steps} steps + {evals} evals)")
+    check(all(counts[k] == 0 for k in VARIANTS[not bf16]),
+          f"{what}: the other variant's kernels launched: {counts}")
     losses = logged(log, "train/loss_step")
     check(bool(losses) and np.isfinite(losses[-1]),
           f"{what}: last logged loss {losses[-1:]}")
@@ -1008,6 +1283,25 @@ def phase_trainer(card, out_lines, out_dir):
               f"expected {2 * steps}")
         peak = torch.cuda.max_memory_allocated()
 
+        # Leg 3: the bf16 mode, a fresh directory, one epoch.
+        torch.cuda.reset_peak_memory_stats()
+        leg3_s, counts3, log3 = run_cli_leg(
+            trainer_argv(work / "cli_bf16") + BF16_FLAGS, "leg3_bf16",
+            out_dir)
+        peak3 = torch.cuda.max_memory_allocated()
+        evals3 = check_leg("trainer leg 3 (bf16)", counts3, log3, steps,
+                           layers, bf16=True)
+        final3 = work / "cli_bf16" / final.name
+        done3, dispatch3, _ = saved_counts(final3)
+        check(done3 == dispatch3 == steps,
+              f"leg 3 saved step+nonfinite {done3}, dispatch {dispatch3}, "
+              f"expected {steps}")
+        saved_model = json.loads(
+            (final3 / "training-config.json").read_text())["model"]
+        check(all(saved_model[k] == v for k, v in BF16_MODE.items()),
+              f"leg 3 training-config.json holds "
+              f"{ {k: saved_model[k] for k in BF16_MODE} }")
+
         identical, trainer_ms, bare_ms, stats = resume_and_overhead(
             argv, work, steps, bs, card, out_lines, out_dir)
     ratio = trainer_ms / bare_ms
@@ -1021,7 +1315,13 @@ def phase_trainer(card, out_lines, out_dir):
           "edges_per_sec_last_flush": [logged(log1, "train/edges_per_sec")[-1],
                                        logged(log2, "train/edges_per_sec")[-1]],
           "evals": [evals1, evals2],
-          "launches": {"leg1": counts1, "leg2": counts2},
+          "launches": {"leg1": counts1, "leg2": counts2,
+                       "leg3_bf16": counts3},
+          "leg3_bf16": {"seconds": leg3_s, "evals": evals3,
+                        "max_memory_allocated_bytes": peak3,
+                        "last_loss": logged(log3, "train/loss_step")[-1],
+                        "edges_per_sec_last_flush":
+                            logged(log3, "train/edges_per_sec")[-1]},
           "checkpoint_bytes": ckpt_bytes,
           "max_memory_allocated_bytes": peak,
           "resumed_from_final": resumed,
@@ -1072,8 +1372,15 @@ def main(argv=None) -> int:
     else:
         worst = phase_parity(card, out_lines)
         phase_agree(card, out_lines)
-        counts, graph, step_ms = phase_train(card, out_lines, args.out)
-        kernels = phase_kernels(graph, counts, card, out_lines)
+        phase_agree_bf16(card, out_lines)
+        counts, graph, step_ms, node_emb, batches, first_loss = phase_train(
+            card, out_lines, args.out)
+        counts_bf16, _ = phase_train_bf16(card, out_lines, args.out, graph,
+                                          node_emb, batches, first_loss)
+        del node_emb, batches
+        launches = {k: counts[k] for k in VARIANTS[False]}
+        launches.update({k: counts_bf16[k] for k in VARIANTS[True]})
+        kernels = phase_kernels(graph, launches, card, out_lines)
         del graph
         kernels.append(phase_zipf(card, step_ms, out_lines))
         phase_trainer(card, out_lines, args.out)

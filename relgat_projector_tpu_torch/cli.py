@@ -5,9 +5,11 @@ and two-pass ``--config`` layer (explicit flags > config file > defaults),
 so the same command line trains the same run in either package; plus
 ``--device`` (default ``cuda``: without a card the CLI raises instead of
 running on the CPU). ``--use-pallas`` selects the hand-written Hopper
-kernels. Flags this package cannot run yet (more than one device or
-process, a scanned propagate or epoch, remat, bf16) raise
-``NotImplementedError`` naming the field. Console entry point:
+kernels; ``--kernel-precision default`` their bf16 row streams and
+``--compute-dtype bfloat16`` bf16 projections. Flags this package cannot run
+yet (more than one device or process, a scanned propagate or epoch, remat)
+raise ``NotImplementedError`` naming the field, as does a ``--config`` file
+that asks for bf16 parameters or another compute dtype. Console entry point:
 ``relgat-projector-train-torch``; also ``python -m
 relgat_projector_tpu_torch.cli``.
 """
@@ -213,7 +215,8 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kernel-precision", dest="kernel_precision", type=str,
                    choices=["highest", "default"], default="highest",
                    help="precision inside the propagate kernels: 'highest' "
-                        "= fp32; 'default' (bf16 streams) is not ported yet")
+                        "= fp32; 'default' = h and g read as bf16 rows, "
+                        "fp32 arithmetic")
     p.add_argument("--block-nodes", dest="block_nodes", type=int, default=0,
                    help="the TPU's blocked layout (TD); ignored here, the "
                         "kernels read CSR")

@@ -8,11 +8,15 @@ In this package:
   (``data/csr.py``); without it the plain PyTorch path runs on the COO;
 - ``block_nodes`` and ``chunk_edges`` describe the TPU's block-padded layout
   and are accepted and ignored: the CUDA path reads CSR;
+- ``kernel_precision="default"`` runs the kernels' bf16 row streams and
+  ``compute_dtype="bfloat16"`` the projections on bf16 operands, both with
+  fp32 arithmetic and results, as in the JAX package;
 - mesh, scan, halo and partition fields are accepted; a value this package
-  cannot run yet (scanned propagate, remat, bf16 compute or kernel streams,
-  more than one device, more than one step per call) raises
-  ``NotImplementedError`` naming the field, so a ``training-config.json``
-  from the JAX package that asks for one fails when it is loaded.
+  cannot run yet (scanned propagate, remat, bf16 parameter storage, a
+  compute dtype other than float32 and bfloat16, more than one device, more
+  than one step per call) raises ``NotImplementedError`` naming the field,
+  so a ``training-config.json`` from the JAX package that asks for one
+  fails when it is loaded.
 """
 
 from __future__ import annotations
@@ -88,7 +92,8 @@ class ModelConfig:
     remat: bool = False
     block_nodes: int = 0           # TPU layout knob; ignored here
     chunk_edges: int = 0           # TPU layout knob; ignored here
-    kernel_precision: str = "highest"  # "highest" (fp32); "high" is an alias
+    kernel_precision: str = "highest"  # "highest" (fp32; "high" an alias)
+    # or "default" (bf16 h and g rows in the kernels, fp32 arithmetic)
     scan_segments: int = 0
     mesh_propagate: str = "halo"
     halo_overlap: bool = True
@@ -110,12 +115,11 @@ class ModelConfig:
                 f"Unknown kernel_precision: {self.kernel_precision}"
             )
         unported = {
-            "kernel_precision='default' (bf16 kernel streams)":
-                self.kernel_precision == "default",
             "scan_segments > 1 (scanned propagate)": self.scan_segments > 1,
             "remat": self.remat,
             "param_dtype other than float32": self.param_dtype != "float32",
-            "compute_dtype other than float32": self.compute_dtype != "float32",
+            f"compute_dtype={self.compute_dtype!r} (float32 or bfloat16)":
+                self.compute_dtype not in ("float32", "bfloat16"),
         }
         for what, hit in unported.items():
             if hit:

@@ -47,6 +47,21 @@
 // 2*N*H*R*F flops, close to the card's balance point; each thread keeps an
 // RM x 4 tile of the [R, F] sum so shared-memory reads stay under the FMA
 // rate.
+//
+// The bf16 variants (relgat_bwd_src_bf16, relgat_bwd_rel_bf16;
+// kernel_precision="default") read h and g as bf16 rows, the TPU kernel's
+// `packed_bf16` streams (kernels.py `_packed_stream`, `_bwd_from_packed`):
+// half the bytes of the g gather. The statistics m, l, S, gsum stay fp32
+// [N, H] arrays read into the edge table (the TPU packs them as bf16
+// (hi, lo) pairs only to ride its one wide gather); dh, W, B, dattn and
+// dbias, and all arithmetic, stay fp32. As in the forward, where F is a
+// multiple of 8 and at most 128, relgat_bwd_src_pair_kernel takes two edges
+// a warp iteration, a half-warp each, so a lane reads 16 bytes of g at a
+// time; other widths run relgat_bwd_src_kernel on bf16 rows. At 1M edges
+// and H*F = 2048 on an H100 80GB HBM3 (700 W, chip_smoke.py): 3.21 ms,
+// against 3.38 ms for relgat_bwd_src_kernel on bf16 rows and 3.99 ms in
+// fp32; relgat_bwd_rel_bf16 0.56 ms, as in fp32 (its FMA loop, not its
+// bytes, bounds it).
 #include "relgat_common.cuh"
 
 namespace relgat {
@@ -83,11 +98,12 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b, int lane) {
 
 // Six blocks an SM (48 warps, at most 40 registers a thread) where a lane
 // holds at most 4 floats of a row; wider rows would spill under that bound.
-template <int VEC, int NV>
+// T is the element type of h and g.
+template <int VEC, int NV, typename T>
 __global__ void
 __launch_bounds__(32 * kMaxWarpsPerBlock, VEC * NV <= 4 ? 6 : 1)
-relgat_bwd_src_kernel(const float* __restrict__ h,      // [N, H*F]
-                      const float* __restrict__ g,      // [N, H*F]
+relgat_bwd_src_kernel(const T* __restrict__ h,          // [N, H*F]
+                      const T* __restrict__ g,          // [N, H*F]
                       const float* __restrict__ attn,   // [H, R, F]
                       const float* __restrict__ m,      // [N, H]
                       const float* __restrict__ l,      // [N, H]
@@ -129,7 +145,7 @@ relgat_bwd_src_kernel(const float* __restrict__ h,      // [N, H*F]
   load_row<VEC, NV>(h + row, feat, lane, hv);
 #pragma unroll
   for (int i = 0; i < FPL; ++i) acc[i] = 0.f;
-  const float* g_head = g + static_cast<int64_t>(head) * feat;
+  const T* g_head = g + static_cast<int64_t>(head) * feat;
   const float* attn_head = attn + static_cast<int64_t>(head) * num_rel * feat;
 
   const int p_end = src_ptr[s + 1];
@@ -191,6 +207,163 @@ relgat_bwd_src_kernel(const float* __restrict__ h,      // [N, H*F]
   }
 }
 
+// Five blocks an SM for the pair kernel (40 warps, at most 51 registers): a
+// lane holds 8 features of h, of g, of attn and of the dh sum.
+constexpr int kBwdPairMinBlocks = 5;
+
+// relgat_bwd_src_kernel over bf16 rows of F <= 128 with F % 8 == 0: each
+// iteration takes the next two edges of the table, half-warp `half` the
+// second, lane hl features 8*hl .. 8*hl + 7 (one 16-byte load of g). Each
+// half sums its edges' dh terms; the halves add at the end. Lane 0 folds
+// both edges' de and gsum into the slabs in edge order, so W and B are
+// summed as relgat_bwd_src_kernel sums them.
+__global__ void
+__launch_bounds__(32 * kMaxWarpsPerBlock, kBwdPairMinBlocks)
+relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
+                           const __nv_bfloat16* __restrict__ g,  // [N, H*F]
+                           const float* __restrict__ attn,   // [H, R, F]
+                           const float* __restrict__ m,      // [N, H]
+                           const float* __restrict__ l,      // [N, H]
+                           const float* __restrict__ s_dot,  // [N, H]
+                           const float* __restrict__ gsum,   // [N]
+                           const int* __restrict__ src_ptr,  // [N + 1]
+                           const int* __restrict__ dst,      // [E]
+                           const int* __restrict__ etype,    // [E]
+                           const int* __restrict__ eid,      // [E]
+                           float* __restrict__ dh,           // [N, H*F]
+                           float* __restrict__ w_out,        // [N, H, R]
+                           float* __restrict__ b_out,        // [N, R]
+                           int heads, int feat, int num_rel, float slope,
+                           float eps, int use_dropout, uint32_t seed,
+                           uint32_t thr, float keep_prob) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  const int f = 8 * (lane & 15);
+  const bool in_row = f < feat;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int head = blockIdx.y * warps + warp;
+  if (head >= heads) return;
+  const int s = blockIdx.x;
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  const int64_t row = s * hf + static_cast<int64_t>(head) * feat;
+  EdgeEntry* table = reinterpret_cast<EdgeEntry*>(smem) + warp * 32;
+  float* slabs = smem + warps * 32 * (sizeof(EdgeEntry) / sizeof(float));
+  float* slab = slabs + warp * num_rel;
+  float* bslab = head == 0 ? slabs + warps * num_rel : nullptr;
+  for (int r = lane; r < num_rel; r += 32) {
+    slab[r] = 0.f;
+    if (bslab != nullptr) bslab[r] = 0.f;
+  }
+
+  float hv[8];
+  float acc[8];
+  {
+    const uint4 x = in_row ? *reinterpret_cast<const uint4*>(h + row + f)
+                           : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t w4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hv[2 * i] = bf16_lo(w4[i]);
+      hv[2 * i + 1] = bf16_hi(w4[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  const __nv_bfloat16* g_head = g + static_cast<int64_t>(head) * feat + f;
+  const float* attn_head =
+      attn + static_cast<int64_t>(head) * num_rel * feat + f;
+
+  const int p_end = src_ptr[s + 1];
+  for (int p0 = src_ptr[s]; p0 < p_end; p0 += 32) {
+    const int cnt = min(32, p_end - p0);
+    __syncwarp();  // the last batch's table reads (and slab zeroing) are done
+    if (lane < cnt) {
+      const int p = p0 + lane;
+      EdgeEntry e;
+      e.dst = dst[p];
+      e.rel = etype[p];
+      const int64_t di = static_cast<int64_t>(e.dst) * heads + head;
+      const float mv = m[di];
+      e.m_safe = mv == -INFINITY ? 0.f : mv;
+      e.denom = fmaxf(l[di], eps);
+      e.s = s_dot[di];
+      e.keep = use_dropout
+                   ? dropout_keep(eid[p], head, seed, thr) / keep_prob
+                   : 1.f;
+      e.gsum = bslab != nullptr ? gsum[e.dst] : 0.f;
+      e.pad = 0.f;
+      table[lane] = e;
+    }
+    __syncwarp();
+    for (int j0 = 0; j0 < cnt; j0 += 2) {
+      // past an odd count's end the second half repeats the first's edge
+      // and adds nothing
+      const bool has = j0 + half < cnt;
+      const EdgeEntry e = table[has ? j0 + half : j0];
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 a1 = a0;
+      if (in_row) {
+        x = *reinterpret_cast<const uint4*>(g_head + e.dst * hf);
+        const float* ap = attn_head + static_cast<int64_t>(e.rel) * feat;
+        a0 = *reinterpret_cast<const float4*>(ap);
+        a1 = *reinterpret_cast<const float4*>(ap + 4);
+      }
+      const float gv[8] = {bf16_lo(x.x), bf16_hi(x.x), bf16_lo(x.y),
+                           bf16_hi(x.y), bf16_lo(x.z), bf16_hi(x.z),
+                           bf16_lo(x.w), bf16_hi(x.w)};
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float eraw = 0.f;
+      float dalpha = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        eraw += hv[i] * av[i];
+        dalpha += hv[i] * gv[i];
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) {  // within the half-warp
+        eraw += __shfl_xor_sync(kFullMask, eraw, o);
+        dalpha += __shfl_xor_sync(kFullMask, dalpha, o);
+      }
+      const float alpha = expf(leaky_relu(eraw, slope) - e.m_safe) / e.denom;
+      const float de = has ? alpha * (dalpha * e.keep - e.s) *
+                                 (eraw >= 0.f ? 1.f : slope)
+                           : 0.f;
+      const float aw = has ? alpha * e.keep : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] += aw * gv[i] + de * av[i];
+      const float de_2 = __shfl_sync(kFullMask, de, 16);
+      if (lane == 0) {
+        slab[e.rel] += de;
+        if (bslab != nullptr) bslab[e.rel] += e.gsum;
+        if (j0 + 1 < cnt) {
+          const int rel_2 = table[j0 + 1].rel;
+          slab[rel_2] += de_2;
+          if (bslab != nullptr) bslab[rel_2] += table[j0 + 1].gsum;
+        }
+      }
+    }
+  }
+
+  // a + b == b + a: both halves hold the same sums
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] += __shfl_xor_sync(kFullMask, acc[i], 16);
+  if (half == 0 && in_row) {
+    *reinterpret_cast<float4*>(dh + row + f) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(dh + row + f + 4) =
+        make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+  __syncwarp();
+  float* wrow = w_out + (static_cast<int64_t>(s) * heads + head) * num_rel;
+  for (int r = lane; r < num_rel; r += 32) {
+    wrow[r] = slab[r];
+    if (bslab != nullptr) b_out[static_cast<int64_t>(s) * num_rel + r] = bslab[r];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dattn = W^T h per head and dbias = sum_s B[s], over node rows.
 
@@ -218,6 +391,25 @@ __device__ __forceinline__ void cp_async(float* smem, const float* gmem,
   }
 }
 
+// The same for VEC bf16 values: 8 (16 bytes) as raw bits, converted where
+// they are read; one value (2 bytes, below cp.async's smallest size) by a
+// plain load and store, which the stage's wait and barrier order as well.
+template <int VEC>
+__device__ __forceinline__ void cp_async(__nv_bfloat16* smem,
+                                         const __nv_bfloat16* gmem,
+                                         bool valid) {
+  if constexpr (VEC == 8) {
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    static_assert(VEC == 1, "bf16 copies are of 8 values or 1");
+    *smem = valid ? *gmem : __float2bfloat16(0.f);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -231,10 +423,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // r0 + w*RM .. r0 + w*RM + RM - 1, lane i features f0 + i + 32*j (j < 4),
 // over the tile's rows. Blocks of head 0 and the first feature tile also
 // sum B over the tile's rows, one relation per thread. VH and VW are the
-// copy widths of h and of W/B rows (4 where rows are 16-byte aligned).
-template <int RM, int VH, int VW>
+// copy widths of h and of W/B rows (16 bytes where rows are 16-byte
+// aligned: VH 4 of fp32 h, 8 of bf16; VW 4), and TH the element type of h.
+template <int RM, int VH, int VW, typename TH>
 __global__ void __launch_bounds__(kRelThreads)
-relgat_bwd_rel_tile_kernel(const float* __restrict__ h,  // [N, H*F]
+relgat_bwd_rel_tile_kernel(const TH* __restrict__ h,  // [N, H*F]
                            const float* __restrict__ w,  // [N, H, R]
                            const float* __restrict__ b,  // [N, R]
                            float* __restrict__ part_attn,  // [T, H, R, F]
@@ -248,7 +441,7 @@ relgat_bwd_rel_tile_kernel(const float* __restrict__ h,  // [N, H*F]
   // Width of a warp's read of its RM relations of a W row.
   constexpr int RV = RM % 4 == 0 ? 4 : (RM % 2 == 0 ? 2 : 1);
   static_assert(RT % VW == 0 && kRelStageRows % HR == 0, "tile shapes");
-  __shared__ __align__(16) float hs[kRelStages][kRelStageRows][kRelCols];
+  __shared__ __align__(16) TH hs[kRelStages][kRelStageRows][kRelCols];
   __shared__ __align__(16) float ws[kRelStages][kRelStageRows][RT];
   __shared__ __align__(16) float bs[kRelStages][kRelStageRows][RT];
 
@@ -266,7 +459,7 @@ relgat_bwd_rel_tile_kernel(const float* __restrict__ h,  // [N, H*F]
   const int hc = threadIdx.x % HC;
   const int hk = threadIdx.x / HC;
   const bool h_col_ok = f0 + VH * hc < feat;
-  const float* h_col = h + static_cast<int64_t>(head) * feat + f0 + VH * hc;
+  const TH* h_col = h + static_cast<int64_t>(head) * feat + f0 + VH * hc;
 
   // Rows nb .. nb + kRelStageRows into buffer buf; rows past the tile and
   // columns past F or R read as zeros, so they add exactly nothing.
@@ -318,7 +511,7 @@ relgat_bwd_rel_tile_kernel(const float* __restrict__ h,  // [N, H*F]
     for (int k = 0; k < kRelStageRows; ++k) {
       float hv[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) hv[j] = hs[buf][k][lane + 32 * j];
+      for (int j = 0; j < 4; ++j) hv[j] = to_float(hs[buf][k][lane + 32 * j]);
       float wv[RM];
       const float* wr = &ws[buf][k][warp * RM];
 #pragma unroll
@@ -391,22 +584,18 @@ relgat_bwd_rel_reduce_kernel(const float* __restrict__ part_attn,
 
 namespace {
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-}  // namespace
-
-extern "C" int relgat_bwd_src(const float* h, const float* g,
-                              const float* attn, const float* m,
-                              const float* l, const float* s_dot,
-                              const float* gsum, const int* src_ptr,
-                              const int* dst, const int* etype, const int* eid,
-                              float* dh, float* w_out, float* b_out,
-                              int num_nodes, int heads, int feat, int num_rel,
-                              float slope, float eps, int use_dropout,
-                              int seed, unsigned int thr, float keep_prob,
-                              void* stream) {
+template <typename T>
+int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
+                   const float* l, const float* s_dot, const float* gsum,
+                   const int* src_ptr, const int* dst, const int* etype,
+                   const int* eid, float* dh, float* w_out, float* b_out,
+                   int num_nodes, int heads, int feat, int num_rel,
+                   float slope, float eps, int use_dropout, int seed,
+                   unsigned int thr, float keep_prob, void* stream) {
   using namespace relgat;
   const int wpb = heads < kMaxWarpsPerBlock ? heads : kMaxWarpsPerBlock;
   const size_t smem = static_cast<size_t>(wpb) * 32 * sizeof(EdgeEntry) +
@@ -416,14 +605,25 @@ extern "C" int relgat_bwd_src(const float* h, const float* g,
   const dim3 block(32 * wpb);
   const dim3 grid(num_nodes, (heads + wpb - 1) / wpb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec4 = feat % 4 == 0 && aligned16(h) && aligned16(g) &&
-                    aligned16(attn) && aligned16(dh);
+  // 4 values a vector: 16 bytes of an fp32 row, 8 of a bf16 one
+  const bool vec4 = feat % 4 == 0 && aligned(h, 4 * sizeof(T)) &&
+                    aligned(g, 4 * sizeof(T)) && aligned(attn, 16) &&
+                    aligned(dh, 16);
 #define RELGAT_BWD_LAUNCH(VEC, NV)                                           \
-  relgat_bwd_src_kernel<VEC, NV><<<grid, block, smem, st>>>(                 \
+  relgat_bwd_src_kernel<VEC, NV, T><<<grid, block, smem, st>>>(              \
       h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype, eid, dh, w_out,    \
       b_out, heads, feat, num_rel, slope, eps, use_dropout,                  \
       static_cast<uint32_t>(seed), thr, keep_prob)
-  if (vec4 && feat <= 128) {
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  if (kBf16 && vec4 && feat % 8 == 0 && feat <= 128 && aligned(h, 16) &&
+      aligned(g, 16)) {
+    relgat_bwd_src_pair_kernel<<<grid, block, smem, st>>>(
+        reinterpret_cast<const __nv_bfloat16*>(h),
+        reinterpret_cast<const __nv_bfloat16*>(g), attn, m, l, s_dot, gsum,
+        src_ptr, dst, etype, eid, dh, w_out, b_out, heads, feat, num_rel,
+        slope, eps, use_dropout, static_cast<uint32_t>(seed), thr,
+        keep_prob);
+  } else if (vec4 && feat <= 128) {
     RELGAT_BWD_LAUNCH(4, 1);
   } else if (vec4 && feat <= 256) {
     RELGAT_BWD_LAUNCH(4, 2);
@@ -442,43 +642,41 @@ extern "C" int relgat_bwd_src(const float* h, const float* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-namespace {
-
-template <int RM, int VH, int VW>
-void launch_rel_tiles(dim3 grid, cudaStream_t st, const float* h,
+template <int RM, int VH, int VW, typename TH>
+void launch_rel_tiles(dim3 grid, cudaStream_t st, const TH* h,
                       const float* w, const float* b, float* part_attn,
                       float* part_bias, int num_nodes, int heads, int feat,
                       int num_rel, int col_tiles) {
-  relgat::relgat_bwd_rel_tile_kernel<RM, VH, VW>
+  relgat::relgat_bwd_rel_tile_kernel<RM, VH, VW, TH>
       <<<grid, relgat::kRelThreads, 0, st>>>(h, w, b, part_attn, part_bias,
                                              num_nodes, heads, feat, num_rel,
                                              col_tiles);
 }
 
-template <int RM>
+// VHV: the values of h in a 16-byte copy.
+template <int RM, typename TH>
 void launch_rel_tiles_rm(bool vh, bool vw, dim3 grid, cudaStream_t st,
-                         const float* h, const float* w, const float* b,
+                         const TH* h, const float* w, const float* b,
                          float* part_attn, float* part_bias, int num_nodes,
                          int heads, int feat, int num_rel, int col_tiles) {
+  constexpr int VHV = 16 / sizeof(TH);
   if (vh && vw) {
-    launch_rel_tiles<RM, 4, 4>(grid, st, h, w, b, part_attn, part_bias,
-                               num_nodes, heads, feat, num_rel, col_tiles);
+    launch_rel_tiles<RM, VHV, 4>(grid, st, h, w, b, part_attn, part_bias,
+                                 num_nodes, heads, feat, num_rel, col_tiles);
   } else if (vh) {
-    launch_rel_tiles<RM, 4, 1>(grid, st, h, w, b, part_attn, part_bias,
-                               num_nodes, heads, feat, num_rel, col_tiles);
+    launch_rel_tiles<RM, VHV, 1>(grid, st, h, w, b, part_attn, part_bias,
+                                 num_nodes, heads, feat, num_rel, col_tiles);
   } else {
     launch_rel_tiles<RM, 1, 1>(grid, st, h, w, b, part_attn, part_bias,
                                num_nodes, heads, feat, num_rel, col_tiles);
   }
 }
 
-}  // namespace
-
-extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,
-                              float* part_attn, float* part_bias,
-                              float* dattn, float* dbias, int num_nodes,
-                              int heads, int feat, int num_rel, int num_tiles,
-                              void* stream) {
+template <typename TH>
+int launch_bwd_rel(const TH* h, const float* w, const float* b,
+                   float* part_attn, float* part_bias, float* dattn,
+                   float* dbias, int num_nodes, int heads, int feat,
+                   int num_rel, int num_tiles, void* stream) {
   using namespace relgat;
   if (num_tiles != (num_nodes + kRelTileRows - 1) / kRelTileRows)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -497,8 +695,8 @@ extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,
     const int rel_tiles = (num_rel + kRelWarps * rm - 1) / (kRelWarps * rm);
     const dim3 grid(num_tiles, heads, rel_tiles * col_tiles);
     // 16-byte copies where every row starts 16-byte aligned.
-    const bool vh = feat % 4 == 0 && aligned16(h);
-    const bool vw = vh && num_rel % 4 == 0 && aligned16(w) && aligned16(b);
+    const bool vh = feat % (16 / sizeof(TH)) == 0 && aligned(h, 16);
+    const bool vw = vh && num_rel % 4 == 0 && aligned(w, 16) && aligned(b, 16);
 #define RELGAT_REL_LAUNCH(RM)                                                \
   launch_rel_tiles_rm<RM>(vh, vw, grid, st, h, w, b, part_attn, part_bias,   \
                           num_nodes, heads, feat, num_rel, col_tiles)
@@ -523,4 +721,56 @@ extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,
                                                dbias, num_tiles, total,
                                                num_rel);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int relgat_bwd_src(const float* h, const float* g,
+                              const float* attn, const float* m,
+                              const float* l, const float* s_dot,
+                              const float* gsum, const int* src_ptr,
+                              const int* dst, const int* etype, const int* eid,
+                              float* dh, float* w_out, float* b_out,
+                              int num_nodes, int heads, int feat, int num_rel,
+                              float slope, float eps, int use_dropout,
+                              int seed, unsigned int thr, float keep_prob,
+                              void* stream) {
+  return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype,
+                        eid, dh, w_out, b_out, num_nodes, heads, feat,
+                        num_rel, slope, eps, use_dropout, seed, thr,
+                        keep_prob, stream);
+}
+
+// The same with h and g in bf16 (kernel_precision="default").
+extern "C" int relgat_bwd_src_bf16(
+    const __nv_bfloat16* h, const __nv_bfloat16* g, const float* attn,
+    const float* m, const float* l, const float* s_dot, const float* gsum,
+    const int* src_ptr, const int* dst, const int* etype, const int* eid,
+    float* dh, float* w_out, float* b_out, int num_nodes, int heads,
+    int feat, int num_rel, float slope, float eps, int use_dropout, int seed,
+    unsigned int thr, float keep_prob, void* stream) {
+  return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype,
+                        eid, dh, w_out, b_out, num_nodes, heads, feat,
+                        num_rel, slope, eps, use_dropout, seed, thr,
+                        keep_prob, stream);
+}
+
+extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,
+                              float* part_attn, float* part_bias,
+                              float* dattn, float* dbias, int num_nodes,
+                              int heads, int feat, int num_rel, int num_tiles,
+                              void* stream) {
+  return launch_bwd_rel(h, w, b, part_attn, part_bias, dattn, dbias,
+                        num_nodes, heads, feat, num_rel, num_tiles, stream);
+}
+
+// The same with h in bf16 (kernel_precision="default").
+extern "C" int relgat_bwd_rel_bf16(const __nv_bfloat16* h, const float* w,
+                                   const float* b, float* part_attn,
+                                   float* part_bias, float* dattn,
+                                   float* dbias, int num_nodes, int heads,
+                                   int feat, int num_rel, int num_tiles,
+                                   void* stream) {
+  return launch_bwd_rel(h, w, b, part_attn, part_bias, dattn, dbias,
+                        num_nodes, heads, feat, num_rel, num_tiles, stream);
 }

@@ -6,6 +6,8 @@
 #include <math.h>
 
 #include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace relgat {
@@ -25,25 +27,50 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// A lane's share of an F-wide row: NV vectors of VEC floats, vector i at
-// feature VEC * (lane + 32 * i). F is a multiple of VEC, so a vector lies
-// wholly inside the row or wholly past its end (and reads as zeros).
-template <int VEC, int NV>
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
+// bf16 is the upper half of an fp32 word, so widening is a shift: exact,
+// and one integer op per value.
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// A lane's share of an F-wide row of T (float, or bf16 widened to float):
+// NV vectors of VEC values, vector i at feature VEC * (lane + 32 * i). F is
+// a multiple of VEC, so a vector lies wholly inside the row or wholly past
+// its end (and reads as zeros). VEC = 4 reads 16 bytes of fp32 or 8 bytes
+// of bf16 a vector; the caller checks the row's alignment for that width.
+template <int VEC, int NV, typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ p,
                                          int feat, int lane,
                                          float (&v)[VEC * NV]) {
+  static_assert(std::is_same_v<T, float> || std::is_same_v<T, __nv_bfloat16>,
+                "rows are fp32 or bf16");
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int f = VEC * (lane + 32 * i);
-    if constexpr (VEC == 4) {
+    if constexpr (VEC == 4 && std::is_same_v<T, float>) {
       const float4 x = f < feat ? *reinterpret_cast<const float4*>(p + f)
                                 : make_float4(0.f, 0.f, 0.f, 0.f);
       v[4 * i] = x.x;
       v[4 * i + 1] = x.y;
       v[4 * i + 2] = x.z;
       v[4 * i + 3] = x.w;
+    } else if constexpr (VEC == 4) {
+      // element 2k sits in the low half of word k (little-endian)
+      const uint2 x = f < feat ? *reinterpret_cast<const uint2*>(p + f)
+                               : make_uint2(0u, 0u);
+      v[4 * i] = bf16_lo(x.x);
+      v[4 * i + 1] = bf16_hi(x.x);
+      v[4 * i + 2] = bf16_lo(x.y);
+      v[4 * i + 3] = bf16_hi(x.y);
     } else {
-      v[i] = f < feat ? p[f] : 0.f;
+      v[i] = f < feat ? to_float(p[f]) : 0.f;
     }
   }
 }

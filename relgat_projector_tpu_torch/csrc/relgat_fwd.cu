@@ -42,6 +42,20 @@
 //   flight, not the instructions per edge, set the rate of a gather-bound
 //   kernel. The same design at 48 warps, and two edges in flight a warp
 //   (more registers, fewer warps), measured slower.
+//
+// The bf16 variant (relgat_fwd_bf16, kernel_precision="default") reads h as
+// bf16 rows, the TPU kernel's bf16 `ps` stream (kernels.py `_stream_dtype`):
+// half the gathered bytes (4.1 GB at the shapes above). All arithmetic,
+// attn, out, the statistics and the merge stay fp32. Read one edge at a
+// time, a lane's share of a 128-wide bf16 head segment is 8 bytes, half
+// what it is in fp32, so a warp has half the bytes in flight; where F is a
+// multiple of 8 and at most 128, relgat_fwd_pair_kernel instead takes two
+// edges a warp iteration, a half-warp each, 16 bytes a lane. Other widths
+// run relgat_fwd_kernel on bf16 rows. At the shapes above on the card
+// above (chip_smoke.py): 2.05 ms, against 2.22 ms for relgat_fwd_kernel
+// on bf16 rows and 3.00 ms in fp32; the floor of the bf16 row gather is
+// 1.22 ms. The pair kernel keeps 48 warps of 512 bytes in flight an SM, the
+// fp32 kernel 64 of 512, relgat_fwd_kernel on bf16 rows 64 of 256.
 #include "relgat_common.cuh"
 
 namespace relgat {
@@ -54,6 +68,8 @@ constexpr int kItemEdges = 256;
 constexpr int kFwdWarps = 8;
 // Blocks of kFwdWarps an SM: 8 caps registers at 32 a thread, 64 warps.
 constexpr int kFwdMinBlocks = 8;
+// The pair kernel holds 8 features a lane: 6 blocks, 40 registers.
+constexpr int kFwdPairMinBlocks = 6;
 // Warps that merge one (split row, head), each a contiguous run of chunks.
 constexpr int kMergeWarps = 8;
 
@@ -67,11 +83,11 @@ __device__ __forceinline__ float warp_max(float v) {
 // Block (item, head group): warp w takes head group * warps + w over the
 // item's edges [e0, e1) of row d. slot < 0: the item is the whole row, and
 // the warp writes out, m, l (and bias) itself; else it writes its partial to
-// slot `slot` of the scratch.
-template <int VEC, int NV>
+// slot `slot` of the scratch. T is the element type of h.
+template <int VEC, int NV, typename T>
 __global__ void
 __launch_bounds__(32 * kFwdWarps, VEC * NV <= 4 ? kFwdMinBlocks : 1)
-relgat_fwd_kernel(const float* __restrict__ h,         // [N, H*F]
+relgat_fwd_kernel(const T* __restrict__ h,             // [N, H*F]
                   const float* __restrict__ attn,      // [H, R, F]
                   const float* __restrict__ rel_bias,  // [R]
                   const int4* __restrict__ items,      // [I] (d, e0, e1, slot)
@@ -103,7 +119,7 @@ relgat_fwd_kernel(const float* __restrict__ h,         // [N, H*F]
   if (head >= heads) return;
 
   const int64_t hf = static_cast<int64_t>(heads) * feat;
-  const float* h_head = h + static_cast<int64_t>(head) * feat;
+  const T* h_head = h + static_cast<int64_t>(head) * feat;
   const float* a_head = attn + static_cast<int64_t>(head) * num_rel * feat;
   float acc[FPL];
 #pragma unroll
@@ -156,6 +172,133 @@ relgat_fwd_kernel(const float* __restrict__ h,         // [N, H*F]
       part_ml[ps] = make_float2(m, l);
       if (head == 0) part_bias[slot] = bsum;
     }
+  }
+}
+
+// Block (item, head group) as relgat_fwd_kernel, over bf16 rows of
+// F <= 128 with F % 8 == 0: half-warp `half` takes the item's edges
+// j = half, half + 2, ... with its own running (m, l, acc) and bias sum,
+// lane hl features 8*hl .. 8*hl + 7 of each (one 16-byte load). The
+// halves then merge, m = max of both, each rescaled by e^(m_half - m), in
+// one fixed order, and the first half writes the result.
+__global__ void
+__launch_bounds__(32 * kFwdWarps, kFwdPairMinBlocks)
+relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
+                       const float* __restrict__ attn,       // [H, R, F]
+                       const float* __restrict__ rel_bias,   // [R]
+                       const int4* __restrict__ items,
+                       const int* __restrict__ src,
+                       const int* __restrict__ etype,
+                       float* __restrict__ out, float* __restrict__ m_out,
+                       float* __restrict__ l_out,
+                       float* __restrict__ bias_out,
+                       float* __restrict__ part_acc,
+                       float2* __restrict__ part_ml,
+                       double* __restrict__ part_bias, int head_groups,
+                       int heads, int feat, int num_rel, float slope,
+                       float eps, int use_dropout, uint32_t seed,
+                       uint32_t thr, float keep_prob) {
+  __shared__ __align__(16) int2 table[kItemEdges];  // (src, etype)
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  const int f = 8 * (lane & 15);
+  const bool in_row = f < feat;
+  const int warps = blockDim.x >> 5;
+  const int4 item = items[blockIdx.x / head_groups];
+  const int d = item.x;
+  const int e0 = item.y;
+  const int cnt = item.z - item.y;
+  const int slot = item.w;
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x)
+    table[i] = make_int2(src[e0 + i], etype[e0 + i]);
+  __syncthreads();
+  const int head = (blockIdx.x % head_groups) * warps + (threadIdx.x >> 5);
+  if (head >= heads) return;
+
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  const __nv_bfloat16* h_head = h + static_cast<int64_t>(head) * feat + f;
+  const float* a_head = attn + static_cast<int64_t>(head) * num_rel * feat + f;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  float m = -INFINITY;
+  float l = 0.f;
+  double bsum = 0.0;
+  // The halves may run a different number of edges: their shuffles name
+  // their own 16 lanes only.
+  const unsigned half_mask = half ? 0xffff0000u : 0x0000ffffu;
+  for (int j = half; j < cnt; j += 2) {
+    const int2 t = table[j];
+    bsum += rel_bias[t.y];
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 a1 = a0;
+    if (in_row) {
+      x = *reinterpret_cast<const uint4*>(h_head + t.x * hf);
+      const float* ap = a_head + static_cast<int64_t>(t.y) * feat;
+      a0 = *reinterpret_cast<const float4*>(ap);
+      a1 = *reinterpret_cast<const float4*>(ap + 4);
+    }
+    const float hv[8] = {bf16_lo(x.x), bf16_hi(x.x), bf16_lo(x.y),
+                         bf16_hi(x.y), bf16_lo(x.z), bf16_hi(x.z),
+                         bf16_lo(x.w), bf16_hi(x.w)};
+    float dot = hv[0] * a0.x + hv[1] * a0.y + hv[2] * a0.z + hv[3] * a0.w +
+                hv[4] * a1.x + hv[5] * a1.y + hv[6] * a1.z + hv[7] * a1.w;
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+      dot += __shfl_xor_sync(half_mask, dot, o);
+    const float ev = leaky_relu(dot, slope);
+    const float m_new = fmaxf(m, ev);
+    const float scale = expf(m - m_new);  // 0 on the half's first edge
+    const float p = expf(ev - m_new);
+    l = l * scale + p;
+    const float pk =
+        use_dropout ? p * dropout_keep(e0 + j, head, seed, thr) / keep_prob : p;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = acc[i] * scale + pk * hv[i];
+    m = m_new;
+  }
+
+  // Merge the halves; a half without edges has m = -inf and adds nothing.
+  const float m_o = __shfl_xor_sync(kFullMask, m, 16);
+  const float l_o = __shfl_xor_sync(kFullMask, l, 16);
+  const double b_o = __shfl_xor_sync(kFullMask, bsum, 16);
+  const float m_all = fmaxf(m, m_o);
+  const float s_me = m == -INFINITY ? 0.f : expf(m - m_all);
+  const float s_o = m_o == -INFINITY ? 0.f : expf(m_o - m_all);
+  // a + b == b + a, so both halves hold the same bits
+  l = l * s_me + l_o * s_o;
+  bsum += b_o;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    acc[i] = acc[i] * s_me + __shfl_xor_sync(kFullMask, acc[i], 16) * s_o;
+  if (half != 0) return;
+
+  float* dst_row;
+  if (slot < 0) {
+    const float denom = fmaxf(l, eps);
+    const float bias = static_cast<float>(bsum);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = acc[i] / denom + bias;
+    dst_row = out + d * hf + static_cast<int64_t>(head) * feat;
+    if (lane == 0) {
+      m_out[static_cast<int64_t>(d) * heads + head] = m_all;
+      l_out[static_cast<int64_t>(d) * heads + head] = l;
+      if (head == 0) bias_out[d] = bias;
+    }
+  } else {
+    const int64_t ps = static_cast<int64_t>(slot) * heads + head;
+    dst_row = part_acc + ps * feat;
+    if (lane == 0) {
+      part_ml[ps] = make_float2(m_all, l);
+      if (head == 0) part_bias[slot] = bsum;
+    }
+  }
+  if (in_row) {
+    *reinterpret_cast<float4*>(dst_row + f) =
+        make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(dst_row + f + 4) =
+        make_float4(acc[4], acc[5], acc[6], acc[7]);
   }
 }
 
@@ -251,38 +394,38 @@ relgat_fwd_merge_kernel(const int* __restrict__ merge,  // [S, 3] (d, c0, c1)
 
 namespace {
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
-
-}  // namespace
 
 // items [I, 4] and merge [S, 3] are data/csr.py's work plan; part_acc,
 // part_ml and part_bias have a slot for each chunk of a split row.
-extern "C" int relgat_fwd(const float* h, const float* attn,
-                          const float* rel_bias, const int* items,
-                          const int* src, const int* etype, const int* merge,
-                          float* out, float* m_out, float* l_out,
-                          float* bias_out, float* part_acc, float* part_ml,
-                          double* part_bias, int num_items, int num_split,
-                          int item_edges, int heads, int feat, int num_rel,
-                          float slope, float eps, int use_dropout, int seed,
-                          unsigned int thr, float keep_prob, void* stream) {
+template <typename T>
+int launch_fwd(const T* h, const float* attn, const float* rel_bias,
+               const int* items, const int* src, const int* etype,
+               const int* merge, float* out, float* m_out, float* l_out,
+               float* bias_out, float* part_acc, float* part_ml,
+               double* part_bias, int num_items, int num_split,
+               int item_edges, int heads, int feat, int num_rel, float slope,
+               float eps, int use_dropout, int seed, unsigned int thr,
+               float keep_prob, void* stream) {
   using namespace relgat;
-  if (item_edges > kItemEdges || !aligned16(items) || heads < 1)
+  if (item_edges > kItemEdges || !aligned(items, 16) || heads < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int wpb = heads < kFwdWarps ? heads : kFwdWarps;
   const int groups = (heads + wpb - 1) / wpb;
   const dim3 block(32 * wpb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec4 = feat % 4 == 0 && aligned16(h) && aligned16(attn) &&
-                    aligned16(out) && aligned16(part_acc);
+  // 4 values a vector: 16 bytes of an fp32 row, 8 of a bf16 one
+  const bool vec4 = feat % 4 == 0 && aligned(h, 4 * sizeof(T)) &&
+                    aligned(attn, 16) && aligned(out, 16) &&
+                    aligned(part_acc, 16);
   const int4* it = reinterpret_cast<const int4*>(items);
   float2* ml = reinterpret_cast<float2*>(part_ml);
 #define RELGAT_FWD_LAUNCH(VEC, NV)                                            \
   do {                                                                        \
     if (num_items > 0) {                                                      \
-      relgat_fwd_kernel<VEC, NV><<<num_items * groups, block, 0, st>>>(       \
+      relgat_fwd_kernel<VEC, NV, T><<<num_items * groups, block, 0, st>>>(    \
           h, attn, rel_bias, it, src, etype, out, m_out, l_out, bias_out,     \
           part_acc, ml, part_bias, groups, heads, feat, num_rel, slope, eps,  \
           use_dropout, static_cast<uint32_t>(seed), thr, keep_prob);          \
@@ -296,7 +439,24 @@ extern "C" int relgat_fwd(const float* h, const float* attn,
               heads, feat, eps);                                              \
     }                                                                         \
   } while (0)
-  if (vec4 && feat <= 128) {
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  if (kBf16 && vec4 && feat % 8 == 0 && feat <= 128 && aligned(h, 16)) {
+    if (num_items > 0) {
+      relgat_fwd_pair_kernel<<<num_items * groups, block, 0, st>>>(
+          reinterpret_cast<const __nv_bfloat16*>(h), attn, rel_bias, it, src,
+          etype, out, m_out, l_out, bias_out, part_acc, ml, part_bias,
+          groups, heads, feat, num_rel, slope, eps, use_dropout,
+          static_cast<uint32_t>(seed), thr, keep_prob);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (num_split > 0) {
+      relgat_fwd_merge_kernel<4, 1>
+          <<<num_split * heads, 32 * kMergeWarps, 0, st>>>(
+              merge, part_acc, ml, part_bias, out, m_out, l_out, bias_out,
+              heads, feat, eps);
+    }
+  } else if (vec4 && feat <= 128) {
     RELGAT_FWD_LAUNCH(4, 1);
   } else if (vec4 && feat <= 256) {
     RELGAT_FWD_LAUNCH(4, 2);
@@ -313,4 +473,39 @@ extern "C" int relgat_fwd(const float* h, const float* attn,
   }
 #undef RELGAT_FWD_LAUNCH
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int relgat_fwd(const float* h, const float* attn,
+                          const float* rel_bias, const int* items,
+                          const int* src, const int* etype, const int* merge,
+                          float* out, float* m_out, float* l_out,
+                          float* bias_out, float* part_acc, float* part_ml,
+                          double* part_bias, int num_items, int num_split,
+                          int item_edges, int heads, int feat, int num_rel,
+                          float slope, float eps, int use_dropout, int seed,
+                          unsigned int thr, float keep_prob, void* stream) {
+  return launch_fwd(h, attn, rel_bias, items, src, etype, merge, out, m_out,
+                    l_out, bias_out, part_acc, part_ml, part_bias, num_items,
+                    num_split, item_edges, heads, feat, num_rel, slope, eps,
+                    use_dropout, seed, thr, keep_prob, stream);
+}
+
+// The same with h in bf16 (kernel_precision="default").
+extern "C" int relgat_fwd_bf16(const __nv_bfloat16* h, const float* attn,
+                               const float* rel_bias, const int* items,
+                               const int* src, const int* etype,
+                               const int* merge, float* out, float* m_out,
+                               float* l_out, float* bias_out, float* part_acc,
+                               float* part_ml, double* part_bias,
+                               int num_items, int num_split, int item_edges,
+                               int heads, int feat, int num_rel, float slope,
+                               float eps, int use_dropout, int seed,
+                               unsigned int thr, float keep_prob,
+                               void* stream) {
+  return launch_fwd(h, attn, rel_bias, items, src, etype, merge, out, m_out,
+                    l_out, bias_out, part_acc, part_ml, part_bias, num_items,
+                    num_split, item_edges, heads, feat, num_rel, slope, eps,
+                    use_dropout, seed, thr, keep_prob, stream);
 }

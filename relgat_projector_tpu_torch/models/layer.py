@@ -3,7 +3,8 @@
 Port of ``relgat_projector_tpu/models/layer.py``. Parameters keep the JAX
 layout: ``proj [H, in, F]``, ``attn [H, R, F]``, optional ``rel_bias [R]``.
 One ``[N, in] x [in, H*F]`` product projects every head; it stays
-``torch.matmul`` (the JAX package leaves it to XLA).
+``torch.matmul`` (the JAX package leaves it to XLA), with its operands in
+``compute_dtype`` and an fp32 result.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Dict, Optional
 import torch
 
 from relgat_projector_tpu_torch.data.graph import GraphData
+from relgat_projector_tpu_torch.device import compute_matmul
 from relgat_projector_tpu_torch.models.initializers import xavier_uniform
 from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
 from relgat_projector_tpu_torch.utils.rng import RngStreams
@@ -51,6 +53,7 @@ def apply_relgat_layer(
     train: bool = False,
     rng: Optional[RngStreams] = None,
     use_pallas: bool = False,
+    compute_dtype: torch.dtype = torch.float32,
     kernel_precision: str = "highest",
 ) -> torch.Tensor:
     """One message-passing step; returns ``[N, heads * out_dim]``."""
@@ -58,7 +61,7 @@ def apply_relgat_layer(
     heads, in_dim, out_dim = proj.shape
     n = x.shape[0]
     w = proj.permute(1, 0, 2).reshape(in_dim, heads * out_dim)
-    h = (x @ w).view(n, heads, out_dim)
+    h = compute_matmul(x, w, compute_dtype).view(n, heads, out_dim)
 
     drawing = train and rng is not None
     agg = relgat_propagate(

@@ -32,7 +32,7 @@ from relgat_projector_tpu_torch.data.graph import GraphData
 from relgat_projector_tpu_torch.device import (
     DeviceLike,
     resolve_device,
-    set_fp32_matmul_highest,
+    set_matmul_precision,
 )
 from relgat_projector_tpu_torch.models import scorer as scorer_mod
 from relgat_projector_tpu_torch.models.layer import (
@@ -89,7 +89,8 @@ def single_gat_step(
 ) -> torch.Tensor:
     """Representations of ALL nodes ``[N_pad, scorer_dim]``."""
     if node_emb.is_cuda:
-        set_fp32_matmul_highest()
+        set_matmul_precision()
+    compute_dtype = getattr(torch, cfg.compute_dtype)
     num_layers = cfg.gat_num_layers
     x = node_emb
     for li in range(num_layers):
@@ -100,6 +101,7 @@ def single_gat_step(
             train=train,
             rng=rng,
             use_pallas=cfg.use_pallas,
+            compute_dtype=compute_dtype,
             kernel_precision=cfg.kernel_precision,
         )
         if li < num_layers - 1:
@@ -107,7 +109,7 @@ def single_gat_step(
     if cfg.project_to_input_size:
         x = apply_projection_head(
             params["projection"], x, dropout_rate=cfg.projection_dropout,
-            train=train, rng=rng,
+            train=train, rng=rng, compute_dtype=compute_dtype,
         )
     return x
 

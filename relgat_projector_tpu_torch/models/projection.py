@@ -3,7 +3,9 @@
 Port of ``relgat_projector_tpu/models/projection.py``: no layers and equal
 dims is the identity; one layer is a bias-free linear; ``k >= 2`` layers are
 ``k - 1`` blocks of ``linear -> exact GELU -> LayerNorm(eps 1e-5)`` then a
-final linear; trailing dropout. Weights are ``[in, out]`` (``x @ W``).
+final linear; trailing dropout. Weights are ``[in, out]`` (``x @ W``); each
+linear takes its operands in ``compute_dtype`` and gives fp32, and GELU,
+LayerNorm and dropout run in fp32.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from relgat_projector_tpu_torch.device import compute_matmul
 from relgat_projector_tpu_torch.models.initializers import torch_linear_uniform
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 
@@ -70,11 +73,12 @@ def apply_projection_head(
     dropout_rate: float = 0.0,
     train: bool = False,
     rng: Optional[RngStreams] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     n_ln = len(params["ln_scale"])
     y = x
     for i, w in enumerate(params["linears"]):
-        y = y @ w
+        y = compute_matmul(y, w, compute_dtype)
         if i < n_ln:  # every layer but the last: GELU -> LayerNorm
             y = F.gelu(y, approximate="none")
             y = _layer_norm(y, params["ln_scale"][i], params["ln_bias"][i])

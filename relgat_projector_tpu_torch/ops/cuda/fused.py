@@ -16,17 +16,24 @@ Port of ``relgat_projector_tpu/ops/pallas/fused.py``:
   kernel sums dattn and dbias across its sequential grid, which this card
   does not have).
 
+Each has a bf16 variant (``relgat_fwd_bf16``, ``relgat_bwd_src_bf16``,
+``relgat_bwd_rel_bf16``) for ``kernel_precision="default"``, the TPU
+kernels' bf16 streams: it reads ``h`` (and ``g``) as bfloat16 rows and does
+everything else as its fp32 twin does, in fp32. Its plain version widens
+those rows and runs the fp32 plain version.
+
 A wrapper given CPU tensors computes its plain PyTorch version (the
 ``*_plain`` function beside it); given CUDA tensors it launches its kernel
-or raises. The plain versions are the reference the kernels are held to on
-the card; nothing on the card's main path calls them. Each wrapper counts
-its launches in a plain int attribute, ``<wrapper>.launches``.
+or raises: a CUDA tensor of another type than the kernel reads is refused,
+never converted. The plain versions are the reference the kernels are held
+to on the card; nothing on the card's main path calls them. Each wrapper
+counts its launches in a plain int attribute, ``<wrapper>.launches``.
 
-Shapes: ``h``/``g``/``out``/``dh`` are ``[N, H*F]`` fp32 over the layout's
-N (padded) node rows; ``attn``/``dattn`` ``[H, R, F]``; the statistics
-``m``, ``l`` (un-dropped softmax sum) and ``s_dot`` (``<out - bias, g>``)
-``[N, H]``; ``gsum`` (``sum_{h,f} g``) ``[N]``; ``W`` ``[N, H, R]`` and
-``B`` ``[N, R]``.
+Shapes: ``h``/``g``/``out``/``dh`` are ``[N, H*F]`` over the layout's N
+(padded) node rows, fp32 (``h``/``g`` bf16 in the bf16 variants);
+``attn``/``dattn`` ``[H, R, F]``; the statistics ``m``, ``l`` (un-dropped
+softmax sum) and ``s_dot`` (``<out - bias, g>``) ``[N, H]``; ``gsum``
+(``sum_{h,f} g``) ``[N]``; ``W`` ``[N, H, R]`` and ``B`` ``[N, R]``.
 """
 
 from __future__ import annotations
@@ -69,9 +76,12 @@ def _keep_scale(csr: CSRGraph, heads, seed, rate, device) -> Optional[torch.Tens
 
 
 def _on_card(
-    name: str, csr: Optional[CSRGraph], *tensors: torch.Tensor
+    name: str, csr: Optional[CSRGraph], *tensors: torch.Tensor,
+    bf16_rows: int = 0,
 ) -> bool:
-    """True for CUDA inputs (after checking them), False for CPU ones."""
+    """True for CUDA inputs (after checking them), False for CPU ones. The
+    first ``bf16_rows`` tensors are a bf16 variant's rows (h, g) and must
+    be bfloat16; every other floating-point input float32."""
     dev = tensors[0].device
     if dev.type == "cpu":
         return False
@@ -81,14 +91,23 @@ def _on_card(
     for t in tensors + layout:
         if t.device != dev:
             raise ValueError(f"{name}: inputs lie on {t.device} and {dev}")
-    for t in tensors:
-        if t.dtype == torch.float32 and not t.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
-        if t.is_floating_point() and t.dtype != torch.float32:
+    for i, t in enumerate(tensors):
+        if not t.is_floating_point():
+            continue
+        want = torch.bfloat16 if i < bf16_rows else torch.float32
+        if t.dtype != want:
             raise NotImplementedError(
-                f"{name}: only float32 ('highest' precision) is ported"
+                f"{name}: a {t.dtype} input where the kernel reads {want} "
+                "(float32, or bfloat16 h and g with "
+                "kernel_precision='default')"
             )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
     return True
+
+
+def _f32(like: torch.Tensor, shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
 def _check_shapes(name, h, attn, csr):
@@ -182,32 +201,37 @@ def relgat_fwd_split_plain(
     return out.reshape(n, hf), m, l, bias
 
 
-def relgat_fwd(
+def relgat_fwd_bf16_plain(
     h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope, eps
 ):
-    """Aggregate every row's in-edges: ``out [N, H*F]`` (rows without
-    in-edges are 0) and the saved statistics ``m, l [N, H]``, ``bias [N]``."""
-    if not _on_card("relgat_fwd", csr, h, attn, rel_bias):
-        return relgat_fwd_plain(
-            h, attn, rel_bias, csr, seed=seed, rate=rate,
-            negative_slope=negative_slope, eps=eps,
-        )
-    n, heads, num_rel, f = _check_shapes("relgat_fwd", h, attn, csr)
+    """Plain version of ``relgat_fwd_bf16``: ``h``'s bf16 values widened
+    to ``attn``'s type, then ``relgat_fwd_plain``."""
+    return relgat_fwd_plain(
+        h.to(attn.dtype), attn, rel_bias, csr, seed=seed, rate=rate,
+        negative_slope=negative_slope, eps=eps,
+    )
+
+
+def _launch_fwd(
+    name, h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope,
+    eps,
+):
+    n, heads, num_rel, f = _check_shapes(name, h, attn, csr)
     if csr.fwd_item_edges > FWD_ITEM_EDGES:
         raise ValueError(
-            f"relgat_fwd: work items of {csr.fwd_item_edges} edges exceed "
+            f"{name}: work items of {csr.fwd_item_edges} edges exceed "
             f"the kernel's edge table of {FWD_ITEM_EDGES}"
         )
-    out = torch.empty_like(h)
-    m = h.new_empty((n, heads))
-    l = h.new_empty((n, heads))
-    bias = h.new_empty((n,))
+    out = _f32(h, h.shape)
+    m = _f32(h, (n, heads))
+    l = _f32(h, (n, heads))
+    bias = _f32(h, (n,))
     parts = csr.fwd_num_parts
-    part_acc = h.new_empty((parts, heads, f))
-    part_ml = h.new_empty((parts, heads, 2))
+    part_acc = _f32(h, (parts, heads, f))
+    part_ml = _f32(h, (parts, heads, 2))
     part_bias = h.new_empty((parts,), dtype=torch.float64)
     use, s, thr, keep = _dropout_args(seed, rate)
-    rc = entry_point("relgat_fwd")(
+    rc = entry_point(name)(
         h.data_ptr(), attn.data_ptr(), rel_bias.data_ptr(),
         csr.fwd_items.data_ptr(), csr.src.data_ptr(), csr.etype.data_ptr(),
         csr.fwd_merge.data_ptr(), out.data_ptr(), m.data_ptr(),
@@ -216,12 +240,37 @@ def relgat_fwd(
         csr.fwd_num_split, csr.fwd_item_edges, heads, f, num_rel,
         float(negative_slope), float(eps), use, s, thr, keep, _stream(),
     )
-    _raise_on(rc, "relgat_fwd")
-    relgat_fwd.launches += 1
+    _raise_on(rc, name)
     return out, m, l, bias
 
 
+def relgat_fwd(
+    h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope, eps
+):
+    """Aggregate every row's in-edges: ``out [N, H*F]`` (rows without
+    in-edges are 0) and the saved statistics ``m, l [N, H]``, ``bias [N]``."""
+    kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
+    if not _on_card("relgat_fwd", csr, h, attn, rel_bias):
+        return relgat_fwd_plain(h, attn, rel_bias, csr, **kw)
+    result = _launch_fwd("relgat_fwd", h, attn, rel_bias, csr, **kw)
+    relgat_fwd.launches += 1
+    return result
+
+
+def relgat_fwd_bf16(
+    h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope, eps
+):
+    """``relgat_fwd`` reading ``h`` as bf16 rows; fp32 outputs."""
+    kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
+    if not _on_card("relgat_fwd_bf16", csr, h, attn, rel_bias, bf16_rows=1):
+        return relgat_fwd_bf16_plain(h, attn, rel_bias, csr, **kw)
+    result = _launch_fwd("relgat_fwd_bf16", h, attn, rel_bias, csr, **kw)
+    relgat_fwd_bf16.launches += 1
+    return result
+
+
 relgat_fwd.launches = 0
+relgat_fwd_bf16.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -267,33 +316,38 @@ def relgat_bwd_src_plain(
     return dh, w.transpose(1, 2).contiguous(), b
 
 
-def relgat_bwd_src(
+def relgat_bwd_src_bf16_plain(
     h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
     negative_slope, eps,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``relgat_bwd_src_bf16``: the bf16 values of ``h``
+    and ``g`` widened to ``attn``'s type, then ``relgat_bwd_src_plain``."""
+    return relgat_bwd_src_plain(
+        h.to(attn.dtype), g.to(attn.dtype), attn, m, l, s_dot, gsum, csr,
+        seed=seed, rate=rate, negative_slope=negative_slope, eps=eps,
+    )
+
+
+def _launch_bwd_src(
+    name, h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    negative_slope, eps,
 ):
-    """Gradient wrt ``h`` and the per-(src row, relation) sums ``W`` of the
-    logit gradient and ``B`` of ``gsum[dst]``, every row written."""
-    if not _on_card("relgat_bwd_src", csr, h, g, attn, m, l, s_dot, gsum):
-        return relgat_bwd_src_plain(
-            h, g, attn, m, l, s_dot, gsum, csr, seed=seed, rate=rate,
-            negative_slope=negative_slope, eps=eps,
-        )
-    n, heads, num_rel, f = _check_shapes("relgat_bwd_src", h, attn, csr)
+    n, heads, num_rel, f = _check_shapes(name, h, attn, csr)
     if (g.shape != h.shape or gsum.shape != (n,)
             or not (m.shape == l.shape == s_dot.shape == (n, heads))):
-        raise ValueError("relgat_bwd_src: g or statistics have wrong shapes")
+        raise ValueError(f"{name}: g or statistics have wrong shapes")
     if num_rel > max_num_rel(heads):
         raise ValueError(
-            f"relgat_bwd_src: {num_rel} relations exceed the limit of "
+            f"{name}: {num_rel} relations exceed the limit of "
             f"{max_num_rel(heads)} at {heads} heads (edge tables and one "
             f"slab of R floats per warp, and one more, in "
             f"{MAX_BWD_SMEM_BYTES} bytes of shared memory)"
         )
-    dh = torch.empty_like(h)
-    w = h.new_empty((n, heads, num_rel))
-    b = h.new_empty((n, num_rel))
+    dh = _f32(h, h.shape)
+    w = _f32(h, (n, heads, num_rel))
+    b = _f32(h, (n, num_rel))
     use, s, thr, keep = _dropout_args(seed, rate)
-    rc = entry_point("relgat_bwd_src")(
+    rc = entry_point(name)(
         h.data_ptr(), g.data_ptr(), attn.data_ptr(), m.data_ptr(),
         l.data_ptr(), s_dot.data_ptr(), gsum.data_ptr(),
         csr.src_ptr.data_ptr(), csr.by_src_dst.data_ptr(),
@@ -302,12 +356,42 @@ def relgat_bwd_src(
         n, heads, f, num_rel, float(negative_slope), float(eps),
         use, s, thr, keep, _stream(),
     )
-    _raise_on(rc, "relgat_bwd_src")
-    relgat_bwd_src.launches += 1
+    _raise_on(rc, name)
     return dh, w, b
 
 
+def relgat_bwd_src(
+    h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    negative_slope, eps,
+):
+    """Gradient wrt ``h`` and the per-(src row, relation) sums ``W`` of the
+    logit gradient and ``B`` of ``gsum[dst]``, every row written."""
+    args = (h, g, attn, m, l, s_dot, gsum, csr)
+    kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
+    if not _on_card("relgat_bwd_src", csr, *args[:-1]):
+        return relgat_bwd_src_plain(*args, **kw)
+    result = _launch_bwd_src("relgat_bwd_src", *args, **kw)
+    relgat_bwd_src.launches += 1
+    return result
+
+
+def relgat_bwd_src_bf16(
+    h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    negative_slope, eps,
+):
+    """``relgat_bwd_src`` reading ``h`` and ``g`` as bf16 rows; the
+    statistics and every output fp32."""
+    args = (h, g, attn, m, l, s_dot, gsum, csr)
+    kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
+    if not _on_card("relgat_bwd_src_bf16", csr, *args[:-1], bf16_rows=2):
+        return relgat_bwd_src_bf16_plain(*args, **kw)
+    result = _launch_bwd_src("relgat_bwd_src_bf16", *args, **kw)
+    relgat_bwd_src_bf16.launches += 1
+    return result
+
+
 relgat_bwd_src.launches = 0
+relgat_bwd_src_bf16.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -321,37 +405,60 @@ def relgat_bwd_rel_plain(h, w, b) -> Tuple[torch.Tensor, torch.Tensor]:
     return dattn, b.sum(0)
 
 
-def relgat_bwd_rel(h, w, b):
-    """``dattn[hd] = W[:, hd, :]^T h[:, hd, :]`` and ``dbias = sum_s B[s]``
-    over the node rows, deterministic."""
-    if not _on_card("relgat_bwd_rel", None, h, w, b):
-        return relgat_bwd_rel_plain(h, w, b)
+def relgat_bwd_rel_bf16_plain(h, w, b) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``relgat_bwd_rel_bf16``: ``h``'s bf16 values
+    widened to ``W``'s type, then ``relgat_bwd_rel_plain``."""
+    return relgat_bwd_rel_plain(h.to(w.dtype), w, b)
+
+
+def _launch_bwd_rel(name, h, w, b):
     n, hf = h.shape
     _, heads, num_rel = w.shape
     f = hf // heads
     if w.shape[0] != n or heads * f != hf or b.shape != (n, num_rel):
         raise ValueError(
-            f"relgat_bwd_rel: h {tuple(h.shape)}, W {tuple(w.shape)} and "
+            f"{name}: h {tuple(h.shape)}, W {tuple(w.shape)} and "
             f"B {tuple(b.shape)} do not match"
         )
     tiles = -(-n // REL_TILE_ROWS)
-    part_attn = h.new_empty((tiles, heads, num_rel, f))
-    part_bias = h.new_empty((tiles, num_rel))
-    dattn = h.new_empty((heads, num_rel, f))
-    dbias = h.new_empty((num_rel,))
-    rc = entry_point("relgat_bwd_rel")(
+    part_attn = _f32(h, (tiles, heads, num_rel, f))
+    part_bias = _f32(h, (tiles, num_rel))
+    dattn = _f32(h, (heads, num_rel, f))
+    dbias = _f32(h, (num_rel,))
+    rc = entry_point(name)(
         h.data_ptr(), w.data_ptr(), b.data_ptr(), part_attn.data_ptr(),
         part_bias.data_ptr(), dattn.data_ptr(), dbias.data_ptr(),
         n, heads, f, num_rel, tiles, _stream(),
     )
-    _raise_on(rc, "relgat_bwd_rel")
-    relgat_bwd_rel.launches += 1
+    _raise_on(rc, name)
     return dattn, dbias
 
 
-relgat_bwd_rel.launches = 0
+def relgat_bwd_rel(h, w, b):
+    """``dattn[hd] = W[:, hd, :]^T h[:, hd, :]`` and ``dbias = sum_s B[s]``
+    over the node rows, deterministic."""
+    if not _on_card("relgat_bwd_rel", None, h, w, b):
+        return relgat_bwd_rel_plain(h, w, b)
+    result = _launch_bwd_rel("relgat_bwd_rel", h, w, b)
+    relgat_bwd_rel.launches += 1
+    return result
 
-KERNELS = (relgat_fwd, relgat_bwd_src, relgat_bwd_rel)
+
+def relgat_bwd_rel_bf16(h, w, b):
+    """``relgat_bwd_rel`` reading ``h`` as bf16 rows; fp32 outputs."""
+    if not _on_card("relgat_bwd_rel_bf16", None, h, w, b, bf16_rows=1):
+        return relgat_bwd_rel_bf16_plain(h, w, b)
+    result = _launch_bwd_rel("relgat_bwd_rel_bf16", h, w, b)
+    relgat_bwd_rel_bf16.launches += 1
+    return result
+
+
+relgat_bwd_rel.launches = 0
+relgat_bwd_rel_bf16.launches = 0
+
+FP32_KERNELS = (relgat_fwd, relgat_bwd_src, relgat_bwd_rel)
+BF16_KERNELS = (relgat_fwd_bf16, relgat_bwd_src_bf16, relgat_bwd_rel_bf16)
+KERNELS = FP32_KERNELS + BF16_KERNELS
 
 
 def launch_counts() -> dict:

@@ -7,8 +7,11 @@ normalized weights, the weighted sum of source rows, and a per-relation
 scalar bias summed per destination and added to every head and feature.
 
 ``use_pallas`` selects the Hopper kernels (``ops/propagate.py``) and needs
-the graph's CSR layout; otherwise ``_plain_propagate``, the counterpart of
-``_xla_propagate``, runs over the padded COO.
+the graph's CSR layout; ``kernel_precision`` picks their fp32 ("highest",
+"high") or bf16-stream ("default") variants. Otherwise
+``_plain_propagate``, the counterpart of ``_xla_propagate``, runs over the
+padded COO in the input's precision and ignores ``kernel_precision``, as
+the JAX path does.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from relgat_projector_tpu_torch.ops.segment import (
     segment_sum,
 )
 
-PORTED_PRECISIONS = ("highest", "high")
+KERNEL_PRECISIONS = ("highest", "high", "default")
 
 
 def relgat_propagate(
@@ -54,11 +57,8 @@ def relgat_propagate(
                 "use_pallas needs the kernels' CSR layout: build the graph "
                 "with build_graph(..., csr=True)"
             )
-        if kernel_precision not in PORTED_PRECISIONS:
-            raise NotImplementedError(
-                f"kernel_precision={kernel_precision!r} (bf16 streams) is not "
-                "ported yet; use 'highest'"
-            )
+        if kernel_precision not in KERNEL_PRECISIONS:
+            raise ValueError(f"Unknown kernel_precision: {kernel_precision}")
         from relgat_projector_tpu_torch.ops.propagate import (
             relgat_propagate_kernels,
         )
@@ -67,6 +67,7 @@ def relgat_propagate(
             h, attn_bank, rel_bias, csr,
             negative_slope=negative_slope, eps=eps,
             attn_dropout_rate=attn_dropout_rate, dropout_seed=dropout_seed,
+            kernel_precision=kernel_precision,
         )
     return _plain_propagate(
         h, attn_bank, rel_bias, src, dst, etype,

@@ -9,7 +9,8 @@ with a card, from the repository root, without the JAX-side conftest:
 Tolerance: max|kernel - plain| <= 1e-5 * max|plain|, with the plain version
 run in float64 on the same fp32 inputs, so the error is the kernel's own fp32
 rounding (the kernels keep a true per-row running max like the plain
-version).
+version). The bf16 variants are held to the same bar against their plain
+versions run in float64 on the same bf16 values, widened exactly.
 """
 
 import dataclasses
@@ -91,7 +92,103 @@ def test_kernels_match_plain(card, heads, feat, num_rel, rate):
     assert _rel(da_k, da_p) <= REL_TOL and _rel(db_k, db_p) <= REL_TOL
     torch.cuda.synchronize()
     after = kern.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    for k in kern.FP32_KERNELS:
+        assert after[k.__name__] == before[k.__name__] + 1
+    for k in kern.BF16_KERNELS:
+        assert after[k.__name__] == before[k.__name__]
+
+
+@pytest.mark.parametrize(
+    "heads,feat,num_rel",
+    [(1, 8, 7), (3, 40, 7), (16, 128, 7), (9, 200, 7), (2, 6, 3),
+     (2, 12, 3), (16, 128, 300)],
+)
+@pytest.mark.parametrize("rate", (0.0, 0.3))
+def test_bf16_kernels_match_plain(card, heads, feat, num_rel, rate):
+    """bf16 h and g rows, fp32 everything else. F = 6 takes the one-value
+    loads everywhere; F = 12 the 8-byte row loads and relgat_bwd_rel's
+    one-value staging; the other widths the vector paths throughout."""
+    g, h, gr, attn, bias = _case(heads, feat, num_rel=num_rel)
+    h16, g16 = h.to(torch.bfloat16), gr.to(torch.bfloat16)
+    csr = g.csr
+    kw = dict(seed=-987654321, rate=rate, negative_slope=0.2, eps=1e-16)
+    before = kern.launch_counts()
+    out_k, m_k, l_k, b_k = kern.relgat_fwd_bf16(h16, attn, bias, csr, **kw)
+    out_p, m, l, b = _exact(kern.relgat_fwd_bf16_plain, h16, attn, bias, csr,
+                            **kw)
+    assert out_k.dtype == torch.float32
+    assert _rel(out_k, out_p) <= REL_TOL
+    assert _rel(l_k, l) <= REL_TOL and _rel(b_k, b) <= REL_TOL
+    assert torch.equal(torch.isinf(m_k), torch.isinf(m))
+    n = h.shape[0]
+    s_dot = ((out_k - b_k[:, None]) * gr).view(n, heads, feat).sum(-1)
+    args = (h16, g16, attn, m_k, l_k, s_dot, gr.sum(1), csr)
+    dh_k, w_k, bb_k = kern.relgat_bwd_src_bf16(*args, **kw)
+    dh_p, w_p, bb_p = _exact(kern.relgat_bwd_src_bf16_plain, *args, **kw)
+    assert _rel(dh_k, dh_p) <= REL_TOL
+    assert _rel(w_k, w_p) <= REL_TOL and _rel(bb_k, bb_p) <= REL_TOL
+    da_k, db_k = kern.relgat_bwd_rel_bf16(h16, w_k, bb_k)
+    da_p, db_p = _exact(kern.relgat_bwd_rel_bf16_plain, h16, w_k, bb_k)
+    assert _rel(da_k, da_p) <= REL_TOL and _rel(db_k, db_p) <= REL_TOL
+    torch.cuda.synchronize()
+    after = kern.launch_counts()
+    for k in kern.BF16_KERNELS:
+        assert after[k.__name__] == before[k.__name__] + 1
+    for k in kern.FP32_KERNELS:
+        assert after[k.__name__] == before[k.__name__]
+
+
+def test_bf16_kernels_are_deterministic(card):
+    """Two calls of the bf16 path, forward (with split rows) and backward,
+    give the same bits."""
+    g, h, attn, bias = _hub_case(50_000)
+    h16 = h.to(torch.bfloat16)
+    kw = dict(seed=5, rate=0.3, negative_slope=0.2, eps=1e-16)
+    first = kern.relgat_fwd_bf16(h16, attn, bias, g.csr, **kw)
+    second = kern.relgat_fwd_bf16(h16, attn, bias, g.csr, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    gr = torch.randn_like(h)
+    leaves = [t.clone().requires_grad_(True) for t in (h, attn, bias)]
+    grads = []
+    for _ in range(2):
+        out = relgat_propagate_kernels(
+            leaves[0].view(g.num_nodes, 16, 128), leaves[1], leaves[2], g.csr,
+            attn_dropout_rate=0.3, dropout_seed=11, kernel_precision="default",
+        )
+        grads.append(torch.autograd.grad((out * gr.view_as(out)).sum(), leaves))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_bf16_cuda_tensors_never_fall_back(card):
+    """Each wrapper takes exactly its own row type: float16 rows, bf16 rows
+    into an fp32 kernel and fp32 rows into a bf16 one all raise, and nothing
+    launches."""
+    g, h, gr, attn, bias = _case(2, 16)
+    csr = g.csr
+    kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+    n, heads = h.shape[0], attn.shape[0]
+    stats = [torch.ones((n, heads), device="cuda") for _ in range(3)]
+    w = torch.zeros((n, heads, attn.shape[1]), device="cuda")
+    b = torch.zeros((n, attn.shape[1]), device="cuda")
+    before = kern.launch_counts()
+    for rows in (h.half(), h):
+        with pytest.raises(NotImplementedError):
+            kern.relgat_fwd_bf16(rows, attn, bias, csr, **kw)
+        with pytest.raises(NotImplementedError):
+            kern.relgat_bwd_src_bf16(rows, rows, attn, *stats, gr.sum(1),
+                                     csr, **kw)
+        with pytest.raises(NotImplementedError):
+            kern.relgat_bwd_rel_bf16(rows, w, b)
+    h16 = h.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        kern.relgat_fwd(h16, attn, bias, csr, **kw)
+    with pytest.raises(NotImplementedError):
+        kern.relgat_bwd_rel(h16, w, b)
+    with pytest.raises(NotImplementedError):  # bf16 rows, fp32 attention
+        kern.relgat_fwd_bf16(h16, attn.to(torch.bfloat16), bias, csr, **kw)
+    assert kern.launch_counts() == before
 
 
 def test_rows_without_edges_are_zero(card):

@@ -160,12 +160,19 @@ def test_cli_config_layer_refuses_what_is_not_ported(tmp_path, model, mesh,
     (["--scan-segments", "2"], "scan_segments"),
     (["--steps-per-call", "4"], "steps_per_call"),
     (["--mesh-data", "2"], "data_axis=2"),
-    (["--kernel-precision", "default"], "kernel_precision"),
-    (["--compute-dtype", "bfloat16"], "compute_dtype"),
+    ({"param_dtype": "bfloat16"}, "param_dtype"),
+    ({"compute_dtype": "float16"}, "compute_dtype"),
     (["--distributed"], "--distributed"),
     (["--num-processes", "2"], "--num-processes"),
 ])
 def test_cli_refuses_flags_it_cannot_run(tmp_path, flags, field):
+    """A flag, or (a dict) model fields of a ``--config`` file that the CLI
+    has no flag for."""
+    if isinstance(flags, dict):
+        run = JaxRunConfig(model=JaxModelConfig(in_dim=8, num_rel=2, **flags))
+        path = tmp_path / "training-config.json"
+        path.write_text(run.to_json())
+        flags = ["--config", str(path)]
     with pytest.raises(NotImplementedError, match=field):
         cli.main(["--synthetic", "--synthetic-nodes", "20",
                   "--synthetic-edges", "50", "--device", "cpu",
