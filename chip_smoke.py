@@ -18,6 +18,11 @@ Phases, in order; any failure exits non-zero:
               error (max|a-b| / max|b|) <= 1e-5 against the plain version
               run in float64 on the same inputs (for the bf16 variants the
               same bf16 values, widened exactly).
+   parity_wide - the same for every kernel at (H, F) = (12, 300) (the
+              library's default), (4, 512), (2, 1024), (3, 301) and
+              (16, 128), on a 4,000-node graph whose rows have exactly 0, 1,
+              2 and 3 in- and out-edges, self-loops, a repeated triple and
+              a row of 1,000 in-edges that the forward splits.
    agree    - one training forward and backward of a small model through
               the kernels and through the plain path on the card, with the
               same weights, negatives and dropout draws: loss and every
@@ -46,9 +51,15 @@ Phases, in order; any failure exits non-zero:
               each bf16 kernel launches layers x steps times and the fp32
               ones never; the first step's loss within 1e-2 relative of the
               fp32 first step's; step time, peak memory and the profile.
+   train_default_width - the library's default widths (12 heads x 300,
+              one GAT layer) on the same graph, embeddings and batches, 4
+              steps in fp32 and 4 in bf16: each kernel of the variant
+              launched layers x steps times.
 5. export   - one forward-only get_node_repr at the same size.
 6. kernels  - each kernel, fp32 and bf16 variant, held to its plain version
-              and timed with CUDA events at the train phase's shapes, beside
+              and timed with CUDA events at the train phase's shapes and at
+              the default widths (launches from train_default_width), the
+              bf16 forward and src pass giving the same bits twice, beside
               its bound on this card (bf16 rows counted at 2 bytes) and, for
               relgat_bwd_rel, one torch.einsum on the same inputs; then each
               variant's backward pair against the bound of the whole TPU
@@ -59,7 +70,9 @@ Phases, in order; any failure exits non-zero:
               p ~ 1/rank, bench.py's zipf class; the heaviest row has ~83k
               in-edges): 3 warm-up and 5 timed train steps, and relgat_fwd
               timed on that graph and held to its float64 plain version on
-              the in-edges of the 16 heaviest and 1,024 random rows.
+              the in-edges of the 16 heaviest and 1,024 random rows; then,
+              a diagnostic without a bar, relgat_bwd_src_bf16 on that graph
+              with src and dst swapped (out-degree hubs).
 8. trainer  - the port's CLI (cli.main, in process) on the card with the
               production script's flags (preset small, 16 heads x 128, 2
               GAT layers, projection to the input with 2 layers, distmult,
@@ -86,7 +99,9 @@ Phases, in order; any failure exits non-zero:
               that they fire within the epoch's 352 steps.
 
 The last lines are the kernels JSON line, nvidia-smi's name and power limit,
-and {"ok": true, "device": {...}}. With --out DIR the result lines, a
+and {"ok": true, "device": {...}}. The timing runs --kernels-only (phase 6
+alone, launches null) and --zipf-only (phase 7 alone) end with
+{"timing_only": true, "device": {...}} instead. With --out DIR the result lines, a
 profiler trace of two train steps and the trainer's console logs are also
 written there (its checkpoints go to a temporary directory, removed after).
 """
@@ -150,6 +165,15 @@ TRAIN = dict(num_nodes=100_000, num_edges=1_000_000, num_rel=40, in_dim=1152,
              heads=16, feat=128, layers=2, batch=128, num_neg=32,
              warmup_steps=3, timed_steps=10, epochs=60)
 ZIPF = dict(warmup_steps=3, timed_steps=5, heavy_rows=16, random_rows=1_024)
+# Head widths past the TRAIN model's 128: the library's default (config.py,
+# 12 heads x 300), the widest the kernels take (1024), one not a multiple of
+# 4, and TRAIN's own width on the same graph for the bf16 pair kernels.
+WIDE_SHAPES = ((12, 300), (4, 512), (2, 1024), (3, 301), (16, 128))
+WIDE = dict(num_nodes=4_000, num_edges=40_000, num_rel=40, hub_degree=1_000)
+# The library's default widths on TRAIN's graph: 12 heads x 300, one GAT
+# layer (config.py), the rest of the TRAIN model as it is.
+DEFAULT_WIDTH = dict(heads=12, feat=300, layers=1, warmup_steps=1,
+                     timed_steps=3)
 TRAINER = dict(nodes=20_000, triplets=50_000, num_rel=40, in_dim=1152,
                nn_pool=256, heads=16, feat=128, layers=2, batch=128,
                num_neg=32, every=100, train_ratio=0.9, bare_steps=100,
@@ -279,7 +303,7 @@ def parity_graph(rng):
     return src, dst, et
 
 
-def run_kernel_pair(inputs, *, seed, rate, exact, bf16=False):
+def run_kernel_pair(inputs, *, seed, rate, exact, bf16=False, skip=()):
     """Each kernel of a variant and its plain version on the same inputs;
     returns the errors per output. The plain versions named in ``exact``
     run on float64 copies of those inputs, so their own rounding (and the
@@ -287,7 +311,9 @@ def run_kernel_pair(inputs, *, seed, rate, exact, bf16=False):
     The backward kernels take the forward kernel's statistics as inputs,
     and relgat_bwd_rel takes relgat_bwd_src's W and B. The bf16 variants
     read h and g rounded to bf16 (float64 copies of those values are
-    exact); S and gsum come from the fp32 g, as in the propagate."""
+    exact); S and gsum come from the fp32 g, as in the propagate. Kernels
+    named in ``skip`` run without their plain version (and get no
+    errors)."""
     h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
     csr = inputs["csr"]
     kw = dict(seed=seed, rate=rate, negative_slope=0.2, eps=1e-16)
@@ -309,14 +335,14 @@ def run_kernel_pair(inputs, *, seed, rate, exact, bf16=False):
     gsum = g.sum(1)
     args = (rows_h, rows_g, attn, m, l, s_dot, gsum, csr)
     dh_k, w_k, b_k = KERNELS[bwd_src](*args, **kw)
-    dh_p, w_p, b_p = ref(bwd_src, *args, **kw)
     dattn_k, dbias_k = KERNELS[bwd_rel](rows_h, w_k, b_k)
+    pairs = {fwd: {"out": (out_k, out_p)}}
+    if bwd_src not in skip:
+        dh_p, w_p, b_p = ref(bwd_src, *args, **kw)
+        pairs[bwd_src] = {"dh": (dh_k, dh_p), "w": (w_k, w_p),
+                          "b": (b_k, b_p)}
     dattn_p, dbias_p = ref(bwd_rel, rows_h, w_k, b_k)
-    pairs = {
-        fwd: {"out": (out_k, out_p)},
-        bwd_src: {"dh": (dh_k, dh_p), "w": (w_k, w_p), "b": (b_k, b_p)},
-        bwd_rel: {"dattn": (dattn_k, dattn_p), "dbias": (dbias_k, dbias_p)},
-    }
+    pairs[bwd_rel] = {"dattn": (dattn_k, dattn_p), "dbias": (dbias_k, dbias_p)}
     errs = {
         name: {
             key: {"max_rel_err": rel_err(a, b), "max_abs_err": abs_err(a, b)}
@@ -375,6 +401,67 @@ def phase_parity(card, out_lines):
               "card": card}, out_lines)
     check(worst <= REL_TOL,
           f"kernel parity: max relative error {worst} > {REL_TOL}")
+    return worst
+
+
+def wide_graph(rng):
+    """``WIDE``'s graph: uniform edges among rows 300.., and rows 200..299
+    made by hand, so their degrees are exact: rows with 1, 2 and 3
+    in-edges, rows with 1, 2 and 3 out-edges, self-loops, a (src, dst,
+    relation) triple three times, and one row of ``hub_degree`` in-edges
+    that the forward splits; rows 0..199 have no edges at all. Edge order
+    shuffled."""
+    c = WIDE
+    n, r = c["num_nodes"], c["num_rel"]
+    src = list(rng.integers(300, n, c["num_edges"]))
+    dst = list(rng.integers(300, n, c["num_edges"]))
+    for k in (1, 2, 3):
+        for row in range(200 + 10 * (k - 1), 210 + 10 * (k - 1)):
+            src += list(rng.integers(300, n, k))   # k in-edges
+            dst += [row] * k
+            src += [row + 30] * k                  # k out-edges
+            dst += list(rng.integers(300, n, k))
+    src += list(range(260, 280))                   # self-loops
+    dst += list(range(260, 280))
+    src += [280] * 4                               # a repeated triple
+    dst += [281] * 4
+    src += list(rng.integers(300, n, c["hub_degree"]))
+    dst += [290] * c["hub_degree"]
+    src, dst = np.array(src), np.array(dst)
+    et = rng.integers(0, r, src.size)
+    tail = 4 + c["hub_degree"]
+    et[-tail:-tail + 4] = [3, 3, 3, 5]
+    order = rng.permutation(src.size)
+    return src[order], dst[order], et[order]
+
+
+def phase_parity_wide(card, out_lines):
+    """Every kernel, fp32 and bf16, against its float64 plain version at
+    each of ``WIDE_SHAPES`` on ``wide_graph``, dropout 0 and 0.3."""
+    c = WIDE
+    src, dst, et = wide_graph(np.random.default_rng(SEED + 5))
+    graph = build_graph(src, dst, et, c["num_nodes"], num_rel=c["num_rel"],
+                        csr=True, device=DEVICE)
+    csr = graph.csr
+    check(csr.fwd_num_split == 1, "the wide parity graph lacks a split row")
+    worst = 0.0
+    for (heads, feat), bf16, rate in itertools.product(
+            WIDE_SHAPES, (False, True), (0.0, 0.3)):
+        inputs = make_kernel_inputs(csr, graph.num_nodes, heads, feat,
+                                    c["num_rel"], SEED + heads)
+        errs = run_kernel_pair(inputs, seed=424242, rate=rate,
+                               exact=KERNEL_SOURCES, bf16=bf16)
+        torch.cuda.synchronize()
+        w = max(e["max_rel_err"] for outs in errs.values()
+                for e in outs.values())
+        worst = max(worst, w)
+        emit({"phase": "parity_wide", "variant": "bf16" if bf16 else "fp32",
+              "heads": heads, "feat": feat, "attn_dropout": rate,
+              "max_rel_err": w, "errors": errs, "card": card}, out_lines)
+        del inputs
+    check(worst <= REL_TOL,
+          f"kernel parity at wide heads: max relative error {worst} > "
+          f"{REL_TOL}")
     return worst
 
 
@@ -552,13 +639,14 @@ def train_inputs(rng):
 
 def production_configs(**model):
     t = TRAIN
-    mcfg = ModelConfig(
-        in_dim=t["in_dim"], num_rel=t["num_rel"], gat_out_dim=t["feat"],
-        gat_heads=t["heads"], gat_num_layers=t["layers"], dropout=0.3,
-        project_to_input_size=True, projection_layers=2,
-        projection_dropout=0.3, scorer_type="distmult", use_pallas=True,
-        **model,
-    )
+    mcfg = ModelConfig(**{
+        "in_dim": t["in_dim"], "num_rel": t["num_rel"],
+        "gat_out_dim": t["feat"], "gat_heads": t["heads"],
+        "gat_num_layers": t["layers"], "dropout": 0.3,
+        "project_to_input_size": True, "projection_layers": 2,
+        "projection_dropout": 0.3, "scorer_type": "distmult",
+        "use_pallas": True, **model,
+    })
     tcfg = TrainConfig(
         epochs=t["epochs"], train_batch_size=t["batch"],
         num_neg=t["num_neg"], lr=2e-5, lr_scheduler="linear",
@@ -733,6 +821,40 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
     return counts, step_s * 1e3
 
 
+def phase_train_default(card, out_lines, graph, node_emb, batches):
+    """The library's default widths (``DEFAULT_WIDTH``: 12 heads x 300, one
+    GAT layer) on the train phase's graph, embeddings and batches, in fp32
+    and in the bf16 mode: a few steps each, every kernel of the variant
+    launched layers x steps times. Returns each variant's launch counts."""
+    d = DEFAULT_WIDTH
+    steps = d["warmup_steps"] + d["timed_steps"]
+    model = dict(gat_heads=d["heads"], gat_out_dim=d["feat"],
+                 gat_num_layers=d["layers"])
+    counts = {}
+    for bf16 in (False, True):
+        torch.cuda.empty_cache()
+        mode = BF16_MODE if bf16 else {}
+        _, _, state, metrics, step_s, c, first = train_steps(
+            node_emb, graph, batches[:steps], d["warmup_steps"], **model,
+            **mode)
+        emit({"phase": "train_default_width", "card": card,
+              "variant": "bf16" if bf16 else "fp32", **model,
+              "nodes": TRAIN["num_nodes"], "edges": TRAIN["num_edges"],
+              "steps": steps, "timed_steps": d["timed_steps"],
+              "step_ms": step_s * 1e3,
+              "edge_messages_per_s": (TRAIN["num_edges"] * d["layers"]
+                                      / step_s),
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "first_step_loss": first, "loss": float(metrics["loss"]),
+              "grad_norm": float(metrics["grad_norm"]), "launches": c},
+             out_lines)
+        check_train(metrics, c, expected_launches(bf16, d["layers"] * steps),
+                    f"train_default_width ({'bf16' if bf16 else 'fp32'})")
+        counts.update({k: c[k] for k in VARIANTS[bf16]})
+        del state, metrics
+    return counts
+
+
 def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
                   matmul_flops, card, out_lines, out_dir, phase="profile"):
     """Where the step's device time goes, from torch.profiler over two
@@ -836,19 +958,32 @@ def bound_ms(nbytes, flops):
 
 
 def kernel_rows(inputs, bf16, counts, card, out_lines):
-    """The kernels line's rows of one variant at ``TRAIN``'s shapes, and
-    its ``bwd_pair`` line."""
-    t = TRAIN
+    """The kernels line's rows of one variant on ``TRAIN``'s graph at the
+    widths of ``inputs``, and its ``bwd_pair`` line. The bf16 forward and
+    src pass must also give the same bits over two calls."""
     csr = inputs["csr"]
     n = inputs["h"].shape[0]
     kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
     h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
+    heads, num_rel, feat = attn.shape
     fwd, bwd_src, bwd_rel = VARIANTS[bf16]
     rh, rg = (h.to(torch.bfloat16), g.to(torch.bfloat16)) if bf16 else (h, g)
     out, m, l, b = KERNELS[fwd](rh, attn, bias, csr, **kw)
-    s_dot = ((out - b[:, None]) * g).view(n, t["heads"], t["feat"]).sum(-1)
+    s_dot = ((out - b[:, None]) * g).view(n, heads, feat).sum(-1)
     gsum = g.sum(1)
     _, w, bsum = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
+    same_bits = None
+    if bf16:
+        again = KERNELS[fwd](rh, attn, bias, csr, **kw)
+        same_bits = all(torch.equal(x, y) for x, y in
+                        zip((out, m, l, b), again))
+        first = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
+        second = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
+        same_bits = same_bits and all(torch.equal(x, y)
+                                      for x, y in zip(first, second))
+        del again, first, second
+        check(same_bits, f"{fwd} or {bwd_src} gave other bits in a second "
+                         f"call at {heads} x {feat}")
     calls = {
         fwd: lambda f: f(rh, attn, bias, csr, **kw),
         bwd_src: lambda f: f(rh, rg, attn, m, l, s_dot, gsum, csr, **kw),
@@ -858,17 +993,19 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
     # only: dattn of relgat_bwd_rel is W^T h per head. The other kernels'
     # functions have no such call, nor has relgat_bwd_rel_bf16's (fp32 W
     # against bf16 h: einsum takes one type).
-    h3 = h.view(n, t["heads"], t["feat"])
+    h3 = h.view(n, heads, feat)
     library = ({} if bf16 else
                {bwd_rel: lambda: torch.einsum("nhr,nhf->hrf", w, h3)})
     # Comparisons and timings here are not part of the main path's counts.
     errs = run_kernel_pair(inputs, seed=None, rate=0.0,
-                           exact=EXACT_AT_TRAIN_SHAPES, bf16=bf16)
+                           exact=EXACT_AT_TRAIN_SHAPES, bf16=bf16,
+                           skip=(bwd_src,))
+    torch.cuda.empty_cache()
     errs[bwd_src] = src_rows_errors(bwd_src, (rh, rg, attn, m, l, s_dot, gsum),
                                     csr, kw)
     torch.cuda.synchronize()
     row_bytes = rh.element_size()
-    bnd = bounds(n, csr.num_edges, t["heads"], t["feat"], t["num_rel"],
+    bnd = bounds(n, csr.num_edges, heads, feat, num_rel,
                  row_bytes=row_bytes)
     rows = []
     for name, kind in zip(VARIANTS[bf16], VARIANTS[False]):
@@ -881,7 +1018,8 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
         best, by = bound_ms(nbytes, flops)
         worst = max(errs[name].values(), key=lambda x: x["max_rel_err"])
         row = {
-            "name": name, "graph": "uniform", "route": "cuda",
+            "name": name, "graph": "uniform", "heads": heads, "feat": feat,
+            "route": "cuda",
             "source": source, "replaces": replaces, "launches": counts[name],
             "max_abs_err": max(x["max_abs_err"] for x in errs[name].values()),
             "max_rel_err": worst["max_rel_err"],
@@ -892,17 +1030,19 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
                           if name == bwd_src else "float32"),
             "bytes": nbytes, "flops": flops, "card": card,
         }
+        if same_bits is not None and name != bwd_rel:
+            row["same_bits_twice"] = same_bits
         if name in ROW_GATHERS:
             # what the design reads besides: one H*F row per edge (h[src]
             # in the forward, g[dst] in relgat_bwd_src)
-            row["row_gather_bytes"] = (row_bytes * csr.num_edges
-                                       * t["heads"] * t["feat"])
+            row["row_gather_bytes"] = row_bytes * csr.num_edges * heads * feat
         emit({"phase": "kernel", **row, "errors": errs[name]}, out_lines)
         rows.append(row)
         torch.cuda.synchronize()
     pair_ms = sum(r["ms"] for r in rows if r["name"] != fwd)
     best, by = bound_ms(*bnd["bwd_pair"])
     emit({"phase": "bwd_pair", "card": card, "of": [bwd_src, bwd_rel],
+          "heads": heads, "feat": feat,
           "ms": pair_ms, "bound_ms": best, "bound_by": by,
           "bytes": bnd["bwd_pair"][0], "flops": bnd["bwd_pair"][1],
           "times_bound": pair_ms / best}, out_lines)
@@ -937,18 +1077,27 @@ def src_rows_errors(name, args, csr, kw):
     return errs
 
 
-def phase_kernels(graph, counts, card, out_lines):
-    t = TRAIN
+def phase_kernels(graph, counts, default_counts, card, out_lines):
+    """The kernels line's rows on ``TRAIN``'s graph at its widths (launches
+    from phases train and train_bf16) and at the library's default widths
+    (launches from phase train_default_width), and the yardsticks."""
+    t, d = TRAIN, DEFAULT_WIDTH
     torch.cuda.empty_cache()
     csr = graph.csr
     n = graph.num_nodes
-    inputs = make_kernel_inputs(csr, n, t["heads"], t["feat"],
-                                t["num_rel"], SEED + 7)
-    h, g = inputs["h"], inputs["g"]
     rows = []
-    for bf16 in (False, True):
-        rows += kernel_rows(inputs, bf16, counts, card, out_lines)
-        torch.cuda.empty_cache()
+    widths = [(t["heads"], t["feat"], counts)]
+    if default_counts is not None:
+        widths.append((d["heads"], d["feat"], default_counts))
+    for heads, feat, launches in widths:
+        inputs = make_kernel_inputs(csr, n, heads, feat, t["num_rel"],
+                                    SEED + 7)
+        for bf16 in (False, True):
+            rows += kernel_rows(inputs, bf16, launches, card, out_lines)
+            torch.cuda.empty_cache()
+        if heads == t["heads"]:
+            h, g = inputs["h"], inputs["g"]
+        del inputs
     # What this card reaches on plain traffic, beside the gathering kernels:
     # a copy of h, a gather of whole H*F rows of g (a quarter of the edges'
     # dst rows, read and written once each), and cuSPARSE's product of the
@@ -1079,11 +1228,37 @@ def phase_zipf(card, uniform_step_ms, out_lines):
         "card": card,
         "row_gather_bytes": 4 * csr.num_edges * t["heads"] * t["feat"],
     }
+    del got
+    zipf_src_hubs(src, dst, et, inputs, card, out_lines)
     check(err_rel <= REL_TOL,
           f"relgat_fwd on the zipf graph: max relative error {err_rel}")
     check(same, "relgat_fwd gave other bits on the zipf graph's rows than "
                 "on the same rows alone")
     return row
+
+
+def zipf_src_hubs(src, dst, et, inputs, card, out_lines):
+    """Diagnostic, no bar: relgat_bwd_src_bf16 on the zipf graph with src
+    and dst swapped, so that its hubs are out-degree hubs, which the src
+    pass walks one block per source row (``ROADMAP.md`` Queue 2)."""
+    t = TRAIN
+    sw = build_graph(dst, src, et, t["num_nodes"], num_rel=t["num_rel"],
+                     csr=True, device=DEVICE).csr
+    kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+    h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
+    rh, rg = h.to(torch.bfloat16), g.to(torch.bfloat16)
+    out, m, l, b = KERNELS["relgat_fwd_bf16"](rh, attn, bias, sw, **kw)
+    n = h.shape[0]
+    s_dot = ((out - b[:, None]) * g).view(n, t["heads"], t["feat"]).sum(-1)
+    args = (rh, rg, attn, m, l, s_dot, g.sum(1), sw)
+    ms = cuda_ms(lambda: KERNELS["relgat_bwd_src_bf16"](*args, **kw), reps=5,
+                 warmup=1)
+    outdeg = np.bincount(dst, minlength=t["num_nodes"])
+    print(f"zipf src hubs: relgat_bwd_src_bf16 {ms:.3f} ms, max out-degree "
+          f"{int(outdeg.max())}", flush=True)
+    emit({"phase": "zipf_src_hubs", "card": card,
+          "kernel": "relgat_bwd_src_bf16", "ms": ms,
+          "max_out_degree": int(outdeg.max())}, out_lines)
 
 
 # ---------------------------------------------------------------------------
@@ -1342,6 +1517,11 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 7 alone; a copy of "
                          "this file run from another checkout times that "
                          "checkout's package on the zipf graph")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build the kernels and time them at TRAIN's widths "
+                         "on its graph (phase 6 alone, launches null); a "
+                         "copy of this file run from another checkout times "
+                         "that checkout's kernels")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1369,18 +1549,29 @@ def main(argv=None) -> int:
 
     if args.zipf_only:
         kernels = [phase_zipf(card, None, out_lines)]
+    elif args.kernels_only:
+        src, dst, et, _, _ = train_inputs(np.random.default_rng(SEED))
+        graph = build_graph(src, dst, et, TRAIN["num_nodes"],
+                            num_rel=TRAIN["num_rel"], csr=True, device=DEVICE)
+        # No main path runs here, so no launches were counted.
+        kernels = phase_kernels(graph, {k: None for k in KERNELS}, None,
+                                card, out_lines)
     else:
         worst = phase_parity(card, out_lines)
+        worst = max(worst, phase_parity_wide(card, out_lines))
         phase_agree(card, out_lines)
         phase_agree_bf16(card, out_lines)
         counts, graph, step_ms, node_emb, batches, first_loss = phase_train(
             card, out_lines, args.out)
         counts_bf16, _ = phase_train_bf16(card, out_lines, args.out, graph,
                                           node_emb, batches, first_loss)
+        default_counts = phase_train_default(card, out_lines, graph,
+                                             node_emb, batches)
         del node_emb, batches
         launches = {k: counts[k] for k in VARIANTS[False]}
         launches.update({k: counts_bf16[k] for k in VARIANTS[True]})
-        kernels = phase_kernels(graph, launches, card, out_lines)
+        kernels = phase_kernels(graph, launches, default_counts, card,
+                                out_lines)
         del graph
         kernels.append(phase_zipf(card, step_ms, out_lines))
         phase_trainer(card, out_lines, args.out)
@@ -1389,9 +1580,13 @@ def main(argv=None) -> int:
     if args.out is not None:
         (args.out / "chip_smoke.jsonl").write_text("\n".join(out_lines) + "\n")
     print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if args.zipf_only or args.kernels_only:
+        # A timing run: it checks no main path, so it claims no "ok".
+        print(json.dumps({"timing_only": True, "device": device}))
+    else:
+        print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

@@ -40,13 +40,11 @@
 // So the design keeps registers at 40 (48 warps an SM): the lanes load the
 // indices and per-dst scalars of up to 32 edges at once into a per-warp
 // table in shared memory, rows are read 16 bytes a lane, and one 6-shuffle
-// reduction gives both dot products. Holding a second edge's rows in
-// registers, to overlap its loads with the reduction, needs 56 registers
-// and measured slower on this card, as did blocks of one head for several
-// rows. relgat_bwd_rel reads h and W once (1.09 GB at those shapes) for
-// 2*N*H*R*F flops, close to the card's balance point; each thread keeps an
-// RM x 4 tile of the [R, F] sum so shared-memory reads stay under the FMA
-// rate.
+// reduction gives both dot products: 48 warps x 512 bytes is 24 KB of rows
+// in flight an SM. relgat_bwd_rel reads h and W once (1.09 GB at those
+// shapes) for 2*N*H*R*F flops, close to the card's balance point; each
+// thread keeps an RM x 4 tile of the [R, F] sum so shared-memory reads stay
+// under the FMA rate.
 //
 // The bf16 variants (relgat_bwd_src_bf16, relgat_bwd_rel_bf16;
 // kernel_precision="default") read h and g as bf16 rows, the TPU kernel's
@@ -55,13 +53,18 @@
 // [N, H] arrays read into the edge table (the TPU packs them as bf16
 // (hi, lo) pairs only to ride its one wide gather); dh, W, B, dattn and
 // dbias, and all arithmetic, stay fp32. As in the forward, where F is a
-// multiple of 8 and at most 128, relgat_bwd_src_pair_kernel takes two edges
-// a warp iteration, a half-warp each, so a lane reads 16 bytes of g at a
-// time; other widths run relgat_bwd_src_kernel on bf16 rows. At 1M edges
-// and H*F = 2048 on an H100 80GB HBM3 (700 W, chip_smoke.py): 3.21 ms,
-// against 3.38 ms for relgat_bwd_src_kernel on bf16 rows and 3.99 ms in
-// fp32; relgat_bwd_rel_bf16 0.56 ms, as in fp32 (its FMA loop, not its
-// bytes, bounds it).
+// multiple of 8 and at most 128, relgat_bwd_src_pair_kernel gives a warp
+// two adjacent heads of one source row, a half-warp each, so its load of
+// an edge's g row is one contiguous 512-byte piece (F = 128) and a block of
+// 8 warps reads the whole 4 KB row; other widths run relgat_bwd_src_kernel
+// on bf16 rows. What bounds it is the same gather, 4.1 GB of g rows at
+// 1M edges and H*F = 2048 (a 1.22 ms floor at 3.35 TB/s; the bound of the
+// bytes each tensor must move once is 0.58 ms). On this card the size of
+// each warp's contiguous piece, not the bytes in flight (32 warps x 512
+// bytes = 16 KB an SM), set the rate; PERF.md section 6 records the designs
+// measured against this one. relgat_bwd_rel_bf16 is bounded by its FMA
+// loop, not its bytes, as in fp32. Wider heads: F / 32 features a lane in
+// registers, up to F = 1024 (relgat_common.cuh kMaxFeatPerLane).
 #include "relgat_common.cuh"
 
 namespace relgat {
@@ -207,16 +210,23 @@ relgat_bwd_src_kernel(const T* __restrict__ h,          // [N, H*F]
   }
 }
 
-// Five blocks an SM for the pair kernel (40 warps, at most 51 registers): a
-// lane holds 8 features of h, of g, of attn and of the dh sum.
-constexpr int kBwdPairMinBlocks = 5;
+// Four blocks an SM for the pair kernel (32 warps, at most 64 registers): a
+// lane holds 8 features of h, of g, of attn and of the dh sum, which fit
+// 64 registers without spills.
+constexpr int kBwdPairMinBlocks = 4;
 
-// relgat_bwd_src_kernel over bf16 rows of F <= 128 with F % 8 == 0: each
-// iteration takes the next two edges of the table, half-warp `half` the
-// second, lane hl features 8*hl .. 8*hl + 7 (one 16-byte load of g). Each
-// half sums its edges' dh terms; the halves add at the end. Lane 0 folds
-// both edges' de and gsum into the slabs in edge order, so W and B are
-// summed as relgat_bwd_src_kernel sums them.
+// relgat_bwd_src_kernel over bf16 rows of F <= 128 with F % 8 == 0, in
+// blocks of (src row, group of up to 16 heads): warp w takes the two
+// adjacent heads 2w and 2w + 1 of the group, half-warp `half` the second,
+// lane hl features 8*hl .. 8*hl + 7 of its head. So a warp's load of an
+// edge's g row is one contiguous 512-byte piece at F = 128, and a block's
+// eight warps read the whole 4 KB row of each edge together. The lanes of
+// each half load their head's per-edge values of up to 16 edges at once
+// into the warp's table; each half walks the row's out-edges in order, and
+// its lane 0 folds its head's de (warp 0's lane 0 also gsum) into the
+// head's slab edge by edge, so W and B are summed as relgat_bwd_src_kernel
+// sums them. Shared memory: the warps' tables of 2 x 16 edges, then one
+// slab of R floats per head and the B slab.
 __global__ void
 __launch_bounds__(32 * kMaxWarpsPerBlock, kBwdPairMinBlocks)
 relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
@@ -239,36 +249,36 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int half = lane >> 4;
-  const int f = 8 * (lane & 15);
-  const bool in_row = f < feat;
+  const int hl = lane & 15;
+  const int f = 8 * hl;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  const int head = blockIdx.y * warps + warp;
-  if (head >= heads) return;
+  const int pair = blockIdx.y * warps + warp;
+  if (2 * pair >= heads) return;
+  // an odd head count leaves the last warp's second half without a head:
+  // it reads nothing and writes nothing, but joins the shuffles
+  const int head = 2 * pair + half;
+  const bool active = head < heads;
+  const bool in_row = active && f < feat;
   const int s = blockIdx.x;
   const int64_t hf = static_cast<int64_t>(heads) * feat;
   const int64_t row = s * hf + static_cast<int64_t>(head) * feat;
-  EdgeEntry* table = reinterpret_cast<EdgeEntry*>(smem) + warp * 32;
+  EdgeEntry* table = reinterpret_cast<EdgeEntry*>(smem) + warp * 32 + 16 * half;
   float* slabs = smem + warps * 32 * (sizeof(EdgeEntry) / sizeof(float));
-  float* slab = slabs + warp * num_rel;
-  float* bslab = head == 0 ? slabs + warps * num_rel : nullptr;
-  for (int r = lane; r < num_rel; r += 32) {
-    slab[r] = 0.f;
-    if (bslab != nullptr) bslab[r] = 0.f;
+  float* slab = slabs + (2 * warp + half) * num_rel;
+  float* bslab = head == 0 ? slabs + 2 * warps * num_rel : nullptr;
+  if (active) {
+    for (int r = hl; r < num_rel; r += 16) {
+      slab[r] = 0.f;
+      if (bslab != nullptr) bslab[r] = 0.f;
+    }
   }
 
   float hv[8];
   float acc[8];
-  {
-    const uint4 x = in_row ? *reinterpret_cast<const uint4*>(h + row + f)
-                           : make_uint4(0u, 0u, 0u, 0u);
-    const uint32_t w4[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      hv[2 * i] = bf16_lo(w4[i]);
-      hv[2 * i + 1] = bf16_hi(w4[i]);
-    }
-  }
+  widen8(in_row ? *reinterpret_cast<const uint4*>(h + row + f)
+                : make_uint4(0u, 0u, 0u, 0u),
+         hv);
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.f;
   const __nv_bfloat16* g_head = g + static_cast<int64_t>(head) * feat + f;
@@ -276,11 +286,11 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
       attn + static_cast<int64_t>(head) * num_rel * feat + f;
 
   const int p_end = src_ptr[s + 1];
-  for (int p0 = src_ptr[s]; p0 < p_end; p0 += 32) {
-    const int cnt = min(32, p_end - p0);
+  for (int p0 = src_ptr[s]; p0 < p_end; p0 += 16) {
+    const int cnt = min(16, p_end - p0);
     __syncwarp();  // the last batch's table reads (and slab zeroing) are done
-    if (lane < cnt) {
-      const int p = p0 + lane;
+    if (active && hl < cnt) {
+      const int p = p0 + hl;
       EdgeEntry e;
       e.dst = dst[p];
       e.rel = etype[p];
@@ -294,14 +304,11 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
                    : 1.f;
       e.gsum = bslab != nullptr ? gsum[e.dst] : 0.f;
       e.pad = 0.f;
-      table[lane] = e;
+      table[hl] = e;
     }
     __syncwarp();
-    for (int j0 = 0; j0 < cnt; j0 += 2) {
-      // past an odd count's end the second half repeats the first's edge
-      // and adds nothing
-      const bool has = j0 + half < cnt;
-      const EdgeEntry e = table[has ? j0 + half : j0];
+    for (int j = 0; j < cnt; ++j) {
+      EdgeEntry e = table[j];
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
       float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f);
       float4 a1 = a0;
@@ -311,9 +318,8 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
         a0 = *reinterpret_cast<const float4*>(ap);
         a1 = *reinterpret_cast<const float4*>(ap + 4);
       }
-      const float gv[8] = {bf16_lo(x.x), bf16_hi(x.x), bf16_lo(x.y),
-                           bf16_hi(x.y), bf16_lo(x.z), bf16_hi(x.z),
-                           bf16_lo(x.w), bf16_hi(x.w)};
+      float gv[8];
+      widen8(x, gv);
       const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       float eraw = 0.f;
       float dalpha = 0.f;
@@ -327,38 +333,30 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
         eraw += __shfl_xor_sync(kFullMask, eraw, o);
         dalpha += __shfl_xor_sync(kFullMask, dalpha, o);
       }
+      if (!active) continue;
       const float alpha = expf(leaky_relu(eraw, slope) - e.m_safe) / e.denom;
-      const float de = has ? alpha * (dalpha * e.keep - e.s) *
-                                 (eraw >= 0.f ? 1.f : slope)
-                           : 0.f;
-      const float aw = has ? alpha * e.keep : 0.f;
+      const float de =
+          alpha * (dalpha * e.keep - e.s) * (eraw >= 0.f ? 1.f : slope);
+      const float aw = alpha * e.keep;
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc[i] += aw * gv[i] + de * av[i];
-      const float de_2 = __shfl_sync(kFullMask, de, 16);
-      if (lane == 0) {
+      if (hl == 0) {
         slab[e.rel] += de;
         if (bslab != nullptr) bslab[e.rel] += e.gsum;
-        if (j0 + 1 < cnt) {
-          const int rel_2 = table[j0 + 1].rel;
-          slab[rel_2] += de_2;
-          if (bslab != nullptr) bslab[rel_2] += table[j0 + 1].gsum;
-        }
       }
     }
   }
 
-  // a + b == b + a: both halves hold the same sums
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] += __shfl_xor_sync(kFullMask, acc[i], 16);
-  if (half == 0 && in_row) {
+  if (in_row) {
     *reinterpret_cast<float4*>(dh + row + f) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
     *reinterpret_cast<float4*>(dh + row + f + 4) =
         make_float4(acc[4], acc[5], acc[6], acc[7]);
   }
   __syncwarp();
+  if (!active) return;
   float* wrow = w_out + (static_cast<int64_t>(s) * heads + head) * num_rel;
-  for (int r = lane; r < num_rel; r += 32) {
+  for (int r = hl; r < num_rel; r += 16) {
     wrow[r] = slab[r];
     if (bslab != nullptr) b_out[static_cast<int64_t>(s) * num_rel + r] = bslab[r];
   }
@@ -391,9 +389,10 @@ __device__ __forceinline__ void cp_async(float* smem, const float* gmem,
   }
 }
 
-// The same for VEC bf16 values: 8 (16 bytes) as raw bits, converted where
-// they are read; one value (2 bytes, below cp.async's smallest size) by a
-// plain load and store, which the stage's wait and barrier order as well.
+// The same for VEC bf16 values: 8 (16 bytes) or 4 (8 bytes) as raw bits,
+// converted where they are read; one value (2 bytes, below cp.async's
+// smallest size) by a plain load and store, which the stage's wait and
+// barrier order as well.
 template <int VEC>
 __device__ __forceinline__ void cp_async(__nv_bfloat16* smem,
                                          const __nv_bfloat16* gmem,
@@ -404,8 +403,14 @@ __device__ __forceinline__ void cp_async(__nv_bfloat16* smem,
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                  "l"(gmem), "r"(valid ? 16 : 0)
                  : "memory");
+  } else if constexpr (VEC == 4) {
+    const unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                 "l"(gmem), "r"(valid ? 8 : 0)
+                 : "memory");
   } else {
-    static_assert(VEC == 1, "bf16 copies are of 8 values or 1");
+    static_assert(VEC == 1, "bf16 copies are of 8 values, 4 or 1");
     *smem = valid ? *gmem : __float2bfloat16(0.f);
   }
 }
@@ -615,9 +620,17 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
       b_out, heads, feat, num_rel, slope, eps, use_dropout,                  \
       static_cast<uint32_t>(seed), thr, keep_prob)
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  // The pair kernel: two heads a warp, up to 16 heads a block; a table of
+  // 2 x 16 edges a warp, one slab a head and one more.
+  const int pairs = (heads + 1) / 2;
+  const int wpb2 = pairs < kMaxWarpsPerBlock ? pairs : kMaxWarpsPerBlock;
+  const size_t pair_smem =
+      static_cast<size_t>(wpb2) * 32 * sizeof(EdgeEntry) +
+      static_cast<size_t>(2 * wpb2 + 1) * num_rel * sizeof(float);
   if (kBf16 && vec4 && feat % 8 == 0 && feat <= 128 && aligned(h, 16) &&
-      aligned(g, 16)) {
-    relgat_bwd_src_pair_kernel<<<grid, block, smem, st>>>(
+      aligned(g, 16) && pair_smem <= static_cast<size_t>(kMaxBwdSmemBytes)) {
+    const dim3 grid2(num_nodes, (pairs + wpb2 - 1) / wpb2);
+    relgat_bwd_src_pair_kernel<<<grid2, 32 * wpb2, pair_smem, st>>>(
         reinterpret_cast<const __nv_bfloat16*>(h),
         reinterpret_cast<const __nv_bfloat16*>(g), attn, m, l, s_dot, gsum,
         src_ptr, dst, etype, eid, dh, w_out, b_out, heads, feat, num_rel,
@@ -627,14 +640,22 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
     RELGAT_BWD_LAUNCH(4, 1);
   } else if (vec4 && feat <= 256) {
     RELGAT_BWD_LAUNCH(4, 2);
+  } else if (vec4 && feat <= 512) {
+    RELGAT_BWD_LAUNCH(4, 4);
+  } else if (vec4 && feat <= 1024) {
+    RELGAT_BWD_LAUNCH(4, 8);
   } else if (feat <= 32) {
     RELGAT_BWD_LAUNCH(1, 1);
   } else if (feat <= 64) {
     RELGAT_BWD_LAUNCH(1, 2);
   } else if (feat <= 128) {
     RELGAT_BWD_LAUNCH(1, 4);
-  } else if (feat <= 32 * kMaxFeatPerLane) {
+  } else if (feat <= 256) {
     RELGAT_BWD_LAUNCH(1, 8);
+  } else if (feat <= 512) {
+    RELGAT_BWD_LAUNCH(1, 16);
+  } else if (feat <= 32 * kMaxFeatPerLane) {
+    RELGAT_BWD_LAUNCH(1, 32);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -653,19 +674,31 @@ void launch_rel_tiles(dim3 grid, cudaStream_t st, const TH* h,
                                              col_tiles);
 }
 
-// VHV: the values of h in a 16-byte copy.
+// vh: the values of h in one copy (8 or 4 of bf16 h, 16 or 8 bytes; 4 of
+// fp32 h, 16 bytes; or 1).
 template <int RM, typename TH>
-void launch_rel_tiles_rm(bool vh, bool vw, dim3 grid, cudaStream_t st,
+void launch_rel_tiles_rm(int vh, bool vw, dim3 grid, cudaStream_t st,
                          const TH* h, const float* w, const float* b,
                          float* part_attn, float* part_bias, int num_nodes,
                          int heads, int feat, int num_rel, int col_tiles) {
-  constexpr int VHV = 16 / sizeof(TH);
-  if (vh && vw) {
-    launch_rel_tiles<RM, VHV, 4>(grid, st, h, w, b, part_attn, part_bias,
+  if constexpr (sizeof(TH) == 2) {
+    if (vh == 8 && vw) {
+      launch_rel_tiles<RM, 8, 4>(grid, st, h, w, b, part_attn, part_bias,
                                  num_nodes, heads, feat, num_rel, col_tiles);
-  } else if (vh) {
-    launch_rel_tiles<RM, VHV, 1>(grid, st, h, w, b, part_attn, part_bias,
+      return;
+    }
+    if (vh == 8) {
+      launch_rel_tiles<RM, 8, 1>(grid, st, h, w, b, part_attn, part_bias,
                                  num_nodes, heads, feat, num_rel, col_tiles);
+      return;
+    }
+  }
+  if (vh == 4 && vw) {
+    launch_rel_tiles<RM, 4, 4>(grid, st, h, w, b, part_attn, part_bias,
+                               num_nodes, heads, feat, num_rel, col_tiles);
+  } else if (vh == 4) {
+    launch_rel_tiles<RM, 4, 1>(grid, st, h, w, b, part_attn, part_bias,
+                               num_nodes, heads, feat, num_rel, col_tiles);
   } else {
     launch_rel_tiles<RM, 1, 1>(grid, st, h, w, b, part_attn, part_bias,
                                num_nodes, heads, feat, num_rel, col_tiles);
@@ -695,8 +728,14 @@ int launch_bwd_rel(const TH* h, const float* w, const float* b,
     const int rel_tiles = (num_rel + kRelWarps * rm - 1) / (kRelWarps * rm);
     const dim3 grid(num_tiles, heads, rel_tiles * col_tiles);
     // 16-byte copies where every row starts 16-byte aligned.
-    const bool vh = feat % (16 / sizeof(TH)) == 0 && aligned(h, 16);
-    const bool vw = vh && num_rel % 4 == 0 && aligned(w, 16) && aligned(b, 16);
+    // 16-byte copies where every row starts 16-byte aligned; for bf16 h
+    // with F a multiple of 4 and not of 8 (F = 300), 8-byte copies.
+    const int vh16 = 16 / sizeof(TH);
+    const int vh = feat % vh16 == 0 && aligned(h, 16)      ? vh16
+                   : sizeof(TH) == 2 && feat % 4 == 0 && aligned(h, 8) ? 4
+                                                                       : 1;
+    const bool vw = vh > 1 && num_rel % 4 == 0 && aligned(w, 16) &&
+                    aligned(b, 16);
 #define RELGAT_REL_LAUNCH(RM)                                                \
   launch_rel_tiles_rm<RM>(vh, vw, grid, st, h, w, b, part_attn, part_bias,   \
                           num_nodes, heads, feat, num_rel, col_tiles)

@@ -13,9 +13,16 @@
 namespace relgat {
 
 // Features per lane are a template parameter so the per-warp row (F values,
-// lane-strided) lives in registers. 8 covers F <= 256; the wrappers reject
-// wider heads.
-constexpr int kMaxFeatPerLane = 8;
+// lane-strided) lives in registers. 32 covers F <= 1024 (ops/cuda/fused.py
+// MAX_FEAT); the wrappers reject wider heads. Above 4 a lane (F > 128, or
+// F > 512 with 16-byte loads) the kernels drop their occupancy targets and
+// take the registers they need: at 32 a lane the backward holds 4 x 32
+// floats of rows and sums, 159-173 registers without spills (ptxas), one
+// block of 8 warps an SM. Shared memory would hold the sums at a higher
+// occupancy, but every
+// edge reads and writes all of them, so it would trade a register file
+// read for a shared-memory round trip per feature and edge.
+constexpr int kMaxFeatPerLane = 32;
 constexpr int kMaxWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -90,6 +97,18 @@ __device__ __forceinline__ void store_row(float* __restrict__ p, int feat,
       p[f] = v[i];
     }
   }
+}
+
+// 8 bf16 values (16 bytes) widened to fp32.
+__device__ __forceinline__ void widen8(uint4 x, float (&v)[8]) {
+  v[0] = bf16_lo(x.x);
+  v[1] = bf16_hi(x.x);
+  v[2] = bf16_lo(x.y);
+  v[3] = bf16_hi(x.y);
+  v[4] = bf16_lo(x.z);
+  v[5] = bf16_hi(x.z);
+  v[6] = bf16_lo(x.w);
+  v[7] = bf16_hi(x.w);
 }
 
 __device__ __forceinline__ float leaky_relu(float x, float slope) {

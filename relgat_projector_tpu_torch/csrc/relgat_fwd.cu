@@ -40,22 +40,21 @@
 //   time (F = 128).
 // - Registers capped at 32 so 64 warps fit an SM: on this card the warps in
 //   flight, not the instructions per edge, set the rate of a gather-bound
-//   kernel. The same design at 48 warps, and two edges in flight a warp
-//   (more registers, fewer warps), measured slower.
+//   kernel; 64 warps x 512 bytes is 32 KB of rows in flight an SM.
 //
 // The bf16 variant (relgat_fwd_bf16, kernel_precision="default") reads h as
 // bf16 rows, the TPU kernel's bf16 `ps` stream (kernels.py `_stream_dtype`):
-// half the gathered bytes (4.1 GB at the shapes above). All arithmetic,
-// attn, out, the statistics and the merge stay fp32. Read one edge at a
-// time, a lane's share of a 128-wide bf16 head segment is 8 bytes, half
-// what it is in fp32, so a warp has half the bytes in flight; where F is a
-// multiple of 8 and at most 128, relgat_fwd_pair_kernel instead takes two
-// edges a warp iteration, a half-warp each, 16 bytes a lane. Other widths
-// run relgat_fwd_kernel on bf16 rows. At the shapes above on the card
-// above (chip_smoke.py): 2.05 ms, against 2.22 ms for relgat_fwd_kernel
-// on bf16 rows and 3.00 ms in fp32; the floor of the bf16 row gather is
-// 1.22 ms. The pair kernel keeps 48 warps of 512 bytes in flight an SM, the
-// fp32 kernel 64 of 512, relgat_fwd_kernel on bf16 rows 64 of 256.
+// half the gathered bytes (4.1 GB at the shapes above, a 1.22 ms floor; the
+// bound of the bytes each tensor must move once is 0.37 ms). All arithmetic,
+// attn, out, the statistics and the merge stay fp32. Where F is a multiple
+// of 8 and at most 128, relgat_fwd_pair_kernel gives a warp two adjacent
+// heads of the item, a half-warp each, 16 bytes a lane, so a warp's load of
+// an edge's row is one contiguous 512-byte piece and a block of 8 warps
+// reads the whole 4 KB row: on this card the size of each warp's contiguous
+// piece, not the bytes in flight (48 warps x 512 bytes = 24 KB an SM), set
+// the rate. Other widths run relgat_fwd_kernel on bf16 rows. Wider heads
+// (F > 128, up to 1024) take F / 32 features a lane in registers. PERF.md
+// section 6 records the designs measured against this one.
 #include "relgat_common.cuh"
 
 namespace relgat {
@@ -175,12 +174,14 @@ relgat_fwd_kernel(const T* __restrict__ h,             // [N, H*F]
   }
 }
 
-// Block (item, head group) as relgat_fwd_kernel, over bf16 rows of
-// F <= 128 with F % 8 == 0: half-warp `half` takes the item's edges
-// j = half, half + 2, ... with its own running (m, l, acc) and bias sum,
-// lane hl features 8*hl .. 8*hl + 7 of each (one 16-byte load). The
-// halves then merge, m = max of both, each rescaled by e^(m_half - m), in
-// one fixed order, and the first half writes the result.
+// Block (item, group of up to 16 heads) as relgat_fwd_kernel, over bf16 rows
+// of F <= 128 with F % 8 == 0: warp w takes the two adjacent heads 2w and
+// 2w + 1 of the group, half-warp `half` the second, lane hl features
+// 8*hl .. 8*hl + 7 of its head (one 16-byte load). So a warp's load of an
+// edge's row is one contiguous 512-byte piece at F = 128 (two 256-byte
+// head segments), and a block's eight warps read the whole 4 KB row of
+// each edge together. Each half walks all of the item's edges in order
+// with its own running (m, l, acc), as relgat_fwd_kernel does for one head.
 __global__ void
 __launch_bounds__(32 * kFwdWarps, kFwdPairMinBlocks)
 relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
@@ -202,7 +203,6 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   const int lane = threadIdx.x & 31;
   const int half = lane >> 4;
   const int f = 8 * (lane & 15);
-  const bool in_row = f < feat;
   const int warps = blockDim.x >> 5;
   const int4 item = items[blockIdx.x / head_groups];
   const int d = item.x;
@@ -212,8 +212,13 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   for (int i = threadIdx.x; i < cnt; i += blockDim.x)
     table[i] = make_int2(src[e0 + i], etype[e0 + i]);
   __syncthreads();
-  const int head = (blockIdx.x % head_groups) * warps + (threadIdx.x >> 5);
-  if (head >= heads) return;
+  const int pair = (blockIdx.x % head_groups) * warps + (threadIdx.x >> 5);
+  if (2 * pair >= heads) return;
+  // an odd head count leaves the last warp's second half without a head:
+  // it reads nothing and writes nothing, but joins the shuffles
+  const int head = 2 * pair + half;
+  const bool active = head < heads;
+  const bool in_row = active && f < feat;
 
   const int64_t hf = static_cast<int64_t>(heads) * feat;
   const __nv_bfloat16* h_head = h + static_cast<int64_t>(head) * feat + f;
@@ -224,10 +229,7 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   float m = -INFINITY;
   float l = 0.f;
   double bsum = 0.0;
-  // The halves may run a different number of edges: their shuffles name
-  // their own 16 lanes only.
-  const unsigned half_mask = half ? 0xffff0000u : 0x0000ffffu;
-  for (int j = half; j < cnt; j += 2) {
+  for (int j = 0; j < cnt; ++j) {
     const int2 t = table[j];
     bsum += rel_bias[t.y];
     uint4 x = make_uint4(0u, 0u, 0u, 0u);
@@ -239,17 +241,16 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
       a0 = *reinterpret_cast<const float4*>(ap);
       a1 = *reinterpret_cast<const float4*>(ap + 4);
     }
-    const float hv[8] = {bf16_lo(x.x), bf16_hi(x.x), bf16_lo(x.y),
-                         bf16_hi(x.y), bf16_lo(x.z), bf16_hi(x.z),
-                         bf16_lo(x.w), bf16_hi(x.w)};
+    float hv[8];
+    widen8(x, hv);
     float dot = hv[0] * a0.x + hv[1] * a0.y + hv[2] * a0.z + hv[3] * a0.w +
                 hv[4] * a1.x + hv[5] * a1.y + hv[6] * a1.z + hv[7] * a1.w;
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      dot += __shfl_xor_sync(half_mask, dot, o);
+    for (int o = 8; o > 0; o >>= 1)  // within the half-warp
+      dot += __shfl_xor_sync(kFullMask, dot, o);
     const float ev = leaky_relu(dot, slope);
     const float m_new = fmaxf(m, ev);
-    const float scale = expf(m - m_new);  // 0 on the half's first edge
+    const float scale = expf(m - m_new);  // 0 on the first edge (m = -inf)
     const float p = expf(ev - m_new);
     l = l * scale + p;
     const float pk =
@@ -258,39 +259,26 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
     for (int i = 0; i < 8; ++i) acc[i] = acc[i] * scale + pk * hv[i];
     m = m_new;
   }
-
-  // Merge the halves; a half without edges has m = -inf and adds nothing.
-  const float m_o = __shfl_xor_sync(kFullMask, m, 16);
-  const float l_o = __shfl_xor_sync(kFullMask, l, 16);
-  const double b_o = __shfl_xor_sync(kFullMask, bsum, 16);
-  const float m_all = fmaxf(m, m_o);
-  const float s_me = m == -INFINITY ? 0.f : expf(m - m_all);
-  const float s_o = m_o == -INFINITY ? 0.f : expf(m_o - m_all);
-  // a + b == b + a, so both halves hold the same bits
-  l = l * s_me + l_o * s_o;
-  bsum += b_o;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    acc[i] = acc[i] * s_me + __shfl_xor_sync(kFullMask, acc[i], 16) * s_o;
-  if (half != 0) return;
+  if (!active) return;
 
   float* dst_row;
+  const int hl = lane & 15;
   if (slot < 0) {
     const float denom = fmaxf(l, eps);
     const float bias = static_cast<float>(bsum);
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = acc[i] / denom + bias;
     dst_row = out + d * hf + static_cast<int64_t>(head) * feat;
-    if (lane == 0) {
-      m_out[static_cast<int64_t>(d) * heads + head] = m_all;
+    if (hl == 0) {
+      m_out[static_cast<int64_t>(d) * heads + head] = m;
       l_out[static_cast<int64_t>(d) * heads + head] = l;
       if (head == 0) bias_out[d] = bias;
     }
   } else {
     const int64_t ps = static_cast<int64_t>(slot) * heads + head;
     dst_row = part_acc + ps * feat;
-    if (lane == 0) {
-      part_ml[ps] = make_float2(m_all, l);
+    if (hl == 0) {
+      part_ml[ps] = make_float2(m, l);
       if (head == 0) part_bias[slot] = bsum;
     }
   }
@@ -442,10 +430,14 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   if (kBf16 && vec4 && feat % 8 == 0 && feat <= 128 && aligned(h, 16)) {
     if (num_items > 0) {
-      relgat_fwd_pair_kernel<<<num_items * groups, block, 0, st>>>(
+      // two heads a warp: up to 16 heads a block
+      const int pairs = (heads + 1) / 2;
+      const int wpb2 = pairs < kFwdWarps ? pairs : kFwdWarps;
+      const int groups2 = (pairs + wpb2 - 1) / wpb2;
+      relgat_fwd_pair_kernel<<<num_items * groups2, 32 * wpb2, 0, st>>>(
           reinterpret_cast<const __nv_bfloat16*>(h), attn, rel_bias, it, src,
           etype, out, m_out, l_out, bias_out, part_acc, ml, part_bias,
-          groups, heads, feat, num_rel, slope, eps, use_dropout,
+          groups2, heads, feat, num_rel, slope, eps, use_dropout,
           static_cast<uint32_t>(seed), thr, keep_prob);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
@@ -460,14 +452,22 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
     RELGAT_FWD_LAUNCH(4, 1);
   } else if (vec4 && feat <= 256) {
     RELGAT_FWD_LAUNCH(4, 2);
+  } else if (vec4 && feat <= 512) {
+    RELGAT_FWD_LAUNCH(4, 4);
+  } else if (vec4 && feat <= 1024) {
+    RELGAT_FWD_LAUNCH(4, 8);
   } else if (feat <= 32) {
     RELGAT_FWD_LAUNCH(1, 1);
   } else if (feat <= 64) {
     RELGAT_FWD_LAUNCH(1, 2);
   } else if (feat <= 128) {
     RELGAT_FWD_LAUNCH(1, 4);
-  } else if (feat <= 32 * kMaxFeatPerLane) {
+  } else if (feat <= 256) {
     RELGAT_FWD_LAUNCH(1, 8);
+  } else if (feat <= 512) {
+    RELGAT_FWD_LAUNCH(1, 16);
+  } else if (feat <= 32 * kMaxFeatPerLane) {
+    RELGAT_FWD_LAUNCH(1, 32);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

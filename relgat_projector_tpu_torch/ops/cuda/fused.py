@@ -51,7 +51,7 @@ from relgat_projector_tpu_torch.ops.dropout import (
 )
 from relgat_projector_tpu_torch.ops.segment import segment_max, segment_sum
 
-MAX_FEAT = 256  # csrc/relgat_common.cuh kMaxFeatPerLane * 32
+MAX_FEAT = 1024  # csrc/relgat_common.cuh kMaxFeatPerLane * 32
 # FWD_ITEM_EDGES (data/csr.py) is csrc/relgat_fwd.cu kItemEdges.
 MAX_WARPS_PER_BLOCK = 8  # csrc/relgat_common.cuh kMaxWarpsPerBlock
 MAX_BWD_SMEM_BYTES = 48 * 1024  # csrc/relgat_bwd.cu kMaxBwdSmemBytes
@@ -110,7 +110,10 @@ def _f32(like: torch.Tensor, shape) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
-def _check_shapes(name, h, attn, csr):
+def check_shapes(name, h, attn, csr):
+    """The shape gate of the kernels: ``(N, H, R, F)`` of ``h [N, H*F]``
+    and ``attn [H, R, F]`` over ``csr``, or a ValueError naming what the
+    kernels do not take. The plain versions take any width."""
     n, hf = h.shape
     heads, num_rel, f = attn.shape
     if hf != heads * f or n != csr.num_nodes:
@@ -119,7 +122,11 @@ def _check_shapes(name, h, attn, csr):
             f"{heads * f}]"
         )
     if f > MAX_FEAT:
-        raise ValueError(f"{name}: features per head {f} > {MAX_FEAT}")
+        raise ValueError(
+            f"{name}: {f} features per head exceed the kernels' limit of "
+            f"{MAX_FEAT}: a lane holds F / 32 of its head's features in "
+            f"registers, at most 32 (csrc/relgat_common.cuh kMaxFeatPerLane)"
+        )
     if csr.num_rel > num_rel:
         raise ValueError(
             f"{name}: the graph has relations up to {csr.num_rel - 1}, "
@@ -137,6 +144,12 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(a * b).sum(-1)`` of two ``[E, H, F]`` arrays, as batched dot
+    products that make no ``[E, H, F]`` temporary."""
+    return torch.einsum("ehf,ehf->eh", a, b)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -149,9 +162,8 @@ def relgat_fwd_plain(
     heads, _, f = attn.shape
     src, dst, et = csr.src.long(), csr.dst.long(), csr.etype.long()
     hs = h.view(n, heads, f)[src]                                # [E, H, F]
-    e = F.leaky_relu(
-        (hs * attn[:, et].transpose(0, 1)).sum(-1), negative_slope
-    )                                                            # [E, H]
+    e = F.leaky_relu(_dots(hs, attn[:, et].transpose(0, 1)),
+                     negative_slope)                             # [E, H]
     m = segment_max(e, dst, n)
     p = torch.exp(e - torch.where(torch.isfinite(m), m, 0.0)[dst])
     l = segment_sum(p, dst, n)
@@ -180,9 +192,8 @@ def relgat_fwd_split_plain(
         torch.arange(num_items, device=h.device), items[:, 2] - items[:, 1])
     src, et = csr.src.long(), csr.etype.long()
     hs = h.view(n, heads, f)[src]                                # [E, H, F]
-    e = F.leaky_relu(
-        (hs * attn[:, et].transpose(0, 1)).sum(-1), negative_slope
-    )                                                            # [E, H]
+    e = F.leaky_relu(_dots(hs, attn[:, et].transpose(0, 1)),
+                     negative_slope)                             # [E, H]
     m_c = segment_max(e, item, num_items)                        # [I, H]
     p = torch.exp(e - m_c[item])
     l_c = segment_sum(p, item, num_items)
@@ -216,7 +227,7 @@ def _launch_fwd(
     name, h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope,
     eps,
 ):
-    n, heads, num_rel, f = _check_shapes(name, h, attn, csr)
+    n, heads, num_rel, f = check_shapes(name, h, attn, csr)
     if csr.fwd_item_edges > FWD_ITEM_EDGES:
         raise ValueError(
             f"{name}: work items of {csr.fwd_item_edges} edges exceed "
@@ -298,8 +309,9 @@ def relgat_bwd_src_plain(
     hs = h.view(n, heads, f)[src]
     gd = g.view(n, heads, f)[dst]
     ar = attn[:, et].transpose(0, 1)
-    eraw = (hs * ar).sum(-1)
-    dalpha = (hs * gd).sum(-1)
+    eraw = _dots(hs, ar)
+    dalpha = _dots(hs, gd)
+    del hs  # [E, H, F] arrays are 14 GB each at 1M edges and H*F = 3600
     m_safe = torch.where(torch.isinf(m), 0.0, m)
     alpha = torch.exp(
         F.leaky_relu(eraw, negative_slope) - m_safe[dst]
@@ -308,8 +320,9 @@ def relgat_bwd_src_plain(
     k = keep if keep is not None else 1.0
     de = alpha * (dalpha * k - s_dot[dst])
     de = de * torch.where(eraw >= 0, 1.0, negative_slope)
-    contrib = (alpha * k)[..., None] * gd + de[..., None] * ar
-    dh = segment_sum(contrib, src, n).reshape(n, hf)
+    dh = segment_sum((alpha * k)[..., None] * gd, src, n)
+    dh += segment_sum(de[..., None] * ar, src, n)
+    dh = dh.reshape(n, hf)
     key = src * num_rel + et
     w = segment_sum(de, key, n * num_rel).view(n, num_rel, heads)
     b = segment_sum(gsum[dst], key, n * num_rel).view(n, num_rel)
@@ -332,7 +345,7 @@ def _launch_bwd_src(
     name, h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
     negative_slope, eps,
 ):
-    n, heads, num_rel, f = _check_shapes(name, h, attn, csr)
+    n, heads, num_rel, f = check_shapes(name, h, attn, csr)
     if (g.shape != h.shape or gsum.shape != (n,)
             or not (m.shape == l.shape == s_dot.shape == (n, heads))):
         raise ValueError(f"{name}: g or statistics have wrong shapes")

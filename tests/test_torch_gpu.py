@@ -67,7 +67,7 @@ def _case(heads, feat, num_rel=7, n=400, e=3000, seed=0):
 @pytest.mark.parametrize(
     "heads,feat,num_rel",
     [(1, 8, 7), (3, 40, 7), (16, 128, 7), (9, 200, 7), (4, 32, 1),
-     (16, 128, 300)],
+     (16, 128, 300), (12, 300, 7), (4, 512, 7), (2, 1024, 7), (3, 301, 7)],
 )
 @pytest.mark.parametrize("rate", (0.0, 0.3))
 def test_kernels_match_plain(card, heads, feat, num_rel, rate):
@@ -101,13 +101,16 @@ def test_kernels_match_plain(card, heads, feat, num_rel, rate):
 @pytest.mark.parametrize(
     "heads,feat,num_rel",
     [(1, 8, 7), (3, 40, 7), (16, 128, 7), (9, 200, 7), (2, 6, 3),
-     (2, 12, 3), (16, 128, 300)],
+     (2, 12, 3), (16, 128, 300), (12, 300, 7), (4, 512, 7), (2, 1024, 7),
+     (3, 301, 7)],
 )
 @pytest.mark.parametrize("rate", (0.0, 0.3))
 def test_bf16_kernels_match_plain(card, heads, feat, num_rel, rate):
-    """bf16 h and g rows, fp32 everything else. F = 6 takes the one-value
-    loads everywhere; F = 12 the 8-byte row loads and relgat_bwd_rel's
-    one-value staging; the other widths the vector paths throughout."""
+    """bf16 h and g rows, fp32 everything else. F = 6 and 301 take the
+    one-value loads everywhere; F = 12 and 300 the 8-byte row loads and
+    8-byte staging in relgat_bwd_rel; F = 8, 40 and 128 (at most 16 heads)
+    the pair kernels, two heads a warp (1 and 3 heads leave a warp's
+    second half idle); the other widths the vector paths."""
     g, h, gr, attn, bias = _case(heads, feat, num_rel=num_rel)
     h16, g16 = h.to(torch.bfloat16), gr.to(torch.bfloat16)
     csr = g.csr
@@ -189,6 +192,94 @@ def test_bf16_cuda_tensors_never_fall_back(card):
     with pytest.raises(NotImplementedError):  # bf16 rows, fp32 attention
         kern.relgat_fwd_bf16(h16, attn.to(torch.bfloat16), bias, csr, **kw)
     assert kern.launch_counts() == before
+
+
+def _degree_case(heads, feat, num_rel=5, n=600, seed=0):
+    """A graph whose rows have in- and out-degrees of 0, 1, 2 and 3, with
+    self-loops, repeated (src, dst, relation) edges and one row of 700
+    in-edges (split by the forward's work plan), in no sorted order."""
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for k in (1, 2, 3):  # rows 10k .. 10k + 9: k in-edges; 100 + ...: k out
+        for r in range(10 * k, 10 * k + 10):
+            dst += [r] * k
+            src += list(rng.integers(200, n, k))
+            src += [100 + r] * k
+            dst += list(rng.integers(200, n, k))
+    src += list(range(300, 340))          # self-loops
+    dst += list(range(300, 340))
+    src += [400, 400, 400, 401]           # multi-edges
+    dst += [402, 402, 402, 403]
+    src += list(rng.integers(200, n, 700))  # a split row
+    dst += [450] * 700
+    src, dst = np.array(src), np.array(dst)
+    et = rng.integers(0, num_rel, src.size)
+    et[-704:-700] = [1, 1, 1, 2]
+    order = rng.permutation(src.size)
+    g = build_graph(src[order], dst[order], et[order], n, num_rel=num_rel,
+                    csr=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (g.num_nodes, heads * feat)
+    h = torch.randn(shape, generator=gen, device="cuda") * 0.5
+    gr = torch.randn(shape, generator=gen, device="cuda")
+    attn = torch.randn((heads, num_rel, feat), generator=gen, device="cuda") * 0.3
+    bias = torch.randn((num_rel,), generator=gen, device="cuda") * 0.1
+    return g, h, gr, attn, bias
+
+
+@pytest.mark.parametrize("heads,feat", [(16, 128), (12, 64), (5, 8)])
+@pytest.mark.parametrize("rate", (0.0, 0.3))
+def test_bf16_pair_kernels_on_small_degrees(card, heads, feat, rate):
+    """The pair kernels on rows of 0 to 3 edges each way, self-loops,
+    multi-edges and a split row: within 1e-5 of their float64 plain
+    versions, rows without in-edges 0 (m = -inf), and the same bits over
+    two calls."""
+    g, h, gr, attn, bias = _degree_case(heads, feat)
+    csr = g.csr
+    assert csr.fwd_num_split == 1
+    h16, g16 = h.to(torch.bfloat16), gr.to(torch.bfloat16)
+    kw = dict(seed=77, rate=rate, negative_slope=0.2, eps=1e-16)
+    fwd = [kern.relgat_fwd_bf16(h16, attn, bias, csr, **kw) for _ in range(2)]
+    for a, b in zip(*fwd):
+        assert torch.equal(a, b)
+    out_k, m_k, l_k, b_k = fwd[0]
+    out_p, m, l, b = _exact(kern.relgat_fwd_bf16_plain, h16, attn, bias, csr,
+                            **kw)
+    assert _rel(out_k, out_p) <= REL_TOL
+    assert _rel(l_k, l) <= REL_TOL and _rel(b_k, b) <= REL_TOL
+    indeg = torch.bincount(csr.dst.long(), minlength=g.num_nodes)
+    assert bool((out_k[indeg == 0] == 0).all())
+    assert bool(torch.isinf(m_k[indeg == 0]).all())
+    n = h.shape[0]
+    s_dot = ((out_k - b_k[:, None]) * gr).view(n, heads, feat).sum(-1)
+    args = (h16, g16, attn, m_k, l_k, s_dot, gr.sum(1), csr)
+    bwd = [kern.relgat_bwd_src_bf16(*args, **kw) for _ in range(2)]
+    for a, b in zip(*bwd):
+        assert torch.equal(a, b)
+    dh_p, w_p, bb_p = _exact(kern.relgat_bwd_src_bf16_plain, *args, **kw)
+    for got, want in zip(bwd[0], (dh_p, w_p, bb_p)):
+        assert _rel(got, want) <= REL_TOL
+    torch.cuda.synchronize()
+
+
+def test_feature_limit_is_named(card):
+    """A head of 1024 features runs; one of 1025 is refused, naming the
+    limit, and launches nothing."""
+    for feat in (1024, 1025):
+        g, h, _, attn, bias = _case(1, feat, n=100, e=300)
+        kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+        before = kern.launch_counts()
+        if feat == 1024:
+            out = kern.relgat_fwd(h, attn, bias, g.csr, **kw)[0]
+            assert bool(torch.isfinite(out).all())
+        else:
+            with pytest.raises(ValueError, match="limit of 1024"):
+                kern.relgat_fwd(h, attn, bias, g.csr, **kw)
+            with pytest.raises(ValueError, match="limit of 1024"):
+                kern.relgat_fwd_bf16(h.to(torch.bfloat16), attn, bias, g.csr,
+                                     **kw)
+            assert kern.launch_counts() == before
+    torch.cuda.synchronize()
 
 
 def test_rows_without_edges_are_zero(card):
