@@ -55,6 +55,25 @@ Phases, in order; any failure exits non-zero:
               one GAT layer) on the same graph, embeddings and batches, 4
               steps in fp32 and 4 in bf16: each kernel of the variant
               launched layers x steps times.
+   remat    - TRAIN with remat on and off, 3 steps each in fp32 and in the
+              bf16 mode, TRAIN's dropout and an attention dropout of 0.2:
+              the parameters equal (bit for bit expected, 1e-6 at most),
+              the peak memory lower with remat, and relgat_fwd launched
+              twice a layer a step under remat (the recompute).
+   param_bf16 - TRAIN with param_dtype="bfloat16" in the bf16 mode for 4
+              steps: every parameter and Adam moment bf16, each bf16 kernel
+              launched layers x steps times, a finite loss; the AGREE model
+              with bf16 parameters through the kernels on the card against
+              the same route on a CPU copy within 1e-2; step time and peak
+              memory beside train_bf16's.
+   edges_8m - TRAIN's model on a seeded uniform graph of 100,000 nodes and
+              8,000,000 edges (the size the JAX package's scanned propagate
+              was made for), in fp32 and bf16: 3 steps with
+              scan_segments=4 give the same bits as without (the kernels
+              run unsegmented); the steps' peak memory against the same
+              steps on the 1M-edge graph grows per edge by no more than
+              the graph layout's reckoning + 10% and 64 bytes; step time,
+              edge-messages/s and each kernel's time at 8M edges.
 5. export   - one forward-only get_node_repr at the same size.
 6. kernels  - each kernel, fp32 and bf16 variant, held to its plain version
               and timed with CUDA events at the train phase's shapes and at
@@ -89,7 +108,12 @@ Phases, in order; any failure exits non-zero:
               step; the bf16 variants in leg 3, the fp32 kernels in legs 1
               and 2), that leg 2 resumed from leg 1's final directory, a
               finite last loss, and both bf16 fields in leg 3's
-              training-config.json. Then through the Python API: one step
+              training-config.json. Leg 4 is leg 1's argv with
+              --steps-per-call 8 (352 steps, 44 calls) in a fresh
+              directory: its final parameters equal leg 1's (bit for bit
+              expected, 1e-6 at most), it logs and evaluates only at the
+              windows of 100 dispatched steps, and logs
+              train/edges_per_sec. Then through the Python API: one step
               after maybe_resume is bit-identical to the step from the live
               state, and the trainer's epoch per step is within 1.10x of a
               bare make_train_step loop over the same batches. Cuts, against
@@ -99,11 +123,14 @@ Phases, in order; any failure exits non-zero:
               that they fire within the epoch's 352 steps.
 
 The last lines are the kernels JSON line, nvidia-smi's name and power limit,
-and {"ok": true, "device": {...}}. The timing runs --kernels-only (phase 6
-alone, launches null) and --zipf-only (phase 7 alone) end with
-{"timing_only": true, "device": {...}} instead. With --out DIR the result lines, a
-profiler trace of two train steps and the trainer's console logs are also
-written there (its checkpoints go to a temporary directory, removed after).
+and {"ok": true, "device": {...}}; a "single_device_settings" line gives the
+seconds the remat, param_bf16 and edges_8m phases took. The profiles go
+through the package's utils.profiling.trace. The timing runs --kernels-only
+(phase 6 alone, launches null) and --zipf-only (phase 7 alone) end with
+{"timing_only": true, "device": {...}} instead. With --out DIR the result
+lines, profiler traces of two train steps (a directory each) and the
+trainer's console logs are also written there (its checkpoints go to a
+temporary directory, removed after).
 """
 
 from __future__ import annotations
@@ -149,6 +176,7 @@ from relgat_projector_tpu_torch.train.step import (
     make_train_step,
 )
 from relgat_projector_tpu_torch.train.trainer import RelGATTrainer
+from relgat_projector_tpu_torch.utils.profiling import trace
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 from relgat_projector_tpu_torch.utils.tree import tree_leaves
 
@@ -177,7 +205,20 @@ DEFAULT_WIDTH = dict(heads=12, feat=300, layers=1, warmup_steps=1,
 TRAINER = dict(nodes=20_000, triplets=50_000, num_rel=40, in_dim=1152,
                nn_pool=256, heads=16, feat=128, layers=2, batch=128,
                num_neg=32, every=100, train_ratio=0.9, bare_steps=100,
-               max_over_bare=1.10, max_checkpoints=5)
+               max_over_bare=1.10, max_checkpoints=5, steps_per_call=8)
+# Remat at TRAIN: 3 steps (1 warm-up, 2 timed) each way and precision, with
+# TRAIN's dropout and an attention dropout (TRAIN has none) so that the
+# seed drawn before the checkpointed layer is exercised too.
+REMAT = dict(steps=3, warmup_steps=1, rel_attn_dropout=0.2)
+# A graph of TRAIN's nodes and 8M edges, the size the JAX package's scanned
+# propagate was made for (ops/pallas/kernels.py:479-481), and the bytes a
+# graph may add per edge past the reckoning of its layout.
+EDGES_8M = dict(num_edges=8_000_000, scan_segments=4, warmup_steps=1,
+                timed_steps=2, margin=1.10, max_bytes_per_edge=64)
+PARAM_BF16 = dict(steps=4, warmup_steps=1, param_dtype="bfloat16")
+# Same-bits limit where bits may differ: parameters after the same steps
+# taken another way (remat, several steps a call).
+SAME_TOL = 1e-6
 FWD_CU = "relgat_projector_tpu_torch/csrc/relgat_fwd.cu"
 BWD_CU = "relgat_projector_tpu_torch/csrc/relgat_bwd.cu"
 TPU_FWD = "relgat_projector_tpu/ops/pallas/fused.py:116"  # _fused_kernel
@@ -795,13 +836,14 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
     mcfg, step, state, metrics, step_s, counts, first_loss = train_steps(
         node_emb, graph, batches, t["warmup_steps"], **BF16_MODE)
     loss_rel = abs(first_loss - fp32_first_loss) / abs(fp32_first_loss)
+    peak = torch.cuda.max_memory_allocated()
     emit({"phase": "train_bf16", "card": card, **BF16_MODE,
           "nodes": t["num_nodes"], "edges": t["num_edges"],
           "layers": t["layers"], "heads": t["heads"], "feat": t["feat"],
           "in_dim": t["in_dim"], "steps": len(batches),
           "timed_steps": t["timed_steps"], "step_ms": step_s * 1e3,
           "edge_messages_per_s": t["num_edges"] * t["layers"] / step_s,
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "max_memory_allocated_bytes": peak,
           "loss": float(metrics["loss"]),
           "grad_norm": float(metrics["grad_norm"]), "step": int(state.step),
           "first_step_loss": first_loss,
@@ -818,7 +860,7 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
     profile_steps(step, state, node_emb, graph, batches[0], weight,
                   step_s * 1e3, step_matmul_flops(graph.num_nodes), card,
                   out_lines, out_dir, phase="profile_bf16")
-    return counts, step_s * 1e3
+    return counts, {"step_ms": step_s * 1e3, "peak": peak}
 
 
 def phase_train_default(card, out_lines, graph, node_emb, batches):
@@ -855,24 +897,248 @@ def phase_train_default(card, out_lines, graph, node_emb, batches):
     return counts
 
 
+def max_rel_diff(a_leaves, b_leaves):
+    """(every pair equal bit for bit, the largest relative difference)."""
+    same = all(torch.equal(a, b) for a, b in zip(a_leaves, b_leaves))
+    return same, max(rel_err(a, b) for a, b in zip(a_leaves, b_leaves))
+
+
+def phase_remat(card, out_lines, graph, node_emb, batches):
+    """``TRAIN`` with ``remat`` on and off, in fp32 and in the bf16 mode, on
+    the train phase's graph, embeddings, batches, weights and generator
+    seeds, with dropout: the parameters after the steps agree (bit for bit
+    expected, SAME_TOL at most), the peak memory with remat is lower, and
+    relgat_fwd runs twice a layer a step under remat (the recompute in the
+    backward), the backward kernels once."""
+    r, t = REMAT, TRAIN
+    for bf16 in (False, True):
+        mode = BF16_MODE if bf16 else {}
+        fwd, bwd_src, bwd_rel = VARIANTS[bf16]
+        runs = {}
+        for remat in (False, True):
+            torch.cuda.empty_cache()
+            _, _, state, metrics, step_s, counts, _ = train_steps(
+                node_emb, graph, batches[:r["steps"]], r["warmup_steps"],
+                remat=remat, rel_attn_dropout=r["rel_attn_dropout"], **mode)
+            runs[remat] = dict(
+                params=[p.detach() for p in tree_leaves(state.params)],
+                step_ms=step_s * 1e3, counts=counts, loss=float(metrics["loss"]),
+                peak=torch.cuda.max_memory_allocated())
+            del state, metrics
+            per_step = r["steps"] * t["layers"]
+            check(counts[fwd] == per_step * (2 if remat else 1)
+                  and counts[bwd_src] == counts[bwd_rel] == per_step,
+                  f"remat={remat} ({'bf16' if bf16 else 'fp32'}): launches "
+                  f"{counts}")
+        same, diff = max_rel_diff(runs[True]["params"], runs[False]["params"])
+        emit({"phase": "remat", "card": card,
+              "variant": "bf16" if bf16 else "fp32", "steps": r["steps"],
+              "timed_steps": r["steps"] - r["warmup_steps"],
+              "dropout": 0.3, "rel_attn_dropout": r["rel_attn_dropout"],
+              "params_bit_identical": same, "params_max_rel_diff": diff,
+              **{f"{k}_{'remat' if on else 'no_remat'}": runs[on][key]
+                 for on in (False, True)
+                 for k, key in (("step_ms", "step_ms"),
+                                ("max_memory_allocated_bytes", "peak"),
+                                ("launches", "counts"), ("loss", "loss"))},
+              "memory_saved_bytes": runs[False]["peak"] - runs[True]["peak"]},
+             out_lines)
+        check(diff <= SAME_TOL, f"remat changed the parameters by {diff}")
+        check(runs[True]["peak"] < runs[False]["peak"],
+              f"remat's peak {runs[True]['peak']} is not below "
+              f"{runs[False]['peak']}")
+
+
+def layout_bytes(graph, heads, feat):
+    """The bytes on the card that a graph's layout holds, from its arrays'
+    shapes: the COO (3 x int64 an edge), the dst- and src-CSR (6 x int32 an
+    edge, 2 row pointers), the forward's work plan (4 x int32 an item, 3 x
+    int32 a split row) and the split rows' partials, which the forward
+    allocates (heads x (feat + 2) x fp32 and one fp64 a slot)."""
+    c = graph.csr
+    coo = 3 * 8 * graph.num_edges_padded
+    csr = 6 * 4 * c.num_edges + 2 * 4 * (c.num_nodes + 1)
+    plan = 4 * 4 * c.fwd_num_items + 3 * 4 * c.fwd_num_split
+    parts = c.fwd_num_parts * (heads * (feat + 2) * 4 + 8)
+    return coo + csr + plan + parts
+
+
+def phase_edges_8m(card, out_lines, graph_1m, node_emb):
+    """``TRAIN``'s model on a seeded uniform graph of its 100,000 nodes and
+    8,000,000 edges, in fp32 and in the bf16 mode: the steps with
+    ``scan_segments=4`` against the same steps without (the same bits: the
+    kernels run unsegmented), step time, edge-messages/s and each kernel's
+    time at 8M edges. Memory: the steps' peak on the 1M-edge graph, then,
+    with that graph still held, on the 8M-edge graph; the growth per edge
+    of the 8M graph must stay within its layout's reckoning
+    (``layout_bytes``) + 10% and at most 64 bytes, which no E-sized float
+    tensor would."""
+    t, c = TRAIN, EDGES_8M
+    rng = np.random.default_rng(SEED + 17)
+    n, e = t["num_nodes"], c["num_edges"]
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    et = rng.integers(0, t["num_rel"], e)
+    batches = edge_batches(src, et, dst, rng.integers(
+        0, e, (c["warmup_steps"] + c["timed_steps"], t["batch"])))
+    launches = t["layers"] * len(batches)
+
+    def run(graph, **model):
+        torch.cuda.empty_cache()
+        _, _, state, metrics, step_s, counts, _ = train_steps(
+            node_emb, graph, batches, c["warmup_steps"], **model)
+        return dict(leaves=state_leaves(state), step_s=step_s,
+                    counts=counts, loss=float(metrics["loss"]),
+                    peak=torch.cuda.max_memory_allocated())
+
+    peaks_1m = {bf16: run(graph_1m, **(BF16_MODE if bf16 else {}))["peak"]
+                for bf16 in (False, True)}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    graph = build_graph(src, dst, et, n, num_rel=t["num_rel"], csr=True,
+                        device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del src, dst, et
+    reckoned = layout_bytes(graph, t["heads"], t["feat"]) / e
+    print(f"edges_8m: the layout reckons {reckoned:.3f} bytes an edge (COO "
+          f"24, CSR 24, row pointers, plan and partials the rest)",
+          flush=True)
+    for bf16 in (False, True):
+        mode = BF16_MODE if bf16 else {}
+        plain = run(graph, **mode)
+        scanned = run(graph, scan_segments=c["scan_segments"], **mode)
+        same = all(torch.equal(a, b)
+                   for a, b in zip(plain["leaves"], scanned["leaves"]))
+        per_edge = (plain["peak"] - peaks_1m[bf16]) / e
+        emit({"phase": "edges_8m", "card": card,
+              "variant": "bf16" if bf16 else "fp32", "nodes": n, "edges": e,
+              "graph_build_s": build_s, "steps": len(batches),
+              "timed_steps": c["timed_steps"],
+              "scan_segments": c["scan_segments"],
+              "scan_segments_bit_identical": same,
+              "max_memory_allocated_bytes_1m": peaks_1m[bf16],
+              "max_memory_allocated_bytes_8m": plain["peak"],
+              "growth_bytes_per_edge": per_edge,
+              "reckoned_bytes_per_edge": reckoned,
+              "step_ms": plain["step_s"] * 1e3,
+              "step_ms_scan_segments": scanned["step_s"] * 1e3,
+              "edge_messages_per_s": e * t["layers"] / plain["step_s"],
+              "loss": plain["loss"], "launches": plain["counts"]},
+             out_lines)
+        check(np.isfinite(plain["loss"]), f"edges_8m: loss {plain['loss']}")
+        check(same, "edges_8m: scan_segments=4 changed the steps' bits")
+        check(per_edge <= c["margin"] * reckoned
+              and per_edge <= c["max_bytes_per_edge"],
+              f"edges_8m: the peak grew {per_edge:.2f} bytes an edge, past "
+              f"{c['margin']} x the reckoned {reckoned:.2f} or "
+              f"{c['max_bytes_per_edge']}")
+        check(all(r["counts"] == expected_launches(bf16, launches)
+                  for r in (plain, scanned)),
+              f"edges_8m: launches {plain['counts']} and "
+              f"{scanned['counts']}, expected {launches} of each "
+              f"{'bf16' if bf16 else 'fp32'} kernel")
+        del plain, scanned
+    kernel_times(graph, card, out_lines)
+    del graph, batches
+    torch.cuda.empty_cache()
+
+
+def kernel_times(graph, card, out_lines):
+    """Each kernel of both variants timed on ``graph`` at ``TRAIN``'s widths
+    (no plain version: its [E, H, F] temporaries would not fit at 8M
+    edges; parity is held on the other graphs)."""
+    t = TRAIN
+    csr, n = graph.csr, graph.num_nodes
+    inputs = make_kernel_inputs(csr, n, t["heads"], t["feat"], t["num_rel"],
+                                SEED + 7)
+    kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+    times = {}
+    for bf16 in (False, True):
+        fwd, bwd_src, bwd_rel = VARIANTS[bf16]
+        h, g = inputs["h"], inputs["g"]
+        if bf16:
+            h, g = h.to(torch.bfloat16), g.to(torch.bfloat16)
+        attn, bias = inputs["attn"], inputs["bias"]
+        out, m, l, b = KERNELS[fwd](h, attn, bias, csr, **kw)
+        s_dot = ((out - b[:, None]) * inputs["g"]).view(
+            n, t["heads"], t["feat"]).sum(-1)
+        gsum = inputs["g"].sum(1)
+        _, w, bsum = KERNELS[bwd_src](h, g, attn, m, l, s_dot, gsum, csr, **kw)
+        times[fwd] = cuda_ms(lambda: KERNELS[fwd](h, attn, bias, csr, **kw),
+                             reps=10, warmup=2)
+        times[bwd_src] = cuda_ms(lambda: KERNELS[bwd_src](
+            h, g, attn, m, l, s_dot, gsum, csr, **kw), reps=10, warmup=2)
+        times[bwd_rel] = cuda_ms(lambda: KERNELS[bwd_rel](h, w, bsum),
+                                 reps=10, warmup=2)
+        del out, m, l, b, w, bsum
+    emit({"phase": "kernels_8m", "card": card, "edges": csr.num_edges,
+          "heads": t["heads"], "feat": t["feat"], "ms": times}, out_lines)
+
+
+def phase_param_bf16(card, out_lines, graph, node_emb, batches, bf16_record):
+    """``TRAIN`` with bf16 parameters in the bf16 mode for a few steps:
+    every parameter and Adam moment stays bf16, the loss is finite, each
+    bf16 kernel launches layers x steps times; then the ``AGREE`` model with
+    bf16 parameters through the kernels on the card against the same route
+    on a CPU copy, within AGREE_BF16_TOL. Peak memory and step time beside
+    ``train_bf16``'s."""
+    c, t = PARAM_BF16, TRAIN
+    torch.cuda.empty_cache()
+    _, _, state, metrics, step_s, counts, _ = train_steps(
+        node_emb, graph, batches[:c["steps"]], c["warmup_steps"],
+        param_dtype=c["param_dtype"], **BF16_MODE)
+    peak = torch.cuda.max_memory_allocated()
+    dtypes = {str(x.dtype) for x in (
+        tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
+        + tree_leaves(state.opt_state.nu))}
+    del state
+    mode = dict(use_pallas=True, param_dtype=c["param_dtype"], dropout=0.0,
+                projection_dropout=0.0, **BF16_MODE)
+    on_card = agree_grads(DEVICE, **mode)
+    on_cpu = [v.to(DEVICE) for v in agree_grads("cpu", **mode)]
+    errs = [rel_err(k, p) for k, p in zip(on_card, on_cpu)]
+    emit({"phase": "param_bf16", "card": card, **BF16_MODE,
+          "param_dtype": c["param_dtype"], "steps": c["steps"],
+          "timed_steps": c["steps"] - c["warmup_steps"],
+          "step_ms": step_s * 1e3,
+          "edge_messages_per_s": t["num_edges"] * t["layers"] / step_s,
+          "max_memory_allocated_bytes": peak,
+          "train_bf16_step_ms": bf16_record["step_ms"],
+          "train_bf16_max_memory_allocated_bytes": bf16_record["peak"],
+          "state_dtypes": sorted(dtypes), "loss": float(metrics["loss"]),
+          "launches": counts, "agree_max_rel_err_vs_cpu": max(errs),
+          "tol": AGREE_BF16_TOL}, out_lines)
+    check_train(metrics, counts,
+                expected_launches(True, t["layers"] * c["steps"]),
+                "param_bf16")
+    check(dtypes == {"torch.bfloat16"},
+          f"param_bf16: parameters and moments are {sorted(dtypes)}")
+    check(max(errs) <= AGREE_BF16_TOL,
+          f"param_bf16: the kernel route on the card and on the CPU differ "
+          f"by {max(errs)} > {AGREE_BF16_TOL}")
+
+
 def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
                   matmul_flops, card, out_lines, out_dir, phase="profile"):
     """Where the step's device time goes, from torch.profiler over two
-    steps. The idle share is one minus the device's busy time per step over
-    ``step_ms``, the step time measured without the profiler (the profiled
-    window's own wall time includes the profiler's start-up). Diagnostic
-    only: a profiler that cannot trace here is reported as not measured and
-    fails nothing. The line and the trace are named after ``phase``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    steps, through the package's ``utils.profiling.trace``. The idle share is
+    one minus the device's busy time per step over ``step_ms``, the step
+    time measured without the profiler (the profiled window's own wall time
+    includes the profiler's start-up). Diagnostic only: a profiler that
+    cannot trace here is reported as not measured and fails nothing. The
+    line and the trace's directory (under ``out_dir``) are named after
+    ``phase``."""
     steps = 2
+    name = "trace" if phase == "profile" else f"{phase}_trace"
     try:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                state, _ = step(state, node_emb, graph, *batch, weight)
-            torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            log_dir = (out_dir / f"chip_smoke_{name}" if out_dir is not None
+                       else stack.enter_context(tempfile.TemporaryDirectory()))
+            with trace(str(log_dir), worker_name=phase) as prof:
+                for _ in range(steps):
+                    state, _ = step(state, node_emb, graph, *batch, weight)
+                torch.cuda.synchronize()
         groups = {"relgat_kernels": 0.0, "gemm": 0.0, "other": 0.0}
         top = []
         for evt in prof.key_averages():
@@ -902,9 +1168,6 @@ def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
               "top_kernels_ms_per_step": [[n, u / 1e3 / steps]
                                           for u, n in top[:12]]},
              out_lines)
-        if out_dir is not None:
-            name = "trace" if phase == "profile" else f"{phase}_trace"
-            prof.export_chrome_trace(str(out_dir / f"chip_smoke_{name}.json"))
     except Exception as exc:  # the profiler is diagnostic, not a phase
         emit({"phase": phase, "card": card,
               "not_measured": f"{type(exc).__name__}: {exc}"}, out_lines)
@@ -1430,6 +1693,8 @@ def phase_trainer(card, out_lines, out_dir):
 
         leg1_s, counts1, log1 = run_cli_leg(argv, "leg1", out_dir)
         evals1 = check_leg("trainer leg 1", counts1, log1, steps, layers)
+        params1 = torch.load(final / "relgat-model.pt", map_location="cpu",
+                             weights_only=True)
         files = sorted(p.name for p in final.iterdir())
         check(files == sorted([
             "config.json", "training-config.json", "relations-map.json",
@@ -1477,6 +1742,33 @@ def phase_trainer(card, out_lines, out_dir):
               f"leg 3 training-config.json holds "
               f"{ {k: saved_model[k] for k in BF16_MODE} }")
 
+        # Leg 4: leg 1 at several steps a call, a fresh directory, against
+        # leg 1's final parameters (read before leg 2 overwrote them).
+        s = c["steps_per_call"]
+        leg4_s, counts4, log4 = run_cli_leg(
+            trainer_argv(work / "cli_scan") + ["--steps-per-call", str(s)],
+            "leg4_steps_per_call", out_dir)
+        evals4 = check_leg("trainer leg 4 (steps per call)", counts4, log4,
+                           -(-steps // s) * s, layers)
+        final4 = work / "cli_scan" / final.name
+        done4, dispatch4, _ = saved_counts(final4)
+        params4 = torch.load(final4 / "relgat-model.pt", map_location="cpu",
+                             weights_only=True)
+        same4, diff4 = max_rel_diff(tree_leaves(params4), tree_leaves(params1))
+        windows = [d for d in range(s, -(-steps // s) * s + 1, s)
+                   if d % c["every"] < s]
+        logs4 = len(logged(log4, "train/loss_step"))
+        rates4 = logged(log4, "train/edges_per_sec")
+        check(done4 == steps and dispatch4 == -(-steps // s) * s,
+              f"leg 4 saved step+nonfinite {done4}, dispatch {dispatch4}")
+        check(diff4 <= SAME_TOL,
+              f"leg 4 ends {diff4} from leg 1's parameters")
+        check(logs4 == len(windows) and evals4 == len(windows),
+              f"leg 4 logged {logs4} times and evaluated {evals4} times, "
+              f"expected the {len(windows)} windows {windows}")
+        check(bool(rates4) and all(r > 0 for r in rates4),
+              f"leg 4 logged train/edges_per_sec {rates4}")
+
         identical, trainer_ms, bare_ms, stats = resume_and_overhead(
             argv, work, steps, bs, card, out_lines, out_dir)
     ratio = trainer_ms / bare_ms
@@ -1497,6 +1789,13 @@ def phase_trainer(card, out_lines, out_dir):
                         "last_loss": logged(log3, "train/loss_step")[-1],
                         "edges_per_sec_last_flush":
                             logged(log3, "train/edges_per_sec")[-1]},
+          "leg4_steps_per_call": {
+              "steps_per_call": c["steps_per_call"], "seconds": leg4_s,
+              "evals": evals4, "log_lines": logs4, "windows": windows,
+              "params_bit_identical_to_leg1": same4,
+              "params_max_rel_diff_to_leg1": diff4,
+              "edges_per_sec_last_flush": rates4[-1]},
+          "launches_leg4": counts4,
           "checkpoint_bytes": ckpt_bytes,
           "max_memory_allocated_bytes": peak,
           "resumed_from_final": resumed,
@@ -1563,10 +1862,17 @@ def main(argv=None) -> int:
         phase_agree_bf16(card, out_lines)
         counts, graph, step_ms, node_emb, batches, first_loss = phase_train(
             card, out_lines, args.out)
-        counts_bf16, _ = phase_train_bf16(card, out_lines, args.out, graph,
-                                          node_emb, batches, first_loss)
+        counts_bf16, bf16_record = phase_train_bf16(
+            card, out_lines, args.out, graph, node_emb, batches, first_loss)
         default_counts = phase_train_default(card, out_lines, graph,
                                              node_emb, batches)
+        t0 = time.perf_counter()
+        phase_remat(card, out_lines, graph, node_emb, batches)
+        phase_param_bf16(card, out_lines, graph, node_emb, batches,
+                         bf16_record)
+        phase_edges_8m(card, out_lines, graph, node_emb)
+        emit({"phase": "single_device_settings", "card": card,
+              "seconds": time.perf_counter() - t0}, out_lines)
         del node_emb, batches
         launches = {k: counts[k] for k in VARIANTS[False]}
         launches.update({k: counts_bf16[k] for k in VARIANTS[True]})

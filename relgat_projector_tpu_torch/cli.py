@@ -6,10 +6,13 @@ so the same command line trains the same run in either package; plus
 ``--device`` (default ``cuda``: without a card the CLI raises instead of
 running on the CPU). ``--use-pallas`` selects the hand-written Hopper
 kernels; ``--kernel-precision default`` their bf16 row streams and
-``--compute-dtype bfloat16`` bf16 projections. Flags this package cannot run
-yet (more than one device or process, a scanned propagate or epoch, remat)
-raise ``NotImplementedError`` naming the field, as does a ``--config`` file
-that asks for bf16 parameters or another compute dtype. Console entry point:
+``--compute-dtype bfloat16`` bf16 projections; ``--remat``, ``--scan-segments``
+and ``--steps-per-call`` run as in the JAX package (``config.py``). Flags
+this package cannot run yet (more than one device or process) raise
+``NotImplementedError`` naming the field, as does a ``--config`` file that
+asks for a parameter or compute dtype other than float32 and bfloat16. As
+in the JAX package, no flag sets ``param_dtype``: bf16 parameters are a
+``ModelConfig`` field of the Python API. Console entry point:
 ``relgat-projector-train-torch``; also ``python -m
 relgat_projector_tpu_torch.cli``.
 """
@@ -223,15 +226,17 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--chunk-edges", dest="chunk_edges", type=int, default=0,
                    help="the TPU's blocked layout (TE); ignored here")
     p.add_argument("--remat", action="store_true",
-                   help="recompute each GAT layer in the backward (not "
-                        "ported yet)")
+                   help="recompute each GAT layer in the backward "
+                        "instead of keeping its activations")
     p.add_argument("--scan-segments", dest="scan_segments", type=int,
                    default=0,
-                   help=">1: scan the kernels over that many edge segments "
-                        "(not ported yet)")
+                   help=">1 with --use-pallas: the JAX package's scanned "
+                        "propagate; the kernels here keep no per-edge "
+                        "tensor and run unsegmented")
     p.add_argument("--steps-per-call", dest="steps_per_call", type=int,
                    default=1,
-                   help="train steps per dispatch; >1 is not ported yet")
+                   help="train steps per call; logs and evals fire in "
+                        "windows of this many steps")
 
     # Multi-chip / multi-host (no reference counterpart; values above 1 are
     # not ported yet)

@@ -11,12 +11,22 @@ In this package:
 - ``kernel_precision="default"`` runs the kernels' bf16 row streams and
   ``compute_dtype="bfloat16"`` the projections on bf16 operands, both with
   fp32 arithmetic and results, as in the JAX package;
-- mesh, scan, halo and partition fields are accepted; a value this package
-  cannot run yet (scanned propagate, remat, bf16 parameter storage, a
-  compute dtype other than float32 and bfloat16, more than one device, more
-  than one step per call) raises ``NotImplementedError`` naming the field,
-  so a ``training-config.json`` from the JAX package that asks for one
-  fails when it is loaded.
+- ``param_dtype`` ("float32" or "bfloat16") is the storage type of every
+  parameter and of the Adam moments;
+- ``remat`` recomputes each GAT layer in the backward
+  (``torch.utils.checkpoint``);
+- ``scan_segments > 1`` is accepted with ``use_pallas`` and runs the
+  unsegmented kernels: the JAX package scans segments to bound the E-sized
+  gather streams a TPU keeps live, and the kernels here gather inside the
+  kernel and keep no E-sized float tensor (``ops/propagate.py``); without
+  ``use_pallas`` it is ignored, as in the JAX package;
+- ``steps_per_call > 1`` runs that many steps a call
+  (``train/step.py:make_scan_train_step``);
+- mesh, halo and partition fields are accepted; a value this package cannot
+  run yet (a compute or parameter dtype other than float32 and bfloat16,
+  more than one device) raises ``NotImplementedError`` naming the field, so
+  a ``training-config.json`` from the JAX package that asks for one fails
+  when it is loaded.
 """
 
 from __future__ import annotations
@@ -58,6 +68,10 @@ class Defaults:
     TRAINING_CONFIG_REL_TO_IDX = "relations-map.json"
     TRAIN_STATE_DIR_NAME = "train-state"
     MODEL_CONFIG_FILE_NAME = "config.json"
+
+
+# The storage and compute types this package runs.
+FLOAT_DTYPES = ("float32", "bfloat16")
 
 
 # Architecture presets, the JAX package's (the reference left them as
@@ -114,16 +128,13 @@ class ModelConfig:
             raise ValueError(
                 f"Unknown kernel_precision: {self.kernel_precision}"
             )
-        unported = {
-            "scan_segments > 1 (scanned propagate)": self.scan_segments > 1,
-            "remat": self.remat,
-            "param_dtype other than float32": self.param_dtype != "float32",
-            f"compute_dtype={self.compute_dtype!r} (float32 or bfloat16)":
-                self.compute_dtype not in ("float32", "bfloat16"),
-        }
-        for what, hit in unported.items():
-            if hit:
-                raise NotImplementedError(f"{what} is not ported yet")
+        for name in ("param_dtype", "compute_dtype"):
+            value = getattr(self, name)
+            if value not in FLOAT_DTYPES:
+                raise NotImplementedError(
+                    f"{name}={value!r} is not ported yet: float32 or "
+                    "bfloat16"
+                )
 
     @property
     def gat_concat_dim(self) -> int:
@@ -195,10 +206,6 @@ class TrainConfig:
                 raise ValueError(
                     "save_every_n_steps must be divisible by eval_every_n_steps"
                 )
-        if self.steps_per_call > 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 (scanned train step) is not ported yet"
-            )
 
     def to_dict(self) -> Dict[str, Any]:
         d = dataclasses.asdict(self)

@@ -12,10 +12,13 @@ same splits, graph and batches for the same inputs:
   epoch order drawn from ``default_rng(seed + 1)``.
 
 The CSR layout needs no tuning, so the JAX package's layout tuner and its
-``block_nodes``/``chunk_edges`` have no counterpart here. Graph shards,
-halo shards and scanned segments are not ported and raise; node
-partitioning only acts with halo shards, so without them it does nothing,
-as in the JAX package.
+``block_nodes``/``chunk_edges`` have no counterpart here. ``scan_segments``
+is accepted and changes nothing: the JAX package builds segment stacks for
+its scanned propagate, which bounds the E-sized gather streams a TPU keeps
+live, and the kernels here gather rows inside the kernel and keep no
+E-sized float tensor, so the one CSR layout serves. Graph shards and
+halo shards are not ported and raise; node partitioning only acts with
+halo shards, so without them it does nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -62,7 +65,6 @@ class RelGATData:
         unported = {
             "graph_shards > 1": graph_shards > 1,
             "halo_shards > 1": halo_shards > 1,
-            "scan_segments > 1": scan_segments > 1,
         }
         for what, hit in unported.items():
             if hit:

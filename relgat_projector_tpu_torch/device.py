@@ -88,9 +88,12 @@ def compute_matmul(
     bf16, as the JAX package's ``preferred_element_type=float32`` product:
     on the card one tensor-core product summed in fp32
     (``set_matmul_precision``), on the CPU the product of the widened
-    operands. Leading dimensions of ``x`` are flattened for the product."""
+    operands. Leading dimensions of ``x`` are flattened for the product.
+    Operands of another type (bf16 parameters under an fp32
+    ``compute_dtype``) are cast to ``compute_dtype`` first, as JAX's
+    ``astype(compute_dtype)``."""
     if compute_dtype == torch.float32:
-        return x @ w
+        return x.float() @ w.float()
     lead = x.shape[:-1]
     y = _Bf16MatMul.apply(x.reshape(-1, x.shape[-1]), w)
     return y.view(*lead, w.shape[-1])

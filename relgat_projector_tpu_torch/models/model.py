@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from relgat_projector_tpu_torch.config import Defaults, ModelConfig
 from relgat_projector_tpu_torch.data.graph import GraphData
@@ -37,6 +38,7 @@ from relgat_projector_tpu_torch.device import (
 from relgat_projector_tpu_torch.models import scorer as scorer_mod
 from relgat_projector_tpu_torch.models.layer import (
     apply_relgat_layer,
+    draw_layer_randomness,
     init_relgat_layer,
 )
 from relgat_projector_tpu_torch.models.projection import (
@@ -52,9 +54,11 @@ Params = Dict[str, Any]
 def init_model(
     cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = "cuda"
 ) -> Params:
-    """Random parameters drawn on the host from ``seed``, then moved to
-    ``device`` (the same numbers on every device)."""
+    """Random parameters drawn on the host from ``seed``, stored as
+    ``cfg.param_dtype`` and moved to ``device`` (the same numbers on every
+    device)."""
     dev = resolve_device(device)
+    dtype = getattr(torch, cfg.param_dtype)
     gen = torch.Generator().manual_seed(int(seed))
     layers = []
     in_dim = cfg.in_dim
@@ -75,7 +79,7 @@ def init_model(
             hidden_dim=cfg.projection_hidden_dim,
         )
     params["scorer"] = scorer_mod.init_scorer(gen, cfg.num_rel, cfg.scorer_dim)
-    return tree_map(lambda t: t.to(dev), params)
+    return tree_map(lambda t: t.to(dev, dtype), params)
 
 
 def single_gat_step(
@@ -87,23 +91,45 @@ def single_gat_step(
     train: bool = False,
     rng: Optional[RngStreams] = None,
 ) -> torch.Tensor:
-    """Representations of ALL nodes ``[N_pad, scorer_dim]``."""
+    """Representations of ALL nodes ``[N_pad, scorer_dim]``. With
+    ``cfg.remat`` each GAT layer runs under ``torch.utils.checkpoint`` (JAX:
+    ``jax.checkpoint``): its activations are not kept for the backward,
+    which runs the layer again. Its random draws are made before it and
+    passed in, so the second run draws nothing."""
     if node_emb.is_cuda:
         set_matmul_precision()
     compute_dtype = getattr(torch, cfg.compute_dtype)
     num_layers = cfg.gat_num_layers
-    x = node_emb
-    for li in range(num_layers):
-        x = apply_relgat_layer(
-            params["layers"][li], x, graph,
+    width = cfg.gat_concat_dim
+
+    def layer_fn(layer_params, x_in, seed, keep):
+        return apply_relgat_layer(
+            layer_params, x_in, graph,
             dropout_rate=cfg.dropout,
             attn_dropout_rate=cfg.rel_attn_dropout,
-            train=train,
-            rng=rng,
+            dropout_seed=seed,
+            keep=keep,
             use_pallas=cfg.use_pallas,
             compute_dtype=compute_dtype,
             kernel_precision=cfg.kernel_precision,
         )
+
+    x = node_emb
+    for li in range(num_layers):
+        seed, keep = draw_layer_randomness(
+            rng, (x.shape[0], width), dropout_rate=cfg.dropout,
+            attn_dropout_rate=cfg.rel_attn_dropout, train=train,
+            device=x.device,
+        )
+        if cfg.remat and torch.is_grad_enabled():
+            # preserve_rng_state would save and restore the default
+            # generators, which the layer does not draw from.
+            x = checkpoint(
+                layer_fn, params["layers"][li], x, seed, keep,
+                use_reentrant=False, preserve_rng_state=False,
+            )
+        else:
+            x = layer_fn(params["layers"][li], x, seed, keep)
         if li < num_layers - 1:
             x = F.elu(x)
     if cfg.project_to_input_size:

@@ -97,9 +97,14 @@ def relgat_propagate_kernels(
 ) -> torch.Tensor:
     """Counterpart of ``relgat_propagate_pallas``: no ``rel_bias`` adds a
     zero bias that takes no gradient; ``kernel_precision="default"`` runs
-    the bf16 variants ("highest" and "high" the fp32 kernels)."""
-    if rel_bias is None:
-        rel_bias = attn.new_zeros((attn.shape[1],))
+    the bf16 variants ("highest" and "high" the fp32 kernels). The kernels
+    take fp32 ``attn`` and ``rel_bias``; parameters stored in bf16 are
+    widened here, and autograd casts their gradients back to bf16 (JAX's
+    Pallas route leaves ``rel_bias``'s gradient fp32, ``ROADMAP.md``
+    Queue 3)."""
+    attn = attn.float()
+    rel_bias = (attn.new_zeros((attn.shape[1],)) if rel_bias is None
+                else rel_bias.float())
     rate = float(attn_dropout_rate) if dropout_seed is not None else 0.0
     return RelGATPropagate.apply(
         h, attn, rel_bias, csr, dropout_seed, rate, float(negative_slope),

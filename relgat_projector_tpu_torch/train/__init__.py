@@ -14,6 +14,7 @@ from relgat_projector_tpu_torch.train.state import (  # noqa: F401
 from relgat_projector_tpu_torch.train.step import (  # noqa: F401
     batch_forward,
     make_eval_step,
+    make_scan_train_step,
     make_train_step,
     score_batch,
 )

@@ -7,7 +7,8 @@ directory holds the model (``save_pretrained``: ``config.json`` and
 and the full train state in ``train-state.pt``:
 
 - params, Adam ``mu``/``nu``/``count``, ``step`` and ``nonfinite_steps``,
-  as CPU tensors;
+  as CPU tensors of their own types (bf16 parameters and moments come back
+  bf16, bit for bit);
 - both generators of the state's ``RngStreams`` and the device type they
   came from (``utils/rng.py``), so a resumed run draws the same dropout
   masks and negatives as the uninterrupted one.
@@ -112,7 +113,7 @@ def load_train_state(path: str, template: TrainState) -> TrainState:
         if os.path.isfile(jax_state):
             raise NotImplementedError(
                 f"{jax_state} is the JAX package's train state; reading it "
-                "is not ported yet (ROADMAP.md Queue 1 item 4)"
+                "is not ported yet (ROADMAP.md Queue 1 item 2)"
             )
         raise FileNotFoundError(f"train state not found: {path}")
     saved = torch.load(path, map_location="cpu", weights_only=True)

@@ -11,6 +11,13 @@ function on tensors, in the same order and with the same formulas:
    incremented count;
 4. ``-lr(count)`` times the update, ``count`` counting applied updates.
 
+Every leaf's moments live in its parameter's type and the arithmetic runs
+in that type with Python-float constants, as optax 0.2.6's
+``scale_by_adam`` and ``apply_updates`` do: bf16 parameters (``param_dtype
+="bfloat16"``) take bf16 moments; the bias corrections and the learning
+rate are fp32 scalars cast to the leaf's type, and ``p + u`` is cast back
+to ``p``'s type.
+
 ``torch.optim.Adam`` is not used: its step count advances on every call,
 while a skipped non-finite step here must leave the count (and with it the
 bias correction and the schedule) where it was.
@@ -69,16 +76,23 @@ class Optimizer:
         count = state.count + 1
         c = count.to(torch.float32)
         # A Python base, not a tensor made on the device: copying a host
-        # value to the card would wait for the stream every step.
+        # value to the card would wait for the stream every step. The
+        # corrections are fp32 and cast to each moment's type, as optax's
+        # ``tree_bias_correction``.
         bc1 = 1 - torch.pow(_B1, c)
         bc2 = 1 - torch.pow(_B2, c)
         upd = tree_map(
-            lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + _EPS), mu, nu
+            lambda m, v: (m / bc1.to(m.dtype))
+            / (torch.sqrt(v / bc2.to(v.dtype)) + _EPS),
+            mu, nu,
         )
         if self.kind == "adamw" and wd:
             upd = tree_map(lambda u, p: u + wd * p, upd, params)
         step_size = -self.lr_schedule(state.count)
-        new_params = tree_map(lambda p, u: p + step_size * u, params, upd)
+        new_params = tree_map(
+            lambda p, u: (p + step_size.to(u.dtype) * u).to(p.dtype),
+            params, upd,
+        )
         return new_params, AdamState(mu=mu, nu=nu, count=count)
 
 

@@ -210,6 +210,54 @@ def make_train_step(
     return train_step
 
 
+def make_scan_train_step(
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    optimizer: Optimizer,
+    lr_schedule: Callable,
+    unroll_steps: int,
+) -> Callable:
+    """Counterpart of ``make_scan_train_step``: ``scan_step(state, node_emb,
+    graph, src_s, rel_s, dst_s, weight_s, neg_dst_s=None, pad=0) -> (state,
+    metrics)`` runs ``unroll_steps`` train steps back to back on stacked
+    ``[S, B]`` batches (and ``[S, B, K]`` injected negatives) and returns
+    each metric stacked ``[S]``, on the device. Nothing in it waits for the
+    host, so the steps queue on the card as one call's would.
+
+    A zero-weight batch changes no parameter, moment or count. The last
+    ``pad`` steps are such batches (an epoch's tail padding, which the host
+    knows), and they also leave the generators where they found them: in
+    JAX a step's random keys derive from its step count, so a step that
+    does not count draws nothing the next step would not draw again."""
+    step = make_train_step(model_cfg, train_cfg, optimizer, lr_schedule)
+
+    def scan_step(
+        state: TrainState, node_emb, graph: GraphData, src_s, rel_s, dst_s,
+        weight_s, neg_dst_s: Optional[torch.Tensor] = None, pad: int = 0,
+    ):
+        if src_s.shape[0] != unroll_steps:
+            raise ValueError(
+                f"scan_step runs {unroll_steps} steps a call, got "
+                f"{src_s.shape[0]} batches"
+            )
+        per_step = []
+        for i in range(unroll_steps):
+            drawn = state.rng.get_state() if i >= unroll_steps - pad else None
+            state, metrics = step(
+                state, node_emb, graph, src_s[i], rel_s[i], dst_s[i],
+                weight_s[i],
+                neg_dst=None if neg_dst_s is None else neg_dst_s[i],
+            )
+            if drawn is not None:
+                state.rng.set_state(drawn)
+            per_step.append(metrics)
+        return state, {
+            k: torch.stack([m[k] for m in per_step]) for k in per_step[0]
+        }
+
+    return scan_step
+
+
 def make_eval_step(
     model_cfg: ModelConfig, train_cfg: TrainConfig
 ) -> Tuple[Callable, Callable]:

@@ -18,10 +18,18 @@ So no step waits for the card outside the log, eval and save cadence.
 Evaluation draws its negatives from a generator of its own, seeded from
 ``(seed, global_step)`` (``utils/seeding.py``), never from the train
 streams: an evaluation leaves the next train step unchanged, and resume
-stays exact. The JAX package's multi-process, mesh and scanned-epoch
-branches are not ported: their config values raise ``NotImplementedError``
-when the config is built, and so does a process group of more than one
-process here.
+stays exact.
+
+``steps_per_call > 1`` runs the JAX package's scanned epoch: the epoch's
+batches go in groups of that many (the tail padded with zero-weight copies
+of the last batch, which change nothing), each group up in one copy and
+through ``make_scan_train_step``; logs and evals fire in windows of the
+dispatch counter, a log reporting the means over the finite steps of the
+call that crossed its boundary. Both dispatch modes write the same
+checkpoints, so either resumes the other's. The JAX package's
+multi-process and mesh branches are not ported: their config values raise
+``NotImplementedError`` when the config is built, and so does a process
+group of more than one process here.
 """
 
 from __future__ import annotations
@@ -47,7 +55,11 @@ from relgat_projector_tpu_torch.train.state import (
     create_train_state,
     make_optimizer,
 )
-from relgat_projector_tpu_torch.train.step import make_eval_step, make_train_step
+from relgat_projector_tpu_torch.train.step import (
+    make_eval_step,
+    make_scan_train_step,
+    make_train_step,
+)
 from relgat_projector_tpu_torch.utils.logging_adapter import LoggerAdapter
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 from relgat_projector_tpu_torch.utils.seeding import RandomSeed
@@ -141,9 +153,16 @@ class RelGATTrainer:
         self.node_emb = torch.from_numpy(self.dataset.node_emb).to(self.device)
         self.graph = self.dataset.graph
 
+        self.steps_per_call = max(1, int(tc.steps_per_call))
         self._train_step = make_train_step(
             self.model_cfg, tc, self.optimizer, self.lr_schedule
         )
+        self._scan_step = None
+        if self.steps_per_call > 1:
+            self._scan_step = make_scan_train_step(
+                self.model_cfg, tc, self.optimizer, self.lr_schedule,
+                self.steps_per_call,
+            )
         self._eval_repr, self._eval_step = make_eval_step(self.model_cfg, tc)
 
         # Loop bookkeeping. Two counters:
@@ -181,11 +200,17 @@ class RelGATTrainer:
     def _device_batch(self, batch: Batch):
         """``(src, rel, dst, weight)`` on the device: the int32 host ids as
         int64, in one copy from pinned memory that does not wait for the
-        stream."""
-        ids = torch.from_numpy(
-            np.stack([batch.src, batch.rel, batch.dst]).astype(np.int64)
-        )
-        weight = torch.from_numpy(np.asarray(batch.weight, np.float32))
+        stream. Given a list of batches, each comes stacked ``[S, B]``."""
+        group = batch if isinstance(batch, list) else None
+        if group is None:
+            ids = np.stack([batch.src, batch.rel, batch.dst])
+            weight = np.asarray(batch.weight, np.float32)
+        else:
+            ids = np.stack([np.stack([b.src, b.rel, b.dst], axis=0)
+                            for b in group], axis=1)
+            weight = np.stack([b.weight for b in group]).astype(np.float32)
+        ids = torch.from_numpy(ids.astype(np.int64))
+        weight = torch.from_numpy(weight)
         if self.device.type == "cuda":
             ids, weight = ids.pin_memory(), weight.pin_memory()
         ids = ids.to(self.device, non_blocking=True)
@@ -316,6 +341,8 @@ class RelGATTrainer:
         return out_model_dir
 
     def _single_epoch(self, epoch: int, epochs: int):
+        if self._scan_step is not None:
+            return self._single_epoch_scanned(epoch, epochs)
         bs = self.train_cfg.train_batch_size
         # Deferred metrics: device scalars fetched only at log time.
         pending: List[Tuple[int, Any, float, float]] = []
@@ -353,6 +380,97 @@ class RelGATTrainer:
 
         # Unflushed tail steps simply roll off unlogged (same as the
         # reference, which only logs at the cadence boundary).
+
+    def _single_epoch_scanned(self, epoch: int, epochs: int):
+        """The epoch in calls of ``steps_per_call`` steps (JAX
+        ``_single_epoch_scanned``); metrics arrive stacked ``[S]`` and are
+        fetched only at a log window."""
+        bs = self.train_cfg.train_batch_size
+        s = self.steps_per_call
+        batches = list(self.dataset.train_batches(bs))
+        real = len(batches)
+        # Pad the tail with zero-weight batches, full no-ops of the step, so
+        # a scanned epoch ends where a per-step epoch does.
+        while len(batches) % s != 0:
+            last = batches[-1]
+            batches.append(Batch(src=last.src, rel=last.rel, dst=last.dst,
+                                 weight=np.zeros_like(last.weight)))
+
+        last_log_time = time.time()
+        last_log_step = self.dispatch_step
+        for lo in range(0, len(batches), s):
+            self.state, metrics = self._scan_step(
+                self.state, self.node_emb, self.graph,
+                *self._device_batch(batches[lo:lo + s]),
+                pad=max(0, lo + s - real),
+            )
+            self.dispatch_step += s
+
+            if self.dispatch_step % self.log_adapter.log_every_n_steps < s:
+                keys = list(metrics)
+                m = dict(zip(keys, torch.stack(
+                    [metrics[k].to(torch.float64) for k in keys]
+                ).cpu().numpy()))
+                now = time.time()
+                window = now - last_log_time
+                steps_in_window = max(1, self.dispatch_step - last_log_step)
+                last_log_time = now
+                last_log_step = self.dispatch_step
+                finite = m["finite"] > 0
+
+                def wmean(key):
+                    # The mean over the call's finite steps: a skipped or
+                    # zero-weight step carries no meaningful point values.
+                    return float(m[key][finite].mean()) if finite.any() else 0.0
+
+                log = {
+                    "epoch": epoch,
+                    "train/loss_step": wmean("loss"),
+                    "train/grad_norm": wmean("grad_norm"),
+                    "train/lr": float(m["lr"][-1]),
+                    "train/step_time": window / steps_in_window,
+                    "train/edges_per_sec": (
+                        self.graph.num_real_edges
+                        * self.model_cfg.gat_num_layers
+                        * steps_in_window / window
+                        if window > 0 else 0.0
+                    ),
+                    "train/mrr": wmean("mrr"),
+                    "train/pos_score_mean": wmean("pos_score_mean"),
+                    "train/neg_score_mean": wmean("neg_score_mean"),
+                }
+                if "cosine_pos" in m:
+                    log["train/cosine_pos"] = wmean("cosine_pos")
+                    log["train/cosine_neg"] = wmean("cosine_neg")
+                    log["train/mse"] = wmean("mse")
+                for k in self.eval_ks_ranks:
+                    if f"hits@{k}" in m:
+                        log[f"train/hits@{k}"] = wmean(f"hits@{k}")
+                nfs = int(m["nonfinite_scores"].sum())
+                if nfs:
+                    log["train/nonfinite_scores"] = nfs
+                nonfinite = int((~finite).sum())
+                if nonfinite:
+                    log["train/nonfinite_loss_steps"] = nonfinite
+                # Reconcile the finite-step counter (display only; the
+                # cadence stays on dispatch_step, so skips cannot drift it).
+                self.global_step = int(self.state.step)
+                print(
+                    f"\nGlobal step {self.global_step} "
+                    f"loss_step: {log['train/loss_step']:.8f} "
+                    f"lr: {log['train/lr']:.8f}"
+                )
+                self.log_adapter.log_metrics(metrics=log, step=self.global_step)
+
+            if (
+                self.eval_every_n_steps is not None
+                and self.dispatch_step % self.eval_every_n_steps < s
+            ):
+                # Reconcile first so eval logs and checkpoints carry it.
+                self.global_step = int(self.state.step)
+                if self._run_eval_and_maybe_early_stop(epoch=epoch):
+                    self.training_should_stop = True
+                    return
 
     def _flush_logs(
         self,
@@ -472,10 +590,15 @@ class RelGATTrainer:
             self._no_improve_steps = 0
             # Save gating on the DISPATCH counter (deterministic under
             # non-finite skips); checkpoint names carry the finite
-            # global_step (reference naming, ``trainer:728-729``).
+            # global_step (reference naming, ``trainer:728-729``). The gate
+            # is a window of steps_per_call, the eval cadence's window, so
+            # a scanned epoch, whose dispatch_step moves in strides, still
+            # saves every improved eval; at one step a call it is exact
+            # divisibility.
             if (
                 self.storage.save_every_n_steps is not None
-                and self.dispatch_step % self.storage.save_every_n_steps == 0
+                and self.dispatch_step % self.storage.save_every_n_steps
+                < self.steps_per_call
             ):
                 self.best_ckpt_dir = f"best_checkpoint_{self.global_step}"
                 self._save_checkpoint(subdir=self.best_ckpt_dir)

@@ -50,6 +50,11 @@ class RngStreams:
             "device_type": self.device.device.type,
         }
 
+    def set_state(self, state: Dict[str, Any]) -> None:
+        """Put both generators back to ``state`` (from ``get_state``)."""
+        self.host.set_state(state["host"])
+        self.device.set_state(state["device"])
+
     @classmethod
     def from_state(
         cls, state: Dict[str, Any], device: DeviceLike = "cuda"
@@ -60,8 +65,7 @@ class RngStreams:
                 f"a {state['device_type']} generator state cannot be loaded "
                 f"onto {dev.type}: the generators' states do not convert"
             )
-        host = torch.Generator()
-        host.set_state(state["host"])
-        on_device = torch.Generator(device=dev)
-        on_device.set_state(state["device"])
-        return cls(host=host, device=on_device)
+        streams = cls(host=torch.Generator(),
+                      device=torch.Generator(device=dev))
+        streams.set_state(state)
+        return streams

@@ -404,7 +404,7 @@ def test_config_takes_the_bf16_mode_and_round_trips():
     jax_run = json.loads(run.to_json())
     assert JaxModelConfig(**jax_run["model"]).to_dict() == cfg.to_dict()
     with pytest.raises(NotImplementedError, match="param_dtype"):
-        ModelConfig(in_dim=8, num_rel=3, param_dtype="bfloat16", **BF16_MODE)
+        ModelConfig(in_dim=8, num_rel=3, param_dtype="float16", **BF16_MODE)
 
 
 def test_cli_trains_saves_and_resumes_in_bf16(tmp_path):

@@ -117,7 +117,7 @@ def test_relgat_data_matches(use_csr):
 
 
 @pytest.mark.parametrize("kw", [dict(graph_shards=2), dict(halo_shards=2),
-                                dict(scan_segments=4)])
+                                dict(graph_shards=4, scan_segments=4)])
 def test_relgat_data_rejects_what_is_not_ported(kw):
     node2emb, rel2idx, triplets = generate_synthetic_kg(
         num_nodes=20, num_edges=50, num_rel=2, emb_dim=4, seed=0)

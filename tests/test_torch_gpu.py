@@ -25,6 +25,7 @@ from relgat_projector_tpu_torch.data.synthetic import generate_synthetic_kg
 from relgat_projector_tpu_torch.data.graph import build_graph
 from relgat_projector_tpu_torch.ops import cuda as kern
 from relgat_projector_tpu_torch.ops.propagate import relgat_propagate_kernels
+from relgat_projector_tpu_torch.utils.tree import tree_leaves
 
 pytestmark = pytest.mark.gpu
 REL_TOL = 1e-5
@@ -424,3 +425,108 @@ def test_trainer_runs_every_step_through_the_kernels(card, tmp_path):
     assert counts["relgat_fwd"] == layers * (steps + evals)
     assert counts["relgat_bwd_src"] == counts["relgat_bwd_rel"] == layers * steps
     assert int(trainer.state.step) + int(trainer.state.nonfinite_steps) == steps
+
+
+def _card_step(card, **model):
+    """A small model on ``card`` with dropout on (``model`` overrides the
+    config): (config, train config, train step, state, embeddings, graph,
+    batch, the graph's host arrays)."""
+    from relgat_projector_tpu_torch.models.model import init_model
+    from relgat_projector_tpu_torch.schedules import make_lr_schedule
+    from relgat_projector_tpu_torch.train.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from relgat_projector_tpu_torch.train.step import make_train_step
+
+    rng = np.random.default_rng(5)
+    n, e, r, d, b = 2_000, 20_000, 8, 64, 64
+    coo = (rng.integers(0, n, e), rng.integers(0, n, e), rng.integers(0, r, e))
+    g = build_graph(*coo, n, num_rel=r, csr=True, device=card)
+    cfg = ModelConfig(**{
+        "in_dim": d, "num_rel": r, "gat_out_dim": 32, "gat_heads": 4,
+        "gat_num_layers": 2, "dropout": 0.3, "rel_attn_dropout": 0.2,
+        "projection_layers": 2, "projection_dropout": 0.3,
+        "use_pallas": True, **model})
+    tc = TrainConfig(train_batch_size=b, num_neg=8, lr=1e-3,
+                     lr_scheduler="constant", warmup_steps=0)
+    sched = make_lr_schedule(tc.lr, "constant", 10, 0)
+    opt = make_optimizer(tc, sched)
+    state = create_train_state(init_model(cfg, seed=1, device=card), opt,
+                               seed=2)
+    x = torch.randn((g.num_nodes, d),
+                    generator=torch.Generator().manual_seed(3)).to(card)
+    batch = [torch.from_numpy(rng.integers(0, k, b)).to(card)
+             for k in (n, r, n)] + [torch.ones(b, device=card)]
+    step = make_train_step(cfg, tc, opt, sched)
+    return cfg, tc, step, state, x, g, batch, coo
+
+
+def _card_leaves(state):
+    return (tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
+            + tree_leaves(state.opt_state.nu))
+
+
+def test_remat_gives_the_same_bits_on_the_card(card):
+    """Two steps with dropout on, remat against none: the same bits and the
+    same generator states; relgat_fwd launches twice a layer a step under
+    remat (the recompute), the backward kernels once."""
+    ends = {}
+    for remat in (False, True):
+        _, _, step, state, x, g, batch, _ = _card_step(card, remat=remat)
+        kern.reset_launch_counts()
+        for _ in range(2):
+            state, _ = step(state, x, g, *batch)
+        torch.cuda.synchronize()
+        counts = kern.launch_counts()
+        assert counts["relgat_fwd"] == 2 * 2 * (2 if remat else 1)
+        assert counts["relgat_bwd_src"] == counts["relgat_bwd_rel"] == 4
+        ends[remat] = state
+    for a, b in zip(_card_leaves(ends[False]), _card_leaves(ends[True])):
+        assert torch.equal(a, b)
+    for name in ("host", "device"):
+        assert torch.equal(getattr(ends[False].rng, name).get_state(),
+                           getattr(ends[True].rng, name).get_state())
+
+
+def test_scan_segments_gives_the_same_bits_on_the_card(card):
+    ends = []
+    for segments in (0, 4):
+        _, _, step, state, x, g, batch, _ = _card_step(
+            card, scan_segments=segments)
+        for _ in range(2):
+            state, _ = step(state, x, g, *batch)
+        ends.append(state)
+    for a, b in zip(*map(_card_leaves, ends)):
+        assert torch.equal(a, b)
+
+
+def test_bf16_parameter_step_on_the_kernel_route(card):
+    """bf16 parameters in the bf16 mode: one step through the bf16 kernels
+    keeps every parameter and moment bf16, and its loss is within 1e-2 of
+    the same forward's through the plain route on a CPU copy."""
+    from relgat_projector_tpu_torch.models.model import single_gat_step
+    from relgat_projector_tpu_torch.train.step import score_batch
+    from relgat_projector_tpu_torch.utils.tree import tree_map
+
+    bf16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16",
+                kernel_precision="default", dropout=0.0,
+                rel_attn_dropout=0.0, projection_dropout=0.0)
+    cfg, tc, step, state, x, g, batch, coo = _card_step(card, **bf16)
+    neg = torch.randint(0, g.num_real_nodes, (64, 8),
+                        generator=torch.Generator().manual_seed(4))
+    host_params = tree_map(lambda t: t.cpu(), state.params)
+    kern.reset_launch_counts()
+    state, m = step(state, x, g, *batch, neg_dst=neg.to(card))
+    torch.cuda.synchronize()
+    assert kern.launch_counts()["relgat_fwd_bf16"] == 2
+    assert {t.dtype for t in _card_leaves(state)} == {torch.bfloat16}
+    g_cpu = build_graph(*coo, g.num_real_nodes, num_rel=cfg.num_rel,
+                        device="cpu")
+    cpu_cfg = dataclasses.replace(cfg, use_pallas=False)
+    with torch.no_grad():
+        xs = single_gat_step(host_params, cpu_cfg, x.cpu(), g_cpu)
+        loss, _ = score_batch(host_params, cpu_cfg, tc, xs,
+                              g_cpu.num_real_nodes,
+                              *(t.cpu() for t in batch), neg_dst=neg)
+    assert abs(float(m["loss"]) - float(loss)) <= 1e-2 * abs(float(loss))

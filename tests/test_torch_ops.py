@@ -168,8 +168,8 @@ def test_config_fields_and_json_match_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("param_dtype", "bfloat16"), ("scan_segments", 2), ("remat", True),
-    ("compute_dtype", "float16"),
+    ("param_dtype", "float16"), ("param_dtype", "float64"),
+    ("compute_dtype", "float16"), ("compute_dtype", "float64"),
 ])
 def test_config_rejects_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError):

@@ -142,9 +142,9 @@ def test_cli_config_layer_reads_a_jax_training_config(tmp_path):
 
 
 @pytest.mark.parametrize("model,mesh,field", [
-    (dict(scan_segments=4), {}, "scan_segments"),
+    (dict(param_dtype="float16"), {}, "param_dtype"),
     ({}, dict(graph_axis=4), "graph_axis=4"),
-    (dict(remat=True), {}, "remat"),
+    (dict(compute_dtype="float16"), {}, "compute_dtype"),
 ])
 def test_cli_config_layer_refuses_what_is_not_ported(tmp_path, model, mesh,
                                                      field):
@@ -157,10 +157,10 @@ def test_cli_config_layer_refuses_what_is_not_ported(tmp_path, model, mesh,
 
 
 @pytest.mark.parametrize("flags,field", [
-    (["--scan-segments", "2"], "scan_segments"),
-    (["--steps-per-call", "4"], "steps_per_call"),
+    (["--mesh-graph", "2"], "graph_axis=2"),
+    (["--mesh-model", "2"], "model_axis=2"),
     (["--mesh-data", "2"], "data_axis=2"),
-    ({"param_dtype": "bfloat16"}, "param_dtype"),
+    ({"param_dtype": "float16"}, "param_dtype"),
     ({"compute_dtype": "float16"}, "compute_dtype"),
     (["--distributed"], "--distributed"),
     (["--num-processes", "2"], "--num-processes"),
@@ -477,7 +477,7 @@ def test_resume_from_a_jax_checkpoint_is_refused(tmp_path):
     jax_dir = tmp_path / "relgat_scorer-distmult_lrscheduler-constant"
     jax_dir.mkdir()
     (jax_dir / "train-state.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         tr.maybe_resume(str(jax_dir))
     with pytest.raises(NotImplementedError, match="msgpack"):
         tr.maybe_resume()
