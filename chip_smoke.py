@@ -75,6 +75,17 @@ Phases, in order; any failure exits non-zero:
               the graph layout's reckoning + 10% and 64 bytes; step time,
               edge-messages/s and each kernel's time at 8M edges.
 5. export   - one forward-only get_node_repr at the same size.
+   serve    - the train phase's model and graph served: a reference round
+              trip (save_pretrained -> export_torch_checkpoint_dir ->
+              import_torch_checkpoint_dir -> load_from_pretrained, on the
+              card) and the bf16 mode loaded from its own directory, each
+              exported 3 times through the kernels: the same bits as
+              get_node_repr on the live parameters, relgat_fwd (or
+              relgat_fwd_bf16) once per layer per export and no other
+              kernel; then query_expansion for 128 queries, top-10 over the
+              100,000 rows: scores within 1e-5 of a float64 recomputation
+              on the same representations, ids equal wherever the float64
+              scores are not tied within 1e-6.
 6. kernels  - each kernel, fp32 and bf16 variant, held to its plain version
               and timed with CUDA events at the train phase's shapes and at
               the default widths (launches from train_default_width), the
@@ -108,8 +119,13 @@ Phases, in order; any failure exits non-zero:
               step; the bf16 variants in leg 3, the fp32 kernels in legs 1
               and 2), that leg 2 resumed from leg 1's final directory, a
               finite last loss, and both bf16 fields in leg 3's
-              training-config.json. Leg 4 is leg 1's argv with
-              --steps-per-call 8 (352 steps, 44 calls) in a fresh
+              training-config.json. Between legs 1 and 2 the export CLI
+              (export.main --device cuda) serves leg 1's final directory
+              over the same synthetic KG written as the reference's three
+              files: its repr.npy equals get_node_repr on that directory's
+              train-state parameters bit for bit, relgat_fwd runs once per
+              layer and no other kernel, and it prints 10 hits. Leg 4 is
+              leg 1's argv with --steps-per-call 8 (352 steps, 44 calls) in a fresh
               directory: its final parameters equal leg 1's (bit for bit
               expected, 1e-6 at most), it logs and evaluates only at the
               windows of 100 dispatched steps, and logs
@@ -124,8 +140,9 @@ Phases, in order; any failure exits non-zero:
 
 The last lines are the kernels JSON line, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}; a "single_device_settings" line gives the
-seconds the remat, param_bf16 and edges_8m phases took. The profiles go
-through the package's utils.profiling.trace. The timing runs --kernels-only
+seconds the remat, param_bf16 and edges_8m phases took, and a "serve" line
+(after phase 8) the serve phase's and the export CLI's times and launches.
+The profiles go through the package's utils.profiling.trace. The timing runs --kernels-only
 (phase 6 alone, launches null) and --zipf-only (phase 7 alone) end with
 {"timing_only": true, "device": {...}} instead. With --out DIR the result
 lines, profiler traces of two train steps (a directory each) and the
@@ -141,6 +158,7 @@ import dataclasses
 import io
 import itertools
 import json
+import pickle
 import re
 import subprocess
 import sys
@@ -152,13 +170,30 @@ import numpy as np
 import torch
 
 from relgat_projector_tpu_torch import cli
+from relgat_projector_tpu_torch import export as export_cli
 from relgat_projector_tpu_torch.config import ModelConfig, TrainConfig
+from relgat_projector_tpu_torch.data.dataset import RelGATData
 from relgat_projector_tpu_torch.data.graph import (
     build_graph,
     pad_node_embeddings,
 )
 from relgat_projector_tpu_torch.data.synthetic import generate_synthetic_kg
-from relgat_projector_tpu_torch.models.model import get_node_repr, init_model
+from relgat_projector_tpu_torch.inference import (
+    export_node_representations,
+    query_expansion,
+)
+from relgat_projector_tpu_torch.interop import (
+    export_torch_checkpoint_dir,
+    import_torch_checkpoint_dir,
+)
+from relgat_projector_tpu_torch.models.model import (
+    get_node_repr,
+    init_model,
+    load_from_pretrained,
+    save_pretrained,
+    transform_from_vectors,
+)
+from relgat_projector_tpu_torch.models.scorer import l2_normalize
 from relgat_projector_tpu_torch.ops import cuda as kern
 from relgat_projector_tpu_torch.ops import propagate
 from relgat_projector_tpu_torch.ops.cuda.build import build_all
@@ -178,7 +213,7 @@ from relgat_projector_tpu_torch.train.step import (
 from relgat_projector_tpu_torch.train.trainer import RelGATTrainer
 from relgat_projector_tpu_torch.utils.profiling import trace
 from relgat_projector_tpu_torch.utils.rng import RngStreams
-from relgat_projector_tpu_torch.utils.tree import tree_leaves
+from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # H100 SXM: HBM rate and fp32 rate outside the tensor cores (NVIDIA's data
 # sheet, at the 700 W limit).
@@ -216,6 +251,12 @@ REMAT = dict(steps=3, warmup_steps=1, rel_attn_dropout=0.2)
 EDGES_8M = dict(num_edges=8_000_000, scan_segments=4, warmup_steps=1,
                 timed_steps=2, margin=1.10, max_bytes_per_edge=64)
 PARAM_BF16 = dict(steps=4, warmup_steps=1, param_dtype="bfloat16")
+# Serving TRAIN's model: exports timed (and counted) per variant, and a
+# batch of queries held to a float64 recomputation: scores within
+# score_tol, ids equal wherever the float64 scores are not tied within
+# tie_tol (an fp32 cosine over 1152 features is off by ~1e-7).
+SERVE = dict(exports=3, queries=128, top_k=10, query_reps=5, score_tol=1e-5,
+             tie_tol=1e-6)
 # Same-bits limit where bits may differ: parameters after the same steps
 # taken another way (remat, several steps a call).
 SAME_TOL = 1e-6
@@ -822,7 +863,121 @@ def phase_train(card, out_lines, out_dir):
     check(after["relgat_bwd_src"] == before["relgat_bwd_src"]
           and after["relgat_bwd_rel"] == before["relgat_bwd_rel"],
           "export ran a backward kernel")
-    return counts, graph, step_s * 1e3, node_emb, batches, first_loss
+    return (counts, graph, step_s * 1e3, node_emb, batches, first_loss,
+            state.params, mcfg)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: serving the production model
+# ---------------------------------------------------------------------------
+
+def timed_exports(params, cfg, node_emb, graph):
+    """``SERVE["exports"]`` calls of ``export_node_representations``:
+    (the last result, ms per call, the calls' launch counts)."""
+    n = SERVE["exports"]
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        rep = export_node_representations(params, cfg, node_emb, graph)
+    torch.cuda.synchronize()
+    return rep, (time.perf_counter() - t0) / n * 1e3, kern.launch_counts()
+
+
+def check_serve_launches(counts, calls, layers, bf16, what):
+    """The variant's forward kernel ``calls x layers`` times, no other."""
+    fwd = VARIANTS[bf16][0]
+    for name, c in counts.items():
+        want = calls * layers if name == fwd else 0
+        check(c == want, f"{what}: {name} launched {c} times, expected "
+                         f"{want}")
+
+
+def check_queries(params, cfg, rep, ids, scores, qidx, rel):
+    """The top-k against a float64 recomputation on the same fp32
+    representations: (max score error, positions compared, tied ones)."""
+    s = SERVE
+    params64 = tree_map(lambda t: t.double(), params)
+    rep64 = rep.double()
+    tq = transform_from_vectors(params64, cfg, rep64[qidx],
+                                torch.tensor([rel], device=DEVICE))
+    sims = l2_normalize(tq) @ l2_normalize(rep64).T
+    top, top_ids = torch.topk(sims, s["top_k"] + 1)
+    gaps = top[:, :-1] - top[:, 1:]                 # to the next rank
+    before = torch.cat([torch.full_like(gaps[:, :1], float("inf")),
+                        gaps[:, :-1]], dim=1)       # to the rank above
+    untied = torch.minimum(gaps, before) > s["tie_tol"]
+    score_err = float((scores.double() - top[:, :-1]).abs().max())
+    same = bool((ids == top_ids[:, :-1])[untied].all())
+    check(score_err <= s["score_tol"],
+          f"query scores {score_err} from float64, past {s['score_tol']}")
+    check(same, "query ids differ from float64 where scores are not tied")
+    return score_err, int(untied.sum()), int((~untied).sum())
+
+
+def phase_serve(card, params, mcfg, graph, node_emb):
+    """Serve phase train's model at TRAIN's size: a reference round trip
+    (``save_pretrained`` -> ``export_torch_checkpoint_dir`` ->
+    ``import_torch_checkpoint_dir`` -> ``load_from_pretrained``) and the
+    bf16 mode from its own directory, each exported through the kernels
+    with the same bits as ``get_node_repr`` on the live parameters; then a
+    batch of queries. Returns the serve line's numbers."""
+    s, layers = SERVE, mcfg.gat_num_layers
+    bf16_cfg = dataclasses.replace(mcfg, **BF16_MODE)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        work = Path(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pretrained(str(work / "port"), params, mcfg)
+        export_torch_checkpoint_dir(str(work / "port"), str(work / "ref"),
+                                    device=DEVICE)
+        import_torch_checkpoint_dir(str(work / "ref"), str(work / "back"),
+                                    device=DEVICE)
+        loaded, cfg = load_from_pretrained(str(work / "back"),
+                                           node_emb=node_emb, device=DEVICE)
+        torch.cuda.synchronize()
+        round_trip_s = time.perf_counter() - t0
+        save_pretrained(str(work / "bf16"), params, bf16_cfg)
+        loaded16, cfg16 = load_from_pretrained(str(work / "bf16"),
+                                               node_emb=node_emb,
+                                               device=DEVICE)
+    check(cfg16 == bf16_cfg, f"the bf16 directory loads as {cfg16}")
+    want = get_node_repr(params, mcfg, node_emb, graph)
+    rep, export_ms, counts = timed_exports(
+        loaded, dataclasses.replace(cfg, use_pallas=True), node_emb, graph)
+    check_serve_launches(counts, s["exports"], layers, False, "serve fp32")
+    check(torch.equal(rep, want),
+          "the round trip's representations differ from the live model's: "
+          f"max {abs_err(rep, want)}")
+    want16 = get_node_repr(params, bf16_cfg, node_emb, graph)
+    rep16, export16_ms, counts16 = timed_exports(loaded16, cfg16, node_emb,
+                                                 graph)
+    check_serve_launches(counts16, s["exports"], layers, True, "serve bf16")
+    check(torch.equal(rep16, want16),
+          "the bf16 directory's representations differ from the live "
+          f"model's: max {abs_err(rep16, want16)}")
+    del want, want16, rep16
+
+    rng = np.random.default_rng(SEED + 5)
+    qidx = torch.from_numpy(rng.integers(0, rep.shape[0], s["queries"])
+                            ).to(DEVICE)
+    rel = int(rng.integers(0, mcfg.num_rel))
+
+    def query():
+        return query_expansion(loaded, cfg, rep, rep[qidx], rel_id=rel,
+                               top_k=s["top_k"])
+
+    query_ms = cuda_ms(query, s["query_reps"])
+    ids, scores = query()
+    score_err, compared, tied = check_queries(loaded, cfg, rep, ids, scores,
+                                              qidx, rel)
+    return {"nodes": rep.shape[0], "edges": graph.num_real_edges,
+            "export_ms": export_ms, "export_bf16_ms": export16_ms,
+            "export_launches": {"fp32": counts, "bf16": counts16},
+            "exports_timed": s["exports"], "queries": s["queries"],
+            "top_k": s["top_k"], "query_ms": query_ms,
+            "query_max_score_err": score_err, "query_ids_compared": compared,
+            "query_ids_tied": tied, "round_trip_s": round_trip_s}
 
 
 def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
@@ -1680,6 +1835,64 @@ def resume_and_overhead(argv, work, steps, bs, card, out_lines, out_dir):
     return identical, trainer_step_ms, bare_step_ms, stats
 
 
+def serve_cli_leg(work, ckpt, out_dir):
+    """The export CLI on the card on ``ckpt`` (trainer leg 1's final
+    directory), over TRAINER's synthetic KG written as the reference's three
+    files: its ``repr.npy`` must equal ``get_node_repr`` on the parameters
+    of the directory's train state, bit for bit, through one forward launch
+    a layer, and it prints ``top_k`` hits. Returns (the CLI's seconds, its
+    launches, the whole leg's seconds, files included)."""
+    c, s = TRAINER, SERVE
+    t_leg = time.perf_counter()
+    node2emb, rel2idx, triplets = generate_synthetic_kg(
+        num_nodes=c["nodes"], num_edges=c["triplets"], num_rel=c["num_rel"],
+        emb_dim=c["in_dim"], seed=SEED, nn_pool=c["nn_pool"])
+    files = {name: work / name for name in
+             ("nodes.pkl", "relations.json", "triplets.json", "repr.npy")}
+    with open(files["nodes.pkl"], "wb") as f:
+        pickle.dump(node2emb, f)
+    files["relations.json"].write_text(json.dumps(rel2idx))
+    files["triplets.json"].write_text(json.dumps([list(t) for t in triplets]))
+    query_node, _, query_rel = triplets[0]
+    argv = ["--checkpoint", str(ckpt),
+            "--nodes-embeddings-path", str(files["nodes.pkl"]),
+            "--relations-mapping", str(files["relations.json"]),
+            "--relations-triplets", str(files["triplets.json"]),
+            "--out", str(files["repr.npy"]), "--query-node", str(query_node),
+            "--query-relation", query_rel, "--top-k", str(s["top_k"]),
+            "--device", DEVICE]
+    buf = io.StringIO()
+    kern.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        export_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kern.launch_counts()
+    printed = buf.getvalue()
+    if out_dir is not None:
+        (out_dir / "chip_smoke_serve_cli.log").write_text(printed)
+    check_serve_launches(counts, 1, c["layers"], False, "export CLI")
+    hits = json.loads(printed[printed.rindex('{\n  "query_node"'):])["top"]
+    check(len(hits) == s["top_k"], f"the export CLI printed {len(hits)} hits")
+
+    saved = torch.load(ckpt / "train-state.pt", map_location="cpu",
+                       weights_only=True)["params"]
+    cfg = ModelConfig.from_dict(json.loads((ckpt / "config.json").read_text()))
+    with contextlib.redirect_stdout(io.StringIO()):
+        data = RelGATData(node2emb, rel2idx, triplets, train_ratio=1.0,
+                          csr=True, device=DEVICE)
+    want = get_node_repr(tree_map(lambda t: t.to(DEVICE), saved),
+                         dataclasses.replace(cfg, use_pallas=True),
+                         torch.from_numpy(data.node_emb).to(DEVICE),
+                         data.graph).cpu().numpy()
+    got = np.load(files["repr.npy"])
+    check(got.dtype == want.dtype and np.array_equal(got, want),
+          "the export CLI's repr.npy differs from leg 1's final parameters")
+    return seconds, counts, time.perf_counter() - t_leg
+
+
 def phase_trainer(card, out_lines, out_dir):
     c = TRAINER
     bs, layers = c["batch"], c["layers"]
@@ -1711,6 +1924,8 @@ def phase_trainer(card, out_lines, out_dir):
               f"expected {steps}")
         check(best1 is not None and np.isfinite(best1),
               f"leg 1 best eval cosine {best1}")
+        # Serve leg 1's final checkpoint before leg 2 trains on in it.
+        cli_s, cli_counts, cli_leg_s = serve_cli_leg(work, final, out_dir)
 
         leg2_s, counts2, log2 = run_cli_leg(argv + ["--resume"], "leg2",
                                             out_dir)
@@ -1804,6 +2019,9 @@ def phase_trainer(card, out_lines, out_dir):
     check(ratio <= c["max_over_bare"],
           f"trainer step {trainer_ms:.3f} ms is {ratio:.3f}x the bare loop's "
           f"{bare_ms:.3f} ms (limit {c['max_over_bare']})")
+    return {"cli_s": cli_s, "cli_leg_s": cli_leg_s,
+            "cli_launches": cli_counts,
+            "cli_nodes": c["nodes"], "cli_triplets": c["triplets"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1860,8 +2078,12 @@ def main(argv=None) -> int:
         worst = max(worst, phase_parity_wide(card, out_lines))
         phase_agree(card, out_lines)
         phase_agree_bf16(card, out_lines)
-        counts, graph, step_ms, node_emb, batches, first_loss = phase_train(
-            card, out_lines, args.out)
+        (counts, graph, step_ms, node_emb, batches, first_loss, params,
+         mcfg) = phase_train(card, out_lines, args.out)
+        t0 = time.perf_counter()
+        serve = phase_serve(card, params, mcfg, graph, node_emb)
+        serve["phase_s"] = time.perf_counter() - t0
+        del params
         counts_bf16, bf16_record = phase_train_bf16(
             card, out_lines, args.out, graph, node_emb, batches, first_loss)
         default_counts = phase_train_default(card, out_lines, graph,
@@ -1880,7 +2102,8 @@ def main(argv=None) -> int:
                                 out_lines)
         del graph
         kernels.append(phase_zipf(card, step_ms, out_lines))
-        phase_trainer(card, out_lines, args.out)
+        serve.update(phase_trainer(card, out_lines, args.out))
+        emit({"phase": "serve", "card": card, **serve}, out_lines)
         emit({"parity_max_rel_err": worst, "card": card}, out_lines)
     emit({"kernels": kernels}, out_lines)
     if args.out is not None:

@@ -12,9 +12,13 @@ ELU between them (not after the last); the projection head maps back to the
 input dim; ``single_gat_step`` computes every node's representation.
 
 ``save_pretrained`` / ``load_from_pretrained`` keep the JAX package's
-directory: ``config.json`` and the ``add_files`` JSON sidecars, with the
-weights in this package's own file, ``relgat-model.pt`` (``torch.save`` of
-the parameter tree as CPU tensors, read back with ``weights_only=True``).
+directory: ``config.json`` and the ``add_files`` JSON sidecars. The weights
+are ``relgat-model.pt``, the reference's artifact: its flat ``state_dict``
+(``models/state_dict.py``, each leaf in its own type), read back
+with ``weights_only=True``. ``load_from_pretrained`` also reads the nested
+parameter tree that earlier versions of this package wrote under that name,
+and a JAX package directory (``relgat-model.msgpack``, read by
+``utils/msgpack.py`` without flax).
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ import json
 import os
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -45,6 +48,12 @@ from relgat_projector_tpu_torch.models.projection import (
     apply_projection_head,
     init_projection_head,
 )
+from relgat_projector_tpu_torch.models.state_dict import (
+    export_torch_state_dict,
+    load_torch_state_dict,
+    params_from_state_dict,
+)
+from relgat_projector_tpu_torch.utils import msgpack
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -205,6 +214,9 @@ def transform(
 # Persistence (HF-style directory: config.json + weights)
 # ---------------------------------------------------------------------------
 
+JAX_WEIGHTS_NAME = "relgat-model.msgpack"  # the JAX package's weights
+
+
 def save_pretrained(
     output_dir: str,
     params: Params,
@@ -212,15 +224,34 @@ def save_pretrained(
     add_files: Optional[list] = None,
 ) -> None:
     """Write ``config.json``, the ``(file name, JSON content)`` pairs of
-    ``add_files`` and the weights (reference ``model.py:196-215``)."""
+    ``add_files`` and the weights as the reference's ``state_dict``
+    (reference ``model.py:196-215``)."""
     os.makedirs(output_dir, exist_ok=True)
     files = list(add_files or [])
     files.append((Defaults.MODEL_CONFIG_FILE_NAME, cfg.to_dict()))
     for fname, content in files:
         with open(os.path.join(output_dir, fname), "w", encoding="utf-8") as f:
             json.dump(content, f, ensure_ascii=False, indent=2)
-    host = tree_map(lambda t: t.detach().cpu(), params)
-    torch.save(host, os.path.join(output_dir, Defaults.OUT_MODEL_NAME))
+    torch.save(export_torch_state_dict(params),
+               os.path.join(output_dir, Defaults.OUT_MODEL_NAME))
+
+
+def _read_weights(input_dir: str, template: Params) -> Params:
+    """The parameter tree in ``input_dir``: this package's ``relgat-model.pt``
+    (the reference's flat keys, or the nested tree of earlier versions), else
+    the JAX package's ``relgat-model.msgpack``."""
+    w_path = os.path.join(input_dir, Defaults.OUT_MODEL_NAME)
+    if os.path.isfile(w_path):
+        saved = load_torch_state_dict(w_path)
+        if "layers" in saved:  # the nested tree, as it is
+            return saved
+        return params_from_state_dict(saved)
+    jax_path = os.path.join(input_dir, JAX_WEIGHTS_NAME)
+    if os.path.isfile(jax_path):
+        with open(jax_path, "rb") as f:
+            return msgpack.from_bytes(template, f.read())
+    raise FileNotFoundError(f"Weights file not found: {w_path} (nor "
+                            f"{JAX_WEIGHTS_NAME})")
 
 
 def load_from_pretrained(
@@ -231,27 +262,26 @@ def load_from_pretrained(
 ) -> Tuple[Params, ModelConfig]:
     """Read config and weights onto ``device``, checking the input dim
     against the embeddings that will be fed (reference ``model.py:217-272``)
-    and every weight's shape against the config's."""
+    and every weight's shape against the config's; each leaf is stored in
+    the config's ``param_dtype``."""
     dev = resolve_device(device)
     cfg_path = os.path.join(input_dir, Defaults.MODEL_CONFIG_FILE_NAME)
-    w_path = os.path.join(input_dir, Defaults.OUT_MODEL_NAME)
     if not os.path.isfile(cfg_path):
         raise FileNotFoundError(f"Config file not found: {cfg_path}")
-    if not os.path.isfile(w_path):
-        raise FileNotFoundError(f"Weights file not found: {w_path}")
     with open(cfg_path, "r", encoding="utf-8") as f:
         cfg = ModelConfig.from_dict(json.load(f))
-    in_dim = int(np.shape(node_emb)[1])
+    in_dim = int(node_emb.shape[1])
     if int(cfg.in_dim) != in_dim:
         raise ValueError(
             f"Input dim mismatch: config={cfg.in_dim} vs node_emb={in_dim}"
         )
-    params = torch.load(w_path, map_location="cpu", weights_only=True)
-    want = [tuple(t.shape) for t in tree_leaves(init_model(cfg, device="cpu"))]
+    template = init_model(cfg, device="cpu")
+    params = _read_weights(input_dir, template)
+    want = [tuple(t.shape) for t in tree_leaves(template)]
     got = [tuple(t.shape) for t in tree_leaves(params)]
     if got != want:
         raise ValueError(
-            f"weights in {w_path} do not fit {cfg_path}: shapes {got} "
+            f"weights in {input_dir} do not fit {cfg_path}: shapes {got} "
             f"against {want}"
         )
-    return tree_map(lambda t: t.to(dev), params), cfg
+    return tree_map(lambda t, w: t.to(dev, w.dtype), params, template), cfg

@@ -17,7 +17,15 @@ The state is copied to the host before ``save_train_state`` returns; with
 ``async_write`` a thread then serialises and writes it, into ``.tmp`` first
 and then ``os.replace``, so a killed write never leaves a half file under
 the real name. Pruning joins that thread before it deletes a directory.
-The JAX package's ``train-state.msgpack`` cannot be read here.
+
+A directory of the JAX package holds ``train-state.msgpack`` instead, which
+``load_train_state`` reads without flax (``utils/msgpack.py``), so a run
+trained with the JAX package resumes here. Its parameters, Adam's ``mu``,
+``nu`` and ``count``, ``step`` and ``nonfinite_steps`` come across as they
+are, with two changes: a moment stored in another type than its parameter
+(JAX's fp32 moments of a bf16 ``rel_bias`` on its Pallas route) is cast to
+the parameter's type, as this package stores moments; and JAX's key, which
+no torch generator can continue, seeds the streams (see ``_jax_rng``).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from relgat_projector_tpu_torch.config import Defaults, ModelConfig
 from relgat_projector_tpu_torch.models import model as model_lib
 from relgat_projector_tpu_torch.train.state import AdamState, TrainState
+from relgat_projector_tpu_torch.utils import msgpack
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -105,17 +114,66 @@ def save_train_state(
     return _write_state(path, _state_to_host(state), async_write)
 
 
+def _jax_rng(key: torch.Tensor, device: torch.device) -> RngStreams:
+    """Streams seeded from a JAX key's two uint32 words, ``(k0 << 32 | k1)``
+    reduced below 2^63 - 1. The same key always gives the same streams, but
+    not JAX's numbers: a resumed run draws other negatives and dropout
+    masks than the JAX run would have."""
+    k0, k1 = (int(w) for w in key.reshape(-1).tolist())
+    return RngStreams.from_seed(((k0 << 32) | k1) % (2**63 - 2), device)
+
+
+def _load_jax_state(path: str, template: TrainState) -> TrainState:
+    """A JAX package's ``train-state.msgpack`` onto ``template``'s device.
+    optax's chain state is a dict keyed ``"0"``, ``"1"``, ... whose Adam
+    entry moves with clipping and decay, so it is found by its keys."""
+    with open(path, "rb") as f:
+        raw = msgpack.msgpack_restore(f.read())
+    dev = template.step.device
+    adam = [s for s in raw["opt_state"].values()
+            if isinstance(s, dict) and set(s) == {"count", "mu", "nu"}]
+    if len(adam) != 1:
+        raise ValueError(f"{path}: {len(adam)} Adam states in the optimizer "
+                         "chain, expected 1")
+    trees = {name: msgpack.restore_like(template.params, tree) for name, tree
+             in (("params", raw["params"]), ("mu", adam[0]["mu"]),
+                 ("nu", adam[0]["nu"]))}
+    want = [tuple(t.shape) for t in tree_leaves(template.params)]
+    for name, tree in trees.items():
+        got = [tuple(t.shape) for t in tree_leaves(tree)]
+        if got != want:
+            raise ValueError(f"{path} holds {name} of shapes {got}, "
+                             f"expected {want}")
+
+    def like_params(tree):
+        return tree_map(lambda t, p: t.to(dev, p.dtype), tree, template.params)
+
+    def counter(t):
+        return t.to(dev, torch.int32).reshape(())
+
+    return TrainState(
+        params=like_params(trees["params"]),
+        opt_state=AdamState(mu=like_params(trees["mu"]),
+                            nu=like_params(trees["nu"]),
+                            count=counter(adam[0]["count"])),
+        step=counter(raw["step"]),
+        rng=_jax_rng(raw["rng"], dev),
+        nonfinite_steps=counter(raw["nonfinite_steps"]),
+    )
+
+
 def load_train_state(path: str, template: TrainState) -> TrainState:
     """Read a state written by :func:`save_train_state` onto the device of
-    ``template``, whose parameter tree it must match."""
+    ``template``, whose parameter tree it must match; a ``.msgpack`` path,
+    or the JAX package's ``train-state.msgpack`` beside a ``path`` that is
+    not there, is read as the JAX package's state."""
     if not os.path.isfile(path):
         jax_state = os.path.join(os.path.dirname(path), _JAX_STATE_FILE)
-        if os.path.isfile(jax_state):
-            raise NotImplementedError(
-                f"{jax_state} is the JAX package's train state; reading it "
-                "is not ported yet (ROADMAP.md Queue 1 item 2)"
-            )
-        raise FileNotFoundError(f"train state not found: {path}")
+        if not os.path.isfile(jax_state):
+            raise FileNotFoundError(f"train state not found: {path}")
+        path = jax_state
+    if path.endswith(".msgpack"):
+        return _load_jax_state(path, template)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     dev = template.step.device
     want = [tuple(t.shape) for t in tree_leaves(template.params)]
@@ -207,8 +265,7 @@ class RelGATStorage:
     def latest_resumable(self) -> Optional[str]:
         """Newest checkpoint directory (by mtime) holding a train state, or
         None. A directory left with only a ``.tmp`` by a killed write does
-        not count; one with the JAX package's state does, and loading it
-        then says that it cannot be read."""
+        not count; one with the JAX package's state does."""
         if not self.save_dir.exists():
             return None
         candidates = [

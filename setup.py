@@ -27,6 +27,14 @@ setup(
             # The PyTorch/CUDA port's trainer (same flags, plus --device).
             "relgat-projector-train-torch="
             "relgat_projector_tpu_torch.cli:main",
+            # The port's serving side: its export / inference CLI and its
+            # reference-format import and export (each also takes --device).
+            "relgat-projector-cuda-export="
+            "relgat_projector_tpu_torch.export:main",
+            "relgat-projector-cuda-import-reference="
+            "relgat_projector_tpu_torch.interop:main",
+            "relgat-projector-cuda-export-reference="
+            "relgat_projector_tpu_torch.interop:main_export",
         ]
     },
 )

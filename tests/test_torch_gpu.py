@@ -530,3 +530,47 @@ def test_bf16_parameter_step_on_the_kernel_route(card):
                               g_cpu.num_real_nodes,
                               *(t.cpu() for t in batch), neg_dst=neg)
     assert abs(float(m["loss"]) - float(loss)) <= 1e-2 * abs(float(loss))
+
+
+def test_serving_through_the_kernels(card, tmp_path):
+    """``export_node_representations`` on the card (one relgat_fwd per
+    layer, no backward kernel) agrees with the same call on a CPU copy
+    within 1e-4, and a reference round trip (``export_torch_checkpoint_dir``
+    -> ``import_torch_checkpoint_dir`` -> ``load_from_pretrained``) gives
+    the same bits."""
+    from relgat_projector_tpu_torch.inference import (
+        export_node_representations,
+    )
+    from relgat_projector_tpu_torch.interop import (
+        export_torch_checkpoint_dir,
+        import_torch_checkpoint_dir,
+    )
+    from relgat_projector_tpu_torch.models.model import (
+        load_from_pretrained,
+        save_pretrained,
+    )
+    from relgat_projector_tpu_torch.utils.tree import tree_map
+
+    cfg, _, _, state, x, g, _, coo = _card_step(card)
+    kern.reset_launch_counts()
+    rep = export_node_representations(state.params, cfg, x, g)
+    torch.cuda.synchronize()
+    counts = kern.launch_counts()
+    assert counts["relgat_fwd"] == cfg.gat_num_layers
+    assert counts["relgat_bwd_src"] == counts["relgat_bwd_rel"] == 0
+    g_cpu = build_graph(*coo, g.num_real_nodes, num_rel=cfg.num_rel,
+                        csr=True, device="cpu")
+    rep_cpu = export_node_representations(
+        tree_map(lambda t: t.cpu(), state.params), cfg, x.cpu(), g_cpu)
+    assert _rel(rep.cpu(), rep_cpu) <= 1e-4
+
+    save_pretrained(str(tmp_path / "port"), state.params, cfg)
+    export_torch_checkpoint_dir(str(tmp_path / "port"), str(tmp_path / "ref"),
+                                device=card)
+    import_torch_checkpoint_dir(str(tmp_path / "ref"), str(tmp_path / "back"),
+                                device=card)
+    params, back_cfg = load_from_pretrained(str(tmp_path / "back"),
+                                            node_emb=x, device=card)
+    back = export_node_representations(
+        params, dataclasses.replace(back_cfg, use_pallas=True), x, g)
+    assert torch.equal(back, rep)

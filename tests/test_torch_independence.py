@@ -22,7 +22,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "relgat_projector_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "relgat_projector_tpu", "optax", "flax")
+FORBIDDEN = ("jax", "jaxlib", "relgat_projector_tpu", "optax", "flax",
+             "msgpack")
 
 
 def _env():

@@ -473,13 +473,16 @@ def test_latest_resumable_skips_an_unfinished_write(tmp_path):
 
 
 def test_resume_from_a_jax_checkpoint_is_refused(tmp_path):
+    """A JAX train state that is not whole (here an empty file) is refused,
+    naming the byte where it breaks off; a whole one resumes
+    (``tests/test_torch_jax_resume.py``)."""
     tr = _trainer(tmp_path)
     jax_dir = tmp_path / "relgat_scorer-distmult_lrscheduler-constant"
     jax_dir.mkdir()
     (jax_dir / "train-state.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(ValueError, match="at byte 0"):
         tr.maybe_resume(str(jax_dir))
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    with pytest.raises(ValueError, match="msgpack"):
         tr.maybe_resume()
 
 
