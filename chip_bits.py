@@ -1,0 +1,70 @@
+"""Hold two checkouts' propagate kernels to each other bit for bit, on a card.
+
+The kernels of the checkout this file lies in (fp32 and bf16; forward, src
+pass and relation reduction; attention dropout 0 and 0.3) run on seeded
+inputs at ``chip_smoke.py``'s ``TRAIN`` shapes (100k nodes, 1M edges, a
+split hub row, 16 heads x 128, 40 relations) and their outputs are saved;
+``compare`` holds two such files to each other with ``torch.equal``. Python
+puts a script's own directory first on its path, so a copy of this file in
+another checkout's root runs that checkout's kernels:
+
+    python3 chip_bits.py run A.pt
+    cp chip_bits.py OTHER/ && python3 OTHER/chip_bits.py run B.pt
+    python3 chip_bits.py compare A.pt B.pt   # exit 0: the same bits
+"""
+import sys
+
+import numpy as np
+import torch
+
+
+def run(out):
+    from relgat_projector_tpu_torch.data.graph import build_graph
+    from relgat_projector_tpu_torch.ops import cuda as kern
+
+    rng = np.random.default_rng(0)
+    n, e, r, heads, feat = 100_000, 1_000_000, 40, 16, 128
+    src, dst, et = (rng.integers(0, n, e), rng.integers(0, n, e),
+                    rng.integers(0, r, e))
+    dst[:60_000] = 5  # a hub the forward splits
+    g = build_graph(src, dst, et, n, num_rel=r, csr=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h = torch.randn((g.num_nodes, heads * feat), generator=gen, device="cuda")
+    cot = torch.randn(h.shape, generator=gen, device="cuda")
+    attn = torch.randn((heads, r, feat), generator=gen, device="cuda") * 0.3
+    bias = torch.randn((r,), generator=gen, device="cuda") * 0.1
+    res = {}
+    for bf16 in (False, True):
+        fwd, bsrc, brel = ((kern.relgat_fwd_bf16, kern.relgat_bwd_src_bf16,
+                            kern.relgat_bwd_rel_bf16) if bf16 else
+                           (kern.relgat_fwd, kern.relgat_bwd_src,
+                            kern.relgat_bwd_rel))
+        rows = h.to(torch.bfloat16) if bf16 else h
+        grows = cot.to(torch.bfloat16) if bf16 else cot
+        for seed, rate in ((None, 0.0), (77, 0.3)):
+            kw = dict(seed=seed, rate=rate, negative_slope=0.2, eps=1e-16)
+            o, m, l, b = fwd(rows, attn, bias, g.csr, **kw)
+            s_dot = ((o - b[:, None]) * cot).view(-1, heads, feat).sum(-1)
+            dh, w, bb = bsrc(rows, grows, attn, m, l, s_dot, cot.sum(1),
+                             g.csr, **kw)
+            da, db = brel(rows, w, bb)
+            key = f"{'bf16' if bf16 else 'fp32'}_{rate}"
+            res[key] = [x.cpu() for x in (o, m, l, b, dh, w, bb, da, db)]
+    torch.cuda.synchronize()
+    torch.save(res, out)
+    print("saved", out, sorted(res))
+
+
+def compare(a, b):
+    x, y = torch.load(a), torch.load(b)
+    same = {k: all(torch.equal(p, q) for p, q in zip(x[k], y[k]))
+            for k in sorted(x)}
+    print("same bits:", same)
+    return 0 if all(same.values()) and sorted(x) == sorted(y) else 1
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "run":
+        run(sys.argv[2])
+    else:
+        sys.exit(compare(sys.argv[2], sys.argv[3]))

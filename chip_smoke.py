@@ -125,7 +125,7 @@ Phases, in order; any failure exits non-zero:
               files: its repr.npy equals get_node_repr on that directory's
               train-state parameters bit for bit, relgat_fwd runs once per
               layer and no other kernel, and it prints 10 hits. Leg 4 is
-              leg 1's argv with --steps-per-call 8 (352 steps, 44 calls) in a fresh
+              leg 1's argv with --steps-per-call 8 (176 steps, 22 calls) in a fresh
               directory: its final parameters equal leg 1's (bit for bit
               expected, 1e-6 at most), it logs and evaluates only at the
               windows of 100 dispatched steps, and logs
@@ -133,10 +133,46 @@ Phases, in order; any failure exits non-zero:
               after maybe_resume is bit-identical to the step from the live
               state, and the trainer's epoch per step is within 1.10x of a
               bare make_train_step loop over the same batches. Cuts, against
-              production: the graph is 20,000 nodes and 50,000 triplets
+              production: the graph is 20,000 nodes and 25,000 triplets
               (the generator's nn-pool 256), not plWordNet's size; one epoch
               per leg, not 60; eval and save every 100 steps, not 500, so
-              that they fire within the epoch's 352 steps.
+              that they fire within the epoch's 176 steps.
+9. halo     - several devices on the one card: the ranks are processes of
+              this script (--rank-mode), joined on gloo, named explicitly
+              (NCCL refuses two ranks on one device; gloo takes no CUDA
+              tensor, so every collective goes through host memory).
+              TRAIN's model and graph, dropout off, lr 2e-5 constant, 3
+              steps on each grid (data, graph) = (1, 2), (1, 4), (2, 2),
+              each a process group of its own, in fp32 and the bf16 mode,
+              against the same steps on one device through the kernels:
+              the first step's gradient leaf by leaf (||a-b|| / ||b||
+              over each leaf, as the optimizer receives it; max|a-b| /
+              max|b| reported), each step's loss and grad norm within 1e-4
+              (fp32) and 1e-2 (bf16); every rank of a grid with the same
+              parameters; the parameters after the steps leaf by leaf,
+              reported with the gradients and updates at the worst
+              element; each rank launching each
+              kernel of the mode 2 x layers x steps times (the local and
+              the remote subset) and no other. Then the split kernels on
+              shard 0 of the G = 4 plan (the local subset over the shard's
+              own rows, the remote one over the halo buffer: source rows
+              apart from the destination rows, canonical edge ids),
+              attention dropout 0.2, fp32 and bf16: each within 1e-5 of
+              its float64 plain version, the forward and src pass the same
+              bits twice, timed beside their bounds (rows of the kernels
+              line). A clustered graph (TRAIN's size, 8 clusters, 90% of
+              the edges inside them, ids at random) gives halo_pair and
+              the bytes sent a layer at G = 4 with and without the
+              partitioner. Last, cli.main on two ranks with --mesh-graph 2
+              on TRAINER's KG (batch 4096 with 8 negatives, one epoch of 6
+              steps, then --resume): only
+              rank 0 writes, the state a trainer resumes from the final
+              checkpoint equals the CLI trainer's and one step from each
+              gives the same bits, the launches are one forward a layer a
+              step and per eval and one backward a layer a step, both
+              subsets. One "halo" line: step ms and peak memory per rank
+              (time-sharing, not a scaling number), halo_pair, exchange
+              bytes, the errors.
 
 The last lines are the kernels JSON line, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}; a "single_device_settings" line gives the
@@ -160,6 +196,7 @@ import itertools
 import json
 import pickle
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -173,6 +210,9 @@ from relgat_projector_tpu_torch import cli
 from relgat_projector_tpu_torch import export as export_cli
 from relgat_projector_tpu_torch.config import ModelConfig, TrainConfig
 from relgat_projector_tpu_torch.data.dataset import RelGATData
+from relgat_projector_tpu_torch.data.partition import (
+    partition_node_permutation,
+)
 from relgat_projector_tpu_torch.data.graph import (
     build_graph,
     pad_node_embeddings,
@@ -198,6 +238,11 @@ from relgat_projector_tpu_torch.ops import cuda as kern
 from relgat_projector_tpu_torch.ops import propagate
 from relgat_projector_tpu_torch.ops.cuda.build import build_all
 from relgat_projector_tpu_torch.ops.propagate import relgat_propagate_kernels
+from relgat_projector_tpu_torch.parallel.halo import (
+    build_halo_graph,
+    halo_rows_per_shard,
+    shard_edges,
+)
 from relgat_projector_tpu_torch.schedules import (
     compute_total_and_warmup_steps,
     make_lr_schedule,
@@ -237,7 +282,7 @@ WIDE = dict(num_nodes=4_000, num_edges=40_000, num_rel=40, hub_degree=1_000)
 # layer (config.py), the rest of the TRAIN model as it is.
 DEFAULT_WIDTH = dict(heads=12, feat=300, layers=1, warmup_steps=1,
                      timed_steps=3)
-TRAINER = dict(nodes=20_000, triplets=50_000, num_rel=40, in_dim=1152,
+TRAINER = dict(nodes=20_000, triplets=25_000, num_rel=40, in_dim=1152,
                nn_pool=256, heads=16, feat=128, layers=2, batch=128,
                num_neg=32, every=100, train_ratio=0.9, bare_steps=100,
                max_over_bare=1.10, max_checkpoints=5, steps_per_call=8)
@@ -342,6 +387,12 @@ def emit(record: dict, out_lines: list) -> None:
 def rel_err(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def l2_rel_err(a, b) -> float:
+    """||a - b|| / ||b||, over the whole tensor."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
 def abs_err(a, b) -> float:
@@ -1332,28 +1383,34 @@ def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
 # Phase 6: kernels line
 # ---------------------------------------------------------------------------
 
-def bounds(n, e, heads, feat, num_rel, row_bytes=4):
+def bounds(n, e, heads, feat, num_rel, row_bytes=4, n_dst=None,
+           dropout=False):
     """(bytes, flops) each kernel must move and do on these inputs: every
     input read once, every output written once; the rows of h and g are
     ``row_bytes`` a value (2 in the bf16 variants), all else 4 (fp32,
-    int32). ``bwd_pair`` is the whole function of the TPU backward kernel
-    that the two backward kernels share: h, g, attn, the statistics and the
-    src-CSR in, dh, dattn and dbias out."""
+    int32). ``n`` counts the source rows (h, dh, W, B) and ``n_dst`` (by
+    default ``n``) the destination rows (g, out and the statistics); with
+    ``dropout`` the forward also reads each edge's canonical id.
+    ``bwd_pair`` is the whole function of the TPU backward kernel that the
+    two backward kernels share: h, g, attn, the statistics and the src-CSR
+    in, dh, dattn and dbias out."""
+    nd = n if n_dst is None else n_dst
     hf = heads * feat
     w = 4  # bytes of fp32 and int32
-    rows = row_bytes * n * hf  # one [N, H*F] array of h or g
+    rows = row_bytes * n * hf  # one [N_src, H*F] array of h
+    grows = row_bytes * nd * hf  # one [N, H*F] array of g
     attn = heads * num_rel * feat
-    stats = 3 * n * heads + n + (n + 1) + 3 * e  # m, l, S, gsum, src-CSR
+    stats = 3 * nd * heads + nd + (n + 1) + 3 * e  # m, l, S, gsum, src-CSR
     de_flops = e * heads * (8 * feat + 16)
     return {
         "relgat_fwd": (
-            rows + w * (n * hf + attn + num_rel + (n + 1)
-                        + 2 * e + 2 * n * heads + n),
-            e * heads * (5 * feat + 10) + 2 * n * hf,
+            rows + w * (nd * hf + attn + num_rel + (nd + 1)
+                        + (3 if dropout else 2) * e + 2 * nd * heads + nd),
+            e * heads * (5 * feat + 10) + 2 * nd * hf,
         ),
         "relgat_bwd_src": (
-            2 * rows + w * (n * hf + attn + stats + n * heads * num_rel
-                            + n * num_rel),
+            rows + grows + w * (n * hf + attn + stats + n * heads * num_rel
+                                + n * num_rel),
             de_flops + e,
         ),
         "relgat_bwd_rel": (
@@ -1361,7 +1418,7 @@ def bounds(n, e, heads, feat, num_rel, row_bytes=4):
             2 * n * heads * num_rel * feat + n * num_rel,
         ),
         "bwd_pair": (
-            2 * rows + w * (n * hf + 2 * attn + stats + num_rel),
+            rows + grows + w * (n * hf + 2 * attn + stats + num_rel),
             de_flops + 2 * e * hf,
         ),
     }
@@ -2026,6 +2083,642 @@ def phase_trainer(card, out_lines, out_dir):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 9: the halo route on a grid of ranks that share the card
+# ---------------------------------------------------------------------------
+
+# TRAIN's model on TRAIN's graph over grids of (data, graph) ranks, 3 steps
+# each in fp32 and the bf16 mode, dropout off, TRAIN's lr 2e-5 without
+# warm-up (a linear warm-up would leave the parameters where they start);
+# the same steps on one device through the kernels are the reference. The
+# ranks of each grid are processes of a process group of their own, which
+# time-share the one card over gloo, named
+# explicitly (NCCL refuses two ranks on one device), and gloo takes no
+# CUDA tensor, so every collective goes through host memory. The split
+# kernels are held to their plain versions on shard 0 of the G = 4 plan
+# with attention dropout 0.2; a clustered graph (8 clusters, 90% of the
+# edges inside them, ids in random order) gives halo_pair with and without
+# the partitioner; and the CLI trains TRAINER's synthetic KG on two ranks
+# with --mesh-graph 2 for one epoch, then resumes. Its batch (cli_batch,
+# cli_num_neg negatives) keeps the epoch to 6 steps: on one card every
+# exchange and gather goes through gloo on the host, about a second a
+# step at 20k nodes.
+HALO = dict(grids=((1, 2), (1, 4), (2, 2)), steps=3, shards=4,
+            kernel_rate=0.2, kernel_seed=1234, clusters=8, intra=0.9,
+            cli_ranks=2, cli_batch=4096, cli_num_neg=8, threads=2,
+            timeout_s=900)
+# The first step's gradient leaf by leaf (||a - b|| / ||b|| over each
+# leaf), each step's loss and grad norm against the one-device run: the
+# repo's parity bar in fp32; bf16 precision in the bf16 mode (as
+# agree_bf16), where the shards' products and merges round h and g to bf16
+# from fp32 values that differ in their last bits. The first step is the
+# one whose inputs are the same on both sides (the same parameters and
+# batch). A leaf's norm, not its largest element: an edge whose attention
+# logit lies within rounding of 0 takes LeakyReLU's other derivative (1 or
+# 0.2) on one side, a legitimate subgradient that moves one block of a few
+# elements (halo_reading.py reads one at (1, 4)); max|a - b| / max|b| per
+# leaf is reported beside it. The parameters after the steps are compared
+# leaf by leaf and reported with the reading at their worst element.
+HALO_TOL = {False: 1e-4, True: 1e-2}
+GRID = None  # a halo rank's (data, graph), from its config.json
+FINAL_DIR = "relgat_scorer-distmult_lrscheduler-linear"
+
+
+class GradRecorder:
+    """An optimizer that keeps the gradients of every update on the host,
+    as it receives them (summed over the world on a grid), and then
+    updates as ``optimizer`` does."""
+
+    def __init__(self, optimizer):
+        self.optimizer, self.grads = optimizer, []
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def update(self, grads, state, params):
+        self.grads.append([g.detach().cpu() for g in tree_leaves(grads)])
+        return self.optimizer.update(grads, state, params)
+
+
+def leaf_names(tree, prefix=""):
+    """Each leaf's path (``layers[0].proj``), in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def halo_setup(bf16, device):
+    """TRAIN's model without dropout at a constant lr, its state from the
+    seed, and an optimizer that records each step's gradients."""
+    t = TRAIN
+    mcfg, tcfg = production_configs(dropout=0.0, projection_dropout=0.0,
+                                    **(BF16_MODE if bf16 else {}))
+    tcfg = dataclasses.replace(tcfg, lr_scheduler="constant")
+    total, _ = compute_total_and_warmup_steps(
+        t["num_edges"], t["batch"], t["epochs"], None)
+    sched = make_lr_schedule(tcfg.lr, "constant", total, 0)
+    opt = GradRecorder(make_optimizer(tcfg, sched))
+    state = create_train_state(
+        init_model(mcfg, seed=SEED, device=device), opt, seed=SEED + 1)
+    return mcfg, tcfg, opt, sched, state
+
+
+def halo_steps(step, state, node_emb, graph, batches):
+    """The steps, each timed to a synchronize; (state, record)."""
+    weight = torch.ones(TRAIN["batch"], device=node_emb.device)
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launch_counts()
+    losses, norms, ms = [], [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, node_emb, graph, *batch, weight)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, dict(losses=losses, grad_norms=norms, step_ms=ms,
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       launches=kern.launch_counts())
+
+
+def halo_inputs():
+    """TRAIN's seeded graph and embeddings, and the phase's batches."""
+    src, dst, et, emb, picks = train_inputs(np.random.default_rng(SEED))
+    return src, dst, et, emb, edge_batches(src, et, dst,
+                                           picks[:HALO["steps"]])
+
+
+def halo_reference(work):
+    """The one-device runs, fp32 and bf16; their initial and final
+    parameters and each step's gradients go to ``work`` for the ranks."""
+    t = TRAIN
+    src, dst, et, emb, batches = halo_inputs()
+    graph = build_graph(src, dst, et, t["num_nodes"], num_rel=t["num_rel"],
+                        csr=True, device=DEVICE)
+    node_emb = torch.from_numpy(
+        pad_node_embeddings(emb, graph.num_nodes)).to(DEVICE)
+    refs = {}
+    for bf16 in (False, True):
+        mcfg, tcfg, opt, sched, state = halo_setup(bf16, DEVICE)
+        init = [p.detach().cpu() for p in tree_leaves(state.params)]
+        state, rec = halo_steps(make_train_step(mcfg, tcfg, opt, sched),
+                                state, node_emb, graph, batches)
+        torch.save(dict(init=init, grads=opt.grads, params=[
+            p.detach().cpu() for p in tree_leaves(state.params)]),
+                   work / f"ref_{int(bf16)}.pt")
+        refs[bf16] = rec
+        del state
+    del graph, node_emb
+    torch.cuda.empty_cache()
+    return refs
+
+
+def worst_param(names, leaves, ref, grads, tcfg):
+    """The parameters against the one-device run, leaf by leaf, and the
+    reading at the worst element: its initial value, its gradient at each
+    step on both sides, the first step's input to Adam on both sides (the
+    gradient plus weight decay times the initial value: the optimizer is
+    "adam" with coupled decay), the leaf's largest reference gradient at
+    each step, and both updates (parameter minus its initial value) in
+    units of the lr."""
+    by_leaf = [rel_err(a, b) for a, b in zip(leaves, ref["params"])]
+    w = int(np.argmax(by_leaf))
+    i = int((leaves[w].double() - ref["params"][w].double()).abs().argmax())
+
+    def at(t):
+        return float(t.reshape(-1)[i])
+
+    lr, wd, p0 = tcfg.lr, tcfg.weight_decay, at(ref["init"][w])
+    return dict(
+        leaf=names[w], element=i, err=by_leaf[w], init=p0,
+        update_lr=at(leaves[w] - ref["init"][w]) / lr,
+        ref_update_lr=at(ref["params"][w] - ref["init"][w]) / lr,
+        grad=[at(g[w]) for g in grads],
+        ref_grad=[at(g[w]) for g in ref["grads"]],
+        adam_input_step1=at(grads[0][w]) + wd * p0,
+        ref_adam_input_step1=at(ref["grads"][0][w]) + wd * p0,
+        ref_leaf_grad_max=[float(g[w].abs().max()) for g in ref["grads"]],
+    )
+
+
+def halo_rank(rank, world, port, work):
+    """One rank of the grid ``GRID`` (a process group of its own), both
+    modes; its records go to ``work/rank_DxG_R.json``."""
+    from relgat_projector_tpu_torch.config import MeshConfig
+    from relgat_projector_tpu_torch.parallel import (
+        initialize_distributed,
+        make_grid,
+        place_graph,
+    )
+    from relgat_projector_tpu_torch.parallel.distributed import shutdown
+    from relgat_projector_tpu_torch.parallel.mesh import all_gather_cat
+
+    t = TRAIN
+    data, shards = GRID
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                           device=DEVICE, timeout_s=HALO["timeout_s"])
+    torch.set_num_threads(HALO["threads"])
+    grid = make_grid(MeshConfig(data_axis=data, graph_axis=shards))
+    src, dst, et, emb, batches = halo_inputs()
+    hf = t["heads"] * t["feat"]
+    base = build_graph(src, dst, et, t["num_nodes"], num_rel=t["num_rel"],
+                       halo_shards=shards, halo_overlap=True, device=DEVICE)
+    graph = place_graph(base, grid, t["num_rel"], csr=True)
+    lo, hi = graph.halo.row_range
+    node_emb = torch.from_numpy(np.ascontiguousarray(
+        pad_node_embeddings(emb, graph.num_nodes)[lo:hi])).to(DEVICE)
+    records = []
+    for bf16 in (False, True):
+        mcfg, tcfg, opt, sched, state = halo_setup(bf16, DEVICE)
+        step = make_train_step(mcfg, tcfg, opt, sched, grid=grid)
+        state, rec = halo_steps(step, state, node_emb, graph, batches)
+        ref = torch.load(work / f"ref_{int(bf16)}.pt", weights_only=True)
+        leaves = [p.detach().cpu() for p in tree_leaves(state.params)]
+        names = leaf_names(state.params)
+        sums = torch.stack([p.double().sum() for p in leaves])
+        every = all_gather_cat(sums[None], grid.world_group, grid.backend)
+        l2 = [[l2_rel_err(a, b) for a, b in zip(got, want)]
+              for got, want in zip(opt.grads, ref["grads"])]
+        peak = [[rel_err(a, b) for a, b in zip(got, want)]
+                for got, want in zip(opt.grads, ref["grads"])]
+        first, worst = int(np.argmax(l2[0])), int(np.argmax(peak[0]))
+        rec.update(
+            grid=[data, shards], bf16=bf16, rank=rank,
+            grad_err=l2[0][first], grad_err_leaf=names[first],
+            grad_err_by_step=[max(e) for e in l2],
+            grad_max_rel=peak[0][worst], grad_max_rel_leaf=names[worst],
+            grad_max_rel_by_step=[max(e) for e in peak],
+            param=worst_param(names, leaves, ref, opt.grads, tcfg),
+            ranks_agree=bool((every == every[0]).all()),
+            halo_pair=base.halo.halo_pair,
+            rows_per_shard=base.halo.rows_per_shard,
+            exchange_bytes_per_layer=(
+                base.halo.exchange_bytes_per_device(4 * hf)),
+            replication_bytes_per_layer=(
+                base.halo.replication_bytes_per_device(4 * hf)),
+            loc_edges=graph.halo.loc.num_edges,
+            rem_edges=graph.halo.rem.num_edges,
+            exchange_via=grid.exchange_via(node_emb.device),
+        )
+        records.append(rec)
+        del state, step, leaves, opt, ref
+        torch.cuda.empty_cache()
+    (work / f"rank_{data}x{shards}_{rank}.json").write_text(
+        json.dumps(records))
+    shutdown()
+
+
+def halo_cli_argv(save_dir, rank, world, port):
+    """TRAINER's CLI flags with --mesh-graph 2, a batch of cli_batch with
+    cli_num_neg negatives (one epoch, the eval at its end, no periodic
+    saves), joining the process group as rank ``rank``."""
+    return trainer_argv(save_dir) + [
+        "--batch-size", str(HALO["cli_batch"]),
+        "--num-neg", str(HALO["cli_num_neg"]), "--eval-every-n-steps", "",
+        "--save-every-n-steps", "0", "--log-every-n-steps", "10",
+        "--mesh-graph", str(world), "--distributed", "--num-processes",
+        str(world), "--process-id", str(rank), "--coordinator-address",
+        f"127.0.0.1:{port}",
+    ]
+
+
+def halo_cli_rank(rank, world, port, work):
+    """``cli.main`` on this rank (the group joined on gloo first), counting
+    its checkpoint writes and launches; the state a trainer built from the
+    same argv resumes equals the CLI trainer's, and one step from each
+    gives the same bits; then ``cli.main`` with --resume."""
+    from relgat_projector_tpu_torch.parallel import initialize_distributed
+    from relgat_projector_tpu_torch.parallel.distributed import shutdown
+    from relgat_projector_tpu_torch.train.checkpoint import RelGATStorage
+
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                           device=DEVICE, timeout_s=HALO["timeout_s"])
+    torch.set_num_threads(HALO["threads"])
+    argv = halo_cli_argv(work / "cli", rank, world, port)
+    writes, trainers = [], []
+    save, train = RelGATStorage.save_checkpoint, RelGATTrainer.train
+
+    def spy_save(self, subdir, *a, **kw):
+        writes.append(subdir)
+        return save(self, subdir, *a, **kw)
+
+    def keep(self, *a, **kw):
+        trainers.append(self)
+        return train(self, *a, **kw)
+
+    RelGATStorage.save_checkpoint = spy_save
+    RelGATTrainer.train = keep
+    rec = {"rank": rank}
+    for leg, extra in (("leg1", []), ("leg2", ["--resume"])):
+        buf = io.StringIO()
+        kern.reset_launch_counts()
+        writes.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + extra)
+        torch.cuda.synchronize()
+        rec[leg] = dict(seconds=time.perf_counter() - t0,
+                        launches=kern.launch_counts(), writes=list(writes),
+                        resumed="Resumed from" in buf.getvalue(),
+                        log_bytes=len(buf.getvalue()))
+        (work / f"cli_{leg}_rank{rank}.log").write_text(buf.getvalue())
+        if leg == "leg1":
+            live = trainers[-1]
+            args = cli.get_args(argv)
+            with contextlib.redirect_stdout(io.StringIO()):
+                resumed = RelGATTrainer(
+                    cli.build_run_config(args), *cli.load_kg(args),
+                    log_to_console=False, device=DEVICE)
+                resumed.maybe_resume()
+
+            def state_leaves(st):
+                return (tree_leaves(st.params) + tree_leaves(st.opt_state.mu)
+                        + tree_leaves(st.opt_state.nu))
+
+            rec["same_state"] = all(
+                torch.equal(a, b) for a, b in
+                zip(state_leaves(live.state), state_leaves(resumed.state)))
+            batch = next(iter(live.dataset.train_batches(
+                live.train_cfg.train_batch_size)))
+            for tr in (live, resumed):
+                tr.state, _ = tr._train_step(tr.state, tr.node_emb, tr.graph,
+                                             *tr._device_batch(batch))
+            rec["same_step"] = all(
+                torch.equal(a, b) for a, b in
+                zip(state_leaves(live.state), state_leaves(resumed.state)))
+            rec["steps"] = int(live.global_step)
+            del live, resumed, trainers[:]
+            torch.cuda.empty_cache()
+    (work / f"cli_rank_{rank}.json").write_text(json.dumps(rec))
+    shutdown()
+
+
+def spawn_ranks(mode, world, work, grid=None):
+    """``world`` processes of this script in rank mode ``mode`` (on
+    ``grid`` for ``halo``), on a free port; waits for all of them, each
+    within the phase's time limit, and kills whatever is left. Fails if any
+    rank fails."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    (work / "config.json").write_text(json.dumps(dict(
+        TRAIN=TRAIN, TRAINER=TRAINER, HALO=HALO, DEVICE=DEVICE, SEED=SEED,
+        GRID=grid)))
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-mode",
+             mode, "--rank", str(r), "--world", str(world), "--port",
+             str(port), "--work", str(work)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(world)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=HALO["timeout_s"])[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    tag = mode if grid is None else f"{mode}_{grid[0]}x{grid[1]}"
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        (work / f"{tag}_rank{r}.out").write_text(log)
+        check(p.returncode == 0,
+              f"{mode} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+
+
+def clustered_graph(rng):
+    """TRAIN's size in ``clusters`` clusters, a node's cluster drawn at
+    random (so ids say nothing of it): each edge's dst uniform, its src in
+    dst's cluster with probability ``intra``, else uniform."""
+    t, h = TRAIN, HALO
+    n, e = t["num_nodes"], t["num_edges"]
+    cluster = rng.integers(0, h["clusters"], n)
+    dst = rng.integers(0, n, e)
+    src = rng.integers(0, n, e)
+    inside = rng.random(e) < h["intra"]
+    for c in range(h["clusters"]):
+        members = np.flatnonzero(cluster == c)
+        sel = inside & (cluster[dst] == c)
+        src[sel] = members[rng.integers(0, members.size, int(sel.sum()))]
+    return src, dst, rng.integers(0, t["num_rel"], e)
+
+
+def halo_clustered():
+    """halo_pair and the bytes each rank sends a layer (fp32 rows of
+    TRAIN's width) on the clustered graph at G = 4, with and without the
+    partitioner's relabeling."""
+    t = TRAIN
+    n, shards = t["num_nodes"], HALO["shards"]
+    feat_bytes = 4 * t["heads"] * t["feat"]
+    src, dst, et = clustered_graph(np.random.default_rng(SEED + 3))
+    rec = {}
+    t0 = time.perf_counter()
+    perm, stats = partition_node_permutation(
+        src, dst, n, shards, halo_rows_per_shard(n, shards))
+    rec["partition_s"] = time.perf_counter() - t0
+    rec.update(stats)
+    for name, (s, d) in (("ids_as_drawn", (src, dst)),
+                         ("partitioned", (perm[src], perm[dst]))):
+        hg = build_halo_graph(s, d, et, n, shards, overlap=True)
+        rec[name] = dict(
+            halo_pair=hg.halo_pair,
+            exchange_bytes_per_layer=hg.exchange_bytes_per_device(feat_bytes),
+            remote_edges=int(hg.rem_mask.sum()),
+        )
+    check(rec["partitioned"]["halo_pair"] < rec["ids_as_drawn"]["halo_pair"],
+          f"the partitioner did not cut halo_pair: {rec}")
+    return rec
+
+
+def halo_kernel_rows(card, out_lines, launches):
+    """The kernels line's rows of the split kernels on shard 0 of the
+    G = 4 plan (local and remote subsets: source rows apart from the
+    destination rows, canonical edge ids), fp32 and bf16, attention
+    dropout ``kernel_rate``: each against its plain version in float64,
+    the forward and src pass giving the same bits twice, timed beside its
+    bound and the row-gather floor over the subset's edges. ``launches``:
+    rank 0's counts in the (1, 4) run, both subsets."""
+    t, h = TRAIN, HALO
+    src, dst, et, _, _ = train_inputs(np.random.default_rng(SEED))
+    plan = build_halo_graph(src, dst, et, t["num_nodes"], h["shards"],
+                            overlap=True)
+    parts = shard_edges(plan, 0, t["num_rel"], torch.device(DEVICE),
+                        csr=True)
+    heads, feat, num_rel = t["heads"], t["feat"], t["num_rel"]
+    hf = heads * feat
+    rows = plan.rows_per_shard
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    space = {"local": torch.randn((rows, hf), generator=gen, device=DEVICE),
+             "remote": torch.randn((plan.num_shards * plan.halo_pair, hf),
+                                   generator=gen, device=DEVICE)}
+    g = torch.randn((rows, hf), generator=gen, device=DEVICE)
+    attn = torch.randn((heads, num_rel, feat), generator=gen,
+                       device=DEVICE) * 0.3
+    bias = torch.randn((num_rel,), generator=gen, device=DEVICE) * 0.1
+    kw = dict(seed=h["kernel_seed"], rate=h["kernel_rate"],
+              negative_slope=0.2, eps=1e-16)
+    out_rows = []
+    for bf16 in (False, True):
+        fwd, bwd_src, bwd_rel = VARIANTS[bf16]
+        for subset, csr in (("local", parts["loc"].csr),
+                            ("remote", parts["rem"].csr)):
+            hs = space[subset]
+            rh = hs.to(torch.bfloat16) if bf16 else hs
+            rg = g.to(torch.bfloat16) if bf16 else g
+            res = KERNELS[fwd](rh, attn, bias, csr, **kw)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(res, KERNELS[fwd](rh, attn, bias, csr, **kw)))
+            out, m, l, b = res
+            s_dot = ((out - b[:, None]) * g).view(rows, heads, feat).sum(-1)
+            gsum = g.sum(1)
+            back = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
+            same = same and all(torch.equal(a, c) for a, c in zip(
+                back, KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr,
+                                       **kw)))
+            check(same, f"{fwd} or {bwd_src} gave other bits in a second "
+                        f"call on the {subset} subset")
+            rel = KERNELS[bwd_rel](rh, back[1], back[2])
+            errs = {}
+            want = PLAIN[fwd](*(x.double() for x in (rh, attn, bias)), csr,
+                              **kw)
+            fin = torch.isfinite(want[1])
+            check(torch.equal(fin, torch.isfinite(m)),
+                  f"{fwd}: rows without edges differ on the {subset} subset")
+            errs[fwd] = [(abs_err(a, c), rel_err(a, c)) for a, c in
+                         zip((out, m[fin], l, b), (want[0], want[1][fin],
+                                                   want[2], want[3]))]
+            del want
+            want = PLAIN[bwd_src](*(x.double() for x in
+                                    (rh, rg, attn, m, l, s_dot, gsum)),
+                                  csr, **kw)
+            errs[bwd_src] = [(abs_err(a, c), rel_err(a, c))
+                             for a, c in zip(back, want)]
+            del want
+            want = PLAIN[bwd_rel](rh.double(), back[1].double(),
+                                  back[2].double())
+            errs[bwd_rel] = [(abs_err(a, c), rel_err(a, c))
+                             for a, c in zip(rel, want)]
+            del want
+            torch.cuda.empty_cache()
+            calls = {
+                fwd: lambda f: f(rh, attn, bias, csr, **kw),
+                bwd_src: lambda f: f(rh, rg, attn, m, l, s_dot, gsum, csr,
+                                     **kw),
+                bwd_rel: lambda f: f(rh, back[1], back[2]),
+            }
+            library = ({} if bf16 else {bwd_rel: lambda: torch.einsum(
+                "nhr,nhf->hrf", back[1], hs.view(-1, heads, feat))})
+            row_bytes = rh.element_size()
+            bnd = bounds(hs.shape[0], csr.num_edges, heads, feat, num_rel,
+                         row_bytes=row_bytes, n_dst=rows, dropout=True)
+            for name, kind in zip(VARIANTS[bf16], VARIANTS[False]):
+                source, replaces = KERNEL_SOURCES[name]
+                best, by = bound_ms(*bnd[kind])
+                row = {
+                    "name": name, "graph": f"halo G={h['shards']} shard 0 "
+                    f"{subset}", "heads": heads, "feat": feat,
+                    "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches[bf16][name],
+                    "launches_of": "rank 0 of grid (1, 4), both subsets",
+                    "max_abs_err": max(e[0] for e in errs[name]),
+                    "max_rel_err": max(e[1] for e in errs[name]),
+                    "ms": cuda_ms(lambda: calls[name](KERNELS[name]),
+                                  reps=10, warmup=2),
+                    "plain_ms": cuda_ms(lambda: calls[name](PLAIN[name]),
+                                        reps=2),
+                    "bound_ms": best, "bound_by": by,
+                    "library_ms": (cuda_ms(library[name], reps=10, warmup=2)
+                                   if name in library else None),
+                    "num_src": int(hs.shape[0]), "num_dst": rows,
+                    "edges": csr.num_edges, "bytes": bnd[kind][0],
+                    "flops": bnd[kind][1], "reference": "float64",
+                    "card": card,
+                }
+                if name != bwd_rel:
+                    row["same_bits_twice"] = same
+                    row["row_gather_bytes"] = (row_bytes * csr.num_edges
+                                               * hf)
+                    row["row_gather_floor_ms"] = (row["row_gather_bytes"]
+                                                  / PEAK_BYTES_PER_S * 1e3)
+                emit({"phase": "kernel", **row}, out_lines)
+                out_rows.append(row)
+            del res, back, rel, calls, library
+            torch.cuda.empty_cache()
+    check(all(r["max_rel_err"] <= REL_TOL for r in out_rows),
+          "split kernel parity failed")
+    return out_rows
+
+
+def phase_halo(card, out_lines, out_dir):
+    """The grids against the one-device run, the clustered graph, the CLI
+    on two ranks, and the split kernels' rows; one ``halo`` line."""
+    t, h = TRAIN, HALO
+    layers = t["layers"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_halo_") as tmp:
+        work = Path(tmp)
+        refs = halo_reference(work)
+        records = []
+        for data, shards in h["grids"]:
+            spawn_ranks("halo", data * shards, work, grid=(data, shards))
+            records += [rec for r in range(data * shards) for rec in
+                        json.loads((work / f"rank_{data}x{shards}_{r}.json")
+                                   .read_text())]
+        grids = []
+        launches = {}
+        for rec in records:
+            ref = refs[rec["bf16"]]
+            rec["loss_err"] = max(abs(a - b) / abs(b) for a, b in
+                                  zip(rec["losses"], ref["losses"]))
+            rec["grad_norm_err"] = max(abs(a - b) / abs(b) for a, b in
+                                       zip(rec["grad_norms"],
+                                           ref["grad_norms"]))
+            grids.append({k: rec[k] for k in (
+                "grid", "bf16", "rank", "step_ms", "peak_bytes", "halo_pair",
+                "rows_per_shard", "loc_edges", "rem_edges",
+                "exchange_bytes_per_layer", "replication_bytes_per_layer",
+                "exchange_via", "grad_err", "grad_err_leaf",
+                "grad_err_by_step", "grad_max_rel", "grad_max_rel_leaf",
+                "grad_max_rel_by_step", "loss_err", "grad_norm_err",
+                "param")})
+        # The grids' line first, so that a failed check leaves its numbers.
+        emit({"phase": "halo_grids", "card": card, "grids": grids,
+              "reference": {("bf16" if k else "fp32"): v
+                            for k, v in refs.items()},
+              "seconds": time.perf_counter() - t0}, out_lines)
+        for rec in records:
+            bf16, (data, shards) = rec["bf16"], rec["grid"]
+            what = f"halo grid ({data}, {shards}) {'bf16' if bf16 else 'fp32'}"
+            tol = HALO_TOL[bf16]
+            for key in ("grad_err", "loss_err", "grad_norm_err"):
+                check(rec[key] <= tol, f"{what} rank {rec['rank']}: {key} "
+                                       f"{rec[key]:.3e} > {tol}")
+            check(rec["ranks_agree"], f"{what}: ranks hold other parameters")
+            per = 2 * layers * h["steps"]
+            check(expected_launches(bf16, per) == rec["launches"],
+                  f"{what} rank {rec['rank']} launches {rec['launches']}, "
+                  f"expected {per} of each {'bf16' if bf16 else 'fp32'} "
+                  "kernel")
+            if (data, shards) == (1, h["shards"]) and rec["rank"] == 0:
+                launches[bf16] = rec["launches"]
+        grid_s = time.perf_counter() - t0
+        clustered = halo_clustered()
+
+        t1 = time.perf_counter()
+        spawn_ranks("cli", h["cli_ranks"], work)
+        cli_recs = [json.loads((work / f"cli_rank_{r}.json").read_text())
+                    for r in range(h["cli_ranks"])]
+        final = work / "cli" / FINAL_DIR
+        steps = -(-int(TRAINER["train_ratio"] * TRAINER["triplets"])
+                  // h["cli_batch"])
+        for rec in cli_recs:
+            primary = rec["rank"] == 0
+            for leg in ("leg1", "leg2"):
+                want = [FINAL_DIR] if primary else []
+                check(rec[leg]["writes"] == want,
+                      f"cli rank {rec['rank']} {leg} wrote {rec[leg]['writes']}")
+                # one forward a layer a step and for the eval, both subsets
+                fwd = 2 * layers * (steps + 1)
+                want_counts = expected_launches(False, 2 * layers * steps)
+                want_counts["relgat_fwd"] = fwd
+                check(rec[leg]["launches"] == want_counts,
+                      f"cli rank {rec['rank']} {leg} launches "
+                      f"{rec[leg]['launches']}, expected {want_counts}")
+            check(rec["leg2"]["resumed"] == primary,
+                  f"cli rank {rec['rank']}: 'Resumed from' printed "
+                  f"{rec['leg2']['resumed']}")
+            check(rec["same_state"] and rec["same_step"],
+                  f"cli rank {rec['rank']}: the resumed state or step "
+                  "differs from the live one")
+            check(rec["steps"] == steps, f"cli rank {rec['rank']} took "
+                                         f"{rec['steps']} steps, not {steps}")
+        done, dispatch, _ = saved_counts(final)
+        check(done == dispatch == 2 * steps,
+              f"the resumed CLI run saved step {done}, dispatch {dispatch}")
+        cli_rec = dict(ranks=h["cli_ranks"], batch=h["cli_batch"],
+                       steps_per_epoch=steps,
+                       leg1_s=[r["leg1"]["seconds"] for r in cli_recs],
+                       leg2_s=[r["leg2"]["seconds"] for r in cli_recs],
+                       resume_bit_identical=True, saved_step=done,
+                       seconds=time.perf_counter() - t1)
+        if out_dir is not None:
+            for p in work.glob("*.out"):
+                (out_dir / f"chip_smoke_halo_{p.name}").write_text(
+                    p.read_text())
+        kernel_rows = halo_kernel_rows(card, out_lines, launches)
+    emit({"phase": "halo", "card": card,
+          "ranks": "processes time-sharing one card over gloo; step_ms is "
+                   "not a scaling number",
+          "grids": [{k: g[k] for k in ("grid", "bf16", "rank", "step_ms",
+                                       "peak_bytes", "halo_pair",
+                                       "exchange_bytes_per_layer",
+                                       "exchange_via", "grad_err",
+                                       "loss_err", "grad_norm_err")}
+                    for g in grids],
+          "grid_s": grid_s, "clustered": clustered, "cli": cli_rec,
+          "seconds": time.perf_counter() - t0}, out_lines)
+    return kernel_rows
+
+
+def rank_main(args) -> int:
+    """One rank of phase 9 (``--rank-mode halo|cli``), started by
+    ``spawn_ranks`` with the phase's settings in ``WORK/config.json``."""
+    work = Path(args.work)
+    globals().update(json.loads((work / "config.json").read_text()))
+    run = {"halo": halo_rank, "cli": halo_cli_rank}[args.rank_mode]
+    run(int(args.rank), int(args.world), int(args.port), work)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -2039,7 +2732,11 @@ def main(argv=None) -> int:
                          "on its graph (phase 6 alone, launches null); a "
                          "copy of this file run from another checkout times "
                          "that checkout's kernels")
+    for flag in ("--rank-mode", "--rank", "--world", "--port", "--work"):
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.rank_mode is not None:
+        return rank_main(args)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on the card",
@@ -2103,6 +2800,7 @@ def main(argv=None) -> int:
         del graph
         kernels.append(phase_zipf(card, step_ms, out_lines))
         serve.update(phase_trainer(card, out_lines, args.out))
+        kernels += phase_halo(card, out_lines, args.out)
         emit({"phase": "serve", "card": card, **serve}, out_lines)
         emit({"parity_max_rel_err": worst, "card": card}, out_lines)
     emit({"kernels": kernels}, out_lines)

@@ -7,10 +7,17 @@ so the same command line trains the same run in either package; plus
 running on the CPU). ``--use-pallas`` selects the hand-written Hopper
 kernels; ``--kernel-precision default`` their bf16 row streams and
 ``--compute-dtype bfloat16`` bf16 projections; ``--remat``, ``--scan-segments``
-and ``--steps-per-call`` run as in the JAX package (``config.py``). Flags
-this package cannot run yet (more than one device or process) raise
-``NotImplementedError`` naming the field, as does a ``--config`` file that
-asks for a parameter or compute dtype other than float32 and bfloat16. As
+and ``--steps-per-call`` run as in the JAX package (``config.py``).
+``--mesh-data`` and ``--mesh-graph`` train on a grid of that many
+processes, one a device, the graph axis on the halo route
+(``--no-halo-overlap``, ``--partition-nodes``): start one process per
+device with ``--distributed --num-processes N --process-id I
+--coordinator-address HOST:PORT``; the process group's backend follows
+``--device`` (NCCL on CUDA, gloo on the CPU). Flags this package cannot run
+yet (``--mesh-model`` above 1, the ``replicated`` and ``gspmd`` routes over a
+graph axis) raise ``NotImplementedError`` naming the field, as does a
+``--config`` file that asks for them or for a parameter or compute dtype
+other than float32 and bfloat16. As
 in the JAX package, no flag sets ``param_dtype``: bf16 parameters are a
 ``ModelConfig`` field of the Python API. Console entry point:
 ``relgat-projector-train-torch``; also ``python -m
@@ -238,14 +245,14 @@ def get_args(argv=None) -> argparse.Namespace:
                    help="train steps per call; logs and evals fire in "
                         "windows of this many steps")
 
-    # Multi-chip / multi-host (no reference counterpart; values above 1 are
-    # not ported yet)
+    # Multi-device / multi-process (no reference counterpart)
     p.add_argument("--mesh-data", dest="mesh_data", type=int, default=1,
                    help="devices on the 'data' (DP) mesh axis")
     p.add_argument("--mesh-graph", dest="mesh_graph", type=int, default=1,
                    help="devices on the 'graph' (edge-partition) mesh axis")
     p.add_argument("--mesh-model", dest="mesh_model", type=int, default=1,
-                   help="devices on the 'model' (head-TP) mesh axis")
+                   help="devices on the 'model' (head-TP) mesh axis (not "
+                        "ported: values above 1 raise)")
     p.add_argument("--mesh-propagate", dest="mesh_propagate",
                    choices=["halo", "replicated", "gspmd"], default="halo",
                    help="graph-axis strategy: boundary-only halo exchange "
@@ -263,7 +270,10 @@ def get_args(argv=None) -> argparse.Namespace:
                         "build so clustered KGs with shuffled ids get "
                         "clustered-case boundary traffic")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet)")
+                   help="join a torch.distributed process group before "
+                        "training (one process per device; needs "
+                        "--coordinator-address, --num-processes and "
+                        "--process-id)")
     p.add_argument("--coordinator-address", dest="coordinator_address",
                    type=str, default=None)
     p.add_argument("--num-processes", dest="num_processes", type=int,
@@ -382,22 +392,15 @@ def build_run_config(args: argparse.Namespace) -> RunConfig:
     )
 
 
-def main(argv=None) -> None:
-    args = get_args(argv)
-    if args.distributed or args.num_processes is not None:
-        raise NotImplementedError(
-            "--distributed / --num-processes: multi-process training is not "
-            "ported yet"
-        )
-    device = resolve_device(args.device)
-    run_config = build_run_config(args)
-
+def load_kg(args: argparse.Namespace):
+    """``(node2emb, rel2idx, triplets)``: the synthetic KG of the flags, or
+    the reference's three files."""
     if args.synthetic:
         from relgat_projector_tpu_torch.data.synthetic import (
             generate_synthetic_kg,
         )
 
-        node2emb, rel2idx, edge_index_raw = generate_synthetic_kg(
+        return generate_synthetic_kg(
             num_nodes=args.synthetic_nodes,
             num_edges=args.synthetic_edges,
             num_rel=args.synthetic_rels,
@@ -406,23 +409,42 @@ def main(argv=None) -> None:
             nn_pool=args.synthetic_nn_pool,
             self_loops=args.synthetic_self_loops,
         )
-    else:
-        if not (
-            args.nodes_embeddings_path
-            and args.relations_mapping
-            and args.relations_triplets
-        ):
-            raise SystemExit(
-                "Provide --nodes-embeddings-path/--relations-mapping/"
-                "--relations-triplets, or use --synthetic."
-            )
-        from relgat_projector_tpu_torch.data.io import load_embeddings_and_edges
-
-        node2emb, rel2idx, edge_index_raw = load_embeddings_and_edges(
-            path_to_nodes=args.nodes_embeddings_path,
-            path_to_rels=args.relations_mapping,
-            path_to_edges=args.relations_triplets,
+    if not (
+        args.nodes_embeddings_path
+        and args.relations_mapping
+        and args.relations_triplets
+    ):
+        raise SystemExit(
+            "Provide --nodes-embeddings-path/--relations-mapping/"
+            "--relations-triplets, or use --synthetic."
         )
+    from relgat_projector_tpu_torch.data.io import load_embeddings_and_edges
+
+    return load_embeddings_and_edges(
+        path_to_nodes=args.nodes_embeddings_path,
+        path_to_rels=args.relations_mapping,
+        path_to_edges=args.relations_triplets,
+    )
+
+
+def main(argv=None) -> None:
+    args = get_args(argv)
+    device = resolve_device(args.device)
+    run_config = build_run_config(args)
+
+    # The process group before the trainer is built (parallel/distributed.py).
+    if args.distributed or args.num_processes is not None:
+        from relgat_projector_tpu_torch.parallel import initialize_distributed
+
+        rank = initialize_distributed(
+            coordinator_address=args.coordinator_address,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=device,
+        )
+        print(f"torch.distributed initialized (process {rank})")
+
+    node2emb, rel2idx, edge_index_raw = load_kg(args)
 
     from relgat_projector_tpu_torch.train.trainer import RelGATTrainer
 

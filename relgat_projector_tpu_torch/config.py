@@ -22,11 +22,15 @@ In this package:
   ``use_pallas`` it is ignored, as in the JAX package;
 - ``steps_per_call > 1`` runs that many steps a call
   (``train/step.py:make_scan_train_step``);
-- mesh, halo and partition fields are accepted; a value this package cannot
-  run yet (a compute or parameter dtype other than float32 and bfloat16,
-  more than one device) raises ``NotImplementedError`` naming the field, so
-  a ``training-config.json`` from the JAX package that asks for one fails
-  when it is loaded.
+- a mesh of ``data_axis`` x ``graph_axis`` devices runs as that many
+  processes of a ``torch.distributed`` group (``parallel/``), the graph
+  axis on the halo route (``mesh_propagate="halo"``, with
+  ``halo_overlap`` and ``partition_nodes``);
+- a value this package cannot run yet (a compute or parameter dtype other
+  than float32 and bfloat16, ``model_axis > 1``, the ``replicated`` and
+  ``gspmd`` routes over a graph axis) raises ``NotImplementedError``
+  naming the field, so a ``training-config.json`` from the JAX package
+  that asks for one fails when it is loaded.
 """
 
 from __future__ import annotations
@@ -223,18 +227,22 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout; this package runs on one device."""
+    """Device-mesh layout: one process a device (``parallel/mesh.py``)."""
 
-    data_axis: int = 1
-    graph_axis: int = 1
-    model_axis: int = 1
+    data_axis: int = 1   # DP over the triplet batch
+    graph_axis: int = 1  # destination-row shards of the graph (halo route)
+    model_axis: int = 1  # TP over attention heads: not ported
 
     def __post_init__(self) -> None:
-        if self.num_devices > 1:
+        for name in ("data_axis", "graph_axis", "model_axis"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        if self.model_axis > 1:
             raise NotImplementedError(
                 f"mesh data_axis={self.data_axis}, "
                 f"graph_axis={self.graph_axis}, model_axis={self.model_axis}:"
-                " multi-device meshes are not ported yet"
+                " model_axis > 1 (head tensor parallelism) is not ported yet "
+                "(ROADMAP.md Queue 1 item 6)"
             )
 
     @property
@@ -252,6 +260,15 @@ class RunConfig:
     architecture_name: Optional[str] = None
     base_model_name: Optional[str] = "relgat"
     run_name: Optional[str] = None
+
+    def __post_init__(self) -> None:
+        route = self.model.mesh_propagate
+        if route != "halo" and self.mesh.graph_axis > 1:
+            raise NotImplementedError(
+                f"mesh_propagate={route!r} with "
+                f"graph_axis={self.mesh.graph_axis}: only the halo route is "
+                "ported (ROADMAP.md Queue 1 item 6)"
+            )
 
     def to_dict(self) -> Dict[str, Any]:
         return {

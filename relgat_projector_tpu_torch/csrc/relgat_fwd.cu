@@ -30,8 +30,12 @@
 //   items spread over the card, not one warp's serial walk that outlasts the
 //   rest of the grid (49 ms for that graph against 3.15 ms for a uniform one
 //   in the first design, on the card above). Nothing is atomic, so two calls
-//   give the same bits. Dropout stays keyed by the canonical edge id (the
-//   dst-CSR position).
+//   give the same bits. Dropout stays keyed by the canonical edge id, read
+//   from `eid` (the dst-CSR position for a whole graph; a halo shard's local
+//   or remote subset carries its position in the shard's edge list), into
+//   the block's table beside (src, etype) when dropout is on.
+// - The source rows h[src] may be another space than the destination rows:
+//   a halo shard's remote subset gathers from the received halo buffer.
 // - One warp per head, 8 to a block, and the blocks of an item's head groups
 //   adjacent in the grid, so the 16 heads' 512-byte segments of a source row
 //   (8 KB) are requested together. The block loads the item's (src, etype)
@@ -92,6 +96,7 @@ relgat_fwd_kernel(const T* __restrict__ h,             // [N, H*F]
                   const int4* __restrict__ items,      // [I] (d, e0, e1, slot)
                   const int* __restrict__ src,         // [E] dst-sorted
                   const int* __restrict__ etype,       // [E] dst-sorted
+                  const int* __restrict__ eid,         // [E] canonical ids
                   float* __restrict__ out,             // [N, H*F]
                   float* __restrict__ m_out,           // [N, H]
                   float* __restrict__ l_out,           // [N, H]
@@ -104,6 +109,7 @@ relgat_fwd_kernel(const T* __restrict__ h,             // [N, H*F]
                   uint32_t thr, float keep_prob) {
   constexpr int FPL = VEC * NV;
   __shared__ __align__(16) int2 table[kItemEdges];  // (src, etype)
+  __shared__ int ids[kItemEdges];                   // canonical edge ids
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const int4 item = items[blockIdx.x / head_groups];
@@ -111,8 +117,10 @@ relgat_fwd_kernel(const T* __restrict__ h,             // [N, H*F]
   const int e0 = item.y;
   const int cnt = item.z - item.y;
   const int slot = item.w;
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x)
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
     table[i] = make_int2(src[e0 + i], etype[e0 + i]);
+    if (use_dropout) ids[i] = eid[e0 + i];
+  }
   __syncthreads();
   const int head = (blockIdx.x % head_groups) * warps + (threadIdx.x >> 5);
   if (head >= heads) return;
@@ -146,7 +154,7 @@ relgat_fwd_kernel(const T* __restrict__ h,             // [N, H*F]
     const float p = expf(ev - m_new);
     l = l * scale + p;
     const float pk =
-        use_dropout ? p * dropout_keep(e0 + j, head, seed, thr) / keep_prob : p;
+        use_dropout ? p * dropout_keep(ids[j], head, seed, thr) / keep_prob : p;
 #pragma unroll
     for (int i = 0; i < FPL; ++i) acc[i] = acc[i] * scale + pk * hv[i];
     m = m_new;
@@ -190,6 +198,7 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
                        const int4* __restrict__ items,
                        const int* __restrict__ src,
                        const int* __restrict__ etype,
+                       const int* __restrict__ eid,
                        float* __restrict__ out, float* __restrict__ m_out,
                        float* __restrict__ l_out,
                        float* __restrict__ bias_out,
@@ -200,6 +209,7 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
                        float eps, int use_dropout, uint32_t seed,
                        uint32_t thr, float keep_prob) {
   __shared__ __align__(16) int2 table[kItemEdges];  // (src, etype)
+  __shared__ int ids[kItemEdges];                   // canonical edge ids
   const int lane = threadIdx.x & 31;
   const int half = lane >> 4;
   const int f = 8 * (lane & 15);
@@ -209,8 +219,10 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   const int e0 = item.y;
   const int cnt = item.z - item.y;
   const int slot = item.w;
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x)
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
     table[i] = make_int2(src[e0 + i], etype[e0 + i]);
+    if (use_dropout) ids[i] = eid[e0 + i];
+  }
   __syncthreads();
   const int pair = (blockIdx.x % head_groups) * warps + (threadIdx.x >> 5);
   if (2 * pair >= heads) return;
@@ -254,7 +266,7 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
     const float p = expf(ev - m_new);
     l = l * scale + p;
     const float pk =
-        use_dropout ? p * dropout_keep(e0 + j, head, seed, thr) / keep_prob : p;
+        use_dropout ? p * dropout_keep(ids[j], head, seed, thr) / keep_prob : p;
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[i] = acc[i] * scale + pk * hv[i];
     m = m_new;
@@ -391,7 +403,7 @@ bool aligned(const void* p, size_t bytes) {
 template <typename T>
 int launch_fwd(const T* h, const float* attn, const float* rel_bias,
                const int* items, const int* src, const int* etype,
-               const int* merge, float* out, float* m_out, float* l_out,
+               const int* eid, const int* merge, float* out, float* m_out, float* l_out,
                float* bias_out, float* part_acc, float* part_ml,
                double* part_bias, int num_items, int num_split,
                int item_edges, int heads, int feat, int num_rel, float slope,
@@ -414,9 +426,10 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
   do {                                                                        \
     if (num_items > 0) {                                                      \
       relgat_fwd_kernel<VEC, NV, T><<<num_items * groups, block, 0, st>>>(    \
-          h, attn, rel_bias, it, src, etype, out, m_out, l_out, bias_out,     \
-          part_acc, ml, part_bias, groups, heads, feat, num_rel, slope, eps,  \
-          use_dropout, static_cast<uint32_t>(seed), thr, keep_prob);          \
+          h, attn, rel_bias, it, src, etype, eid, out, m_out, l_out,          \
+          bias_out, part_acc, ml, part_bias, groups, heads, feat, num_rel,    \
+          slope, eps, use_dropout, static_cast<uint32_t>(seed), thr,          \
+          keep_prob);                                                         \
       const cudaError_t err = cudaGetLastError();                             \
       if (err != cudaSuccess) return static_cast<int>(err);                   \
     }                                                                         \
@@ -436,7 +449,7 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
       const int groups2 = (pairs + wpb2 - 1) / wpb2;
       relgat_fwd_pair_kernel<<<num_items * groups2, 32 * wpb2, 0, st>>>(
           reinterpret_cast<const __nv_bfloat16*>(h), attn, rel_bias, it, src,
-          etype, out, m_out, l_out, bias_out, part_acc, ml, part_bias,
+          etype, eid, out, m_out, l_out, bias_out, part_acc, ml, part_bias,
           groups2, heads, feat, num_rel, slope, eps, use_dropout,
           static_cast<uint32_t>(seed), thr, keep_prob);
       const cudaError_t err = cudaGetLastError();
@@ -479,33 +492,35 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
 
 extern "C" int relgat_fwd(const float* h, const float* attn,
                           const float* rel_bias, const int* items,
-                          const int* src, const int* etype, const int* merge,
-                          float* out, float* m_out, float* l_out,
-                          float* bias_out, float* part_acc, float* part_ml,
-                          double* part_bias, int num_items, int num_split,
+                          const int* src, const int* etype, const int* eid,
+                          const int* merge, float* out, float* m_out,
+                          float* l_out, float* bias_out, float* part_acc,
+                          float* part_ml, double* part_bias, int num_items,
+                          int num_split,
                           int item_edges, int heads, int feat, int num_rel,
                           float slope, float eps, int use_dropout, int seed,
                           unsigned int thr, float keep_prob, void* stream) {
-  return launch_fwd(h, attn, rel_bias, items, src, etype, merge, out, m_out,
-                    l_out, bias_out, part_acc, part_ml, part_bias, num_items,
-                    num_split, item_edges, heads, feat, num_rel, slope, eps,
-                    use_dropout, seed, thr, keep_prob, stream);
+  return launch_fwd(h, attn, rel_bias, items, src, etype, eid, merge, out,
+                    m_out, l_out, bias_out, part_acc, part_ml, part_bias,
+                    num_items, num_split, item_edges, heads, feat, num_rel,
+                    slope, eps, use_dropout, seed, thr, keep_prob, stream);
 }
 
 // The same with h in bf16 (kernel_precision="default").
 extern "C" int relgat_fwd_bf16(const __nv_bfloat16* h, const float* attn,
                                const float* rel_bias, const int* items,
                                const int* src, const int* etype,
-                               const int* merge, float* out, float* m_out,
-                               float* l_out, float* bias_out, float* part_acc,
+                               const int* eid, const int* merge, float* out,
+                               float* m_out, float* l_out, float* bias_out,
+                               float* part_acc,
                                float* part_ml, double* part_bias,
                                int num_items, int num_split, int item_edges,
                                int heads, int feat, int num_rel, float slope,
                                float eps, int use_dropout, int seed,
                                unsigned int thr, float keep_prob,
                                void* stream) {
-  return launch_fwd(h, attn, rel_bias, items, src, etype, merge, out, m_out,
-                    l_out, bias_out, part_acc, part_ml, part_bias, num_items,
-                    num_split, item_edges, heads, feat, num_rel, slope, eps,
-                    use_dropout, seed, thr, keep_prob, stream);
+  return launch_fwd(h, attn, rel_bias, items, src, etype, eid, merge, out,
+                    m_out, l_out, bias_out, part_acc, part_ml, part_bias,
+                    num_items, num_split, item_edges, heads, feat, num_rel,
+                    slope, eps, use_dropout, seed, thr, keep_prob, stream);
 }

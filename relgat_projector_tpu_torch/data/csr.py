@@ -5,10 +5,14 @@ walk ``[C, 8, TE]`` chunks of a block-padded stream because a TPU wants
 static, (8, 128)-tiled blocks and turns scatters into one-hot matmuls. The
 CUDA kernels gather and reduce rows directly, so they read plain CSR:
 
-- by destination (forward): ``dst_ptr [N+1]``, ``src``/``dst``/``etype [E]``
-  in dst-sorted order. An edge's id, the key of the attention-dropout hash,
-  is its position here, which is its index in ``GraphData``'s dst-sorted COO,
-  the same id the JAX layouts carry in ``chunk_meta`` row 3;
+- by destination (forward): ``dst_ptr [N+1]``, ``src``/``dst``/``etype``
+  and ``eid [E]`` in dst-sorted order. ``eid`` is an edge's canonical id,
+  the key of the attention-dropout hash, the id the JAX layouts carry in
+  ``chunk_meta`` row 3. For a whole graph it is the edge's position here,
+  its index in ``GraphData``'s dst-sorted COO; a subset of a graph shard's
+  edges (the halo route's local or remote sources, ``parallel/halo.py``)
+  carries its position in the shard's whole edge list instead, so both
+  routes draw the same masks;
 - the forward's work plan: ``fwd_items [I, 4]``, one work item a row of
   ``(row, first edge, end edge, partial slot)``, in dst-CSR order. A row of
   at most ``FWD_ITEM_EDGES`` in-edges (rows without in-edges included) is
@@ -18,9 +22,13 @@ CUDA kernels gather and reduce rows directly, so they read plain CSR:
   into its own slot; ``fwd_merge [S, 3]`` lists each such row with its
   slots ``[first, end)`` in chunk order for the merge kernel. So no row,
   however many in-edges it has, is one warp's serial walk;
-- by source (backward): ``src_ptr [N+1]`` with ``by_src_dst``,
-  ``by_src_etype`` and ``by_src_eid [E]``, each row's edges in id order.
+- by source (backward): ``src_ptr [N_src+1]`` with ``by_src_dst``,
+  ``by_src_etype`` and ``by_src_eid [E]``, each row's edges in dst-CSR order.
 
+The source space may differ from the destination rows: ``num_nodes`` counts
+the destination rows (of ``out`` and the statistics), ``num_src`` the rows of
+``h`` that edges read (on one device both are the padded node count; a halo
+shard's remote subset reads a received buffer of ``G * halo_pair`` rows).
 Only the real edges are stored (as the JAX blocked path does); padded node
 rows simply have empty ranges. All arrays are int32 on the kernels' device.
 """
@@ -28,6 +36,7 @@ rows simply have empty ranges. All arrays are int32 on the kernels' device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -43,17 +52,20 @@ class CSRGraph:
     src: torch.Tensor           # [E] dst-sorted
     dst: torch.Tensor           # [E] dst-sorted
     etype: torch.Tensor         # [E] dst-sorted
-    src_ptr: torch.Tensor       # [N+1]
+    eid: torch.Tensor           # [E] dst-sorted canonical edge ids
+    src_ptr: torch.Tensor       # [N_src+1]
     by_src_dst: torch.Tensor    # [E] src-sorted
     by_src_etype: torch.Tensor  # [E] src-sorted
     by_src_eid: torch.Tensor    # [E] src-sorted
     fwd_items: torch.Tensor     # [I, 4] (row, e0, e1, slot or -1)
     fwd_merge: torch.Tensor     # [S, 3] (row, first slot, end slot)
-    num_nodes: int
+    num_nodes: int              # destination rows
     num_edges: int
     num_rel: int                # relations the layout indexes (> max etype)
     fwd_item_edges: int         # the plan's most edges per item
     fwd_num_parts: int          # partial slots of the split rows
+    num_src: int                # rows of the source space
+
 
     @property
     def fwd_num_items(self) -> int:
@@ -100,13 +112,28 @@ def build_csr_graph(
     num_nodes: int,
     num_rel: int,
     device: torch.device,
+    *,
+    num_src: Optional[int] = None,
+    eid: Optional[np.ndarray] = None,
 ) -> CSRGraph:
     """Build the two orderings and the forward's work plan from real edges
     that are already sorted by dst (``data/graph.py`` sorts them stably),
-    bounds already checked."""
+    ``dst < num_nodes`` and ``src < num_src`` (default ``num_nodes``),
+    checked here: on the card an index out of range is an illegal memory
+    access. ``eid`` gives the edges' canonical ids (default: their
+    positions)."""
     e = int(src.shape[0])
     if e >= 2**31:
         raise ValueError("the kernels index edges with int32")
+    num_src = int(num_nodes if num_src is None else num_src)
+    if e:
+        for name, a, hi in (("src", src, num_src), ("dst", dst, num_nodes)):
+            if a.min() < 0 or a.max() >= hi:
+                raise ValueError(
+                    f"{name} out of range: [{a.min()}, {a.max()}] not in "
+                    f"[0, {hi})"
+                )
+    eid = np.arange(e) if eid is None else np.asarray(eid, np.int64)
     by_src = np.argsort(src, kind="stable")
     dst_ptr = _row_ptr(dst, num_nodes)
     items, merge = build_fwd_plan(dst_ptr, FWD_ITEM_EDGES)
@@ -119,10 +146,11 @@ def build_csr_graph(
         src=t(src),
         dst=t(dst),
         etype=t(etype),
-        src_ptr=t(_row_ptr(src, num_nodes)),
+        eid=t(eid),
+        src_ptr=t(_row_ptr(src, num_src)),
         by_src_dst=t(dst[by_src]),
         by_src_etype=t(etype[by_src]),
-        by_src_eid=t(by_src),
+        by_src_eid=t(eid[by_src]),
         fwd_items=t(items),
         fwd_merge=t(merge),
         num_nodes=int(num_nodes),
@@ -130,4 +158,5 @@ def build_csr_graph(
         num_rel=int(num_rel),
         fwd_item_edges=FWD_ITEM_EDGES,
         fwd_num_parts=int(merge[-1, 2]) if len(merge) else 0,
+        num_src=num_src,
     )

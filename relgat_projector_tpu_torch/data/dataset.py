@@ -1,7 +1,7 @@
 """Dataset orchestration: compaction, split, graph build, static batching.
 
-Port of ``relgat_projector_tpu/data/dataset.py`` for one device, giving the
-same splits, graph and batches for the same inputs:
+Port of ``relgat_projector_tpu/data/dataset.py``, giving the same splits,
+graph and batches for the same inputs:
 
 - id compaction over sorted node ids (reference ``relgat_dataset.py:61-63``);
 - a seeded shuffle from ``default_rng(seed)`` and a ratio split (``:70-88``);
@@ -16,9 +16,15 @@ The CSR layout needs no tuning, so the JAX package's layout tuner and its
 is accepted and changes nothing: the JAX package builds segment stacks for
 its scanned propagate, which bounds the E-sized gather streams a TPU keeps
 live, and the kernels here gather rows inside the kernel and keep no
-E-sized float tensor, so the one CSR layout serves. Graph shards and
-halo shards are not ported and raise; node partitioning only acts with
-halo shards, so without them it does nothing, as in the JAX package.
+E-sized float tensor, so the one CSR layout serves.
+
+``halo_shards > 1`` builds the halo route's plan (``parallel/halo.py``),
+with its local/remote split when ``halo_overlap``; ``partition_nodes``
+then relabels the nodes first (``data/partition.py``), as the JAX package
+does, and only then (without halo shards it does nothing). With
+``materialize_features=False`` the ``[N, D]`` embedding matrix is never
+stacked: a rank builds its own rows through ``feature_rows``. Graph shards
+(the ``replicated`` route) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -58,18 +64,17 @@ class RelGATData:
         csr: bool = False,
         graph_shards: int = 1,
         halo_shards: int = 0,
+        halo_overlap: bool = False,
         scan_segments: int = 0,
         partition_nodes: bool = False,
+        materialize_features: bool = True,
         device: DeviceLike = "cuda",
     ):
-        unported = {
-            "graph_shards > 1": graph_shards > 1,
-            "halo_shards > 1": halo_shards > 1,
-        }
-        for what, hit in unported.items():
-            if hit:
-                raise NotImplementedError(f"{what} is not ported yet")
-        del partition_nodes  # acts only with halo shards
+        if graph_shards > 1:
+            raise NotImplementedError(
+                f"graph_shards={graph_shards} (the replicated route) is not "
+                "ported yet (ROADMAP.md Queue 1 item 6)"
+            )
 
         self.rel2idx = dict(rel2idx)
         self.num_rel = len(rel2idx)
@@ -83,12 +88,19 @@ class RelGATData:
         self.emb_dim = int(
             np.asarray(node2emb[self.all_node_ids[0]]).shape[-1]
         )
-        emb = np.stack(
-            [
-                np.asarray(node2emb[nid], dtype=np.float32)
-                for nid in self.all_node_ids
-            ]
-        )
+        # Without materialize_features the [N, D] matrix is never stacked:
+        # each rank builds its rows through feature_rows.
+        self._materialize = bool(materialize_features)
+        self._node2emb = None if self._materialize else node2emb
+        self.features_materialized_rows = 0
+        emb = None
+        if self._materialize:
+            emb = np.stack(
+                [
+                    np.asarray(node2emb[nid], dtype=np.float32)
+                    for nid in self.all_node_ids
+                ]
+            )
 
         # Map triplets onto compact indices and integer relation ids.
         def _rel_id(r):
@@ -118,6 +130,37 @@ class RelGATData:
             f"({100 - self.train_ratio * 100:.1f} %)"
         )
 
+        # Min-cut relabeling for the halo route: clusters of train-edge
+        # structure packed into the shards' contiguous id ranges, applied
+        # to the embeddings and both edge splits alike.
+        self.node_perm: Optional[np.ndarray] = None
+        self.partition_stats: Optional[Dict[str, float]] = None
+        if partition_nodes and halo_shards > 1:
+            from relgat_projector_tpu_torch.data.partition import (
+                partition_node_permutation,
+            )
+            from relgat_projector_tpu_torch.parallel.halo import (
+                halo_rows_per_shard,
+            )
+
+            rows = halo_rows_per_shard(self.num_nodes, halo_shards)
+            perm, stats = partition_node_permutation(
+                self.train_edges[:, 0], self.train_edges[:, 1],
+                self.num_nodes, halo_shards, rows,
+            )
+            self.node_perm = perm
+            self.partition_stats = stats
+            if emb is not None:
+                emb = emb[np.argsort(perm)]  # row new_id = old node's emb
+            for arr in (self.train_edges, self.eval_edges):
+                arr[:, 0] = perm[arr[:, 0]]
+                arr[:, 1] = perm[arr[:, 1]]
+            print(
+                "Partitioned nodes for halo exchange: edge cut "
+                f"{stats['edge_cut_before']:.3f} -> "
+                f"{stats['edge_cut_after']:.3f} over {halo_shards} shards"
+            )
+
         # Message-passing graph from TRAIN edges only (``:123-137``).
         self.graph: GraphData = build_graph(
             self.train_edges[:, 0],
@@ -128,12 +171,39 @@ class RelGATData:
             csr=csr,
             edge_pad_multiple=edge_pad_multiple,
             node_pad_multiple=node_pad_multiple,
+            halo_shards=halo_shards,
+            halo_overlap=halo_overlap,
             device=device,
         )
-        # Frozen embeddings, zero-padded to the graph's node count (host).
-        self.node_emb = pad_node_embeddings(emb, self.graph.num_nodes)
+        # Frozen embeddings, zero-padded to the graph's node count (host;
+        # None without materialize_features).
+        self.node_emb = (pad_node_embeddings(emb, self.graph.num_nodes)
+                         if emb is not None else None)
 
         self._epoch_rng = np.random.default_rng(self.seed + 1)
+
+    def feature_rows(self, lo: int, hi: int) -> np.ndarray:
+        """Rows ``[lo, hi)`` of the (relabeled, padded) embedding matrix:
+        a rank's own rows (JAX ``feature_rows``). Rows past the real nodes
+        are zeros; with a partition, row ``new_id`` holds the embedding of
+        the node relabeled to it. ``features_materialized_rows`` counts the
+        rows built, so a test can see that a rank never built them all."""
+        lo, hi = int(lo), int(hi)
+        out = np.zeros((hi - lo, self.emb_dim), np.float32)
+        n_real = min(hi, self.num_nodes) - lo
+        if n_real > 0:
+            if self._materialize:
+                out[:n_real] = self.node_emb[lo:lo + n_real]
+            else:
+                new_ids = np.arange(lo, lo + n_real)
+                old_ids = (np.argsort(self.node_perm)[new_ids]
+                           if self.node_perm is not None else new_ids)
+                for i, o in enumerate(old_ids):
+                    out[i] = np.asarray(
+                        self._node2emb[self.all_node_ids[int(o)]], np.float32
+                    )
+        self.features_materialized_rows += hi - lo
+        return out
 
     @property
     def num_train(self) -> int:

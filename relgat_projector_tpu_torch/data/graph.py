@@ -1,10 +1,15 @@
 """Graph container: dst-sorted, padded COO plus the kernels' CSR layout.
 
-Port of ``relgat_projector_tpu/data/graph.py`` (single device). The COO keeps
-the JAX package's padding so the plain path matches ``_xla_propagate`` row
-for row: nodes pad to ``round_up(N + 1, 8)`` with at least one padded row,
-edges pad to a multiple of 128, and padded edges point ``src = dst`` at the
-last padded row with ``etype = 0``.
+Port of ``relgat_projector_tpu/data/graph.py``. The COO keeps the JAX
+package's padding so the plain path matches ``_xla_propagate`` row for row:
+nodes pad to ``round_up(N + 1, 8)`` with at least one padded row, edges pad
+to a multiple of 128, and padded edges point ``src = dst`` at the last
+padded row with ``etype = 0``.
+
+``halo_shards > 1`` builds the halo route's plan instead of the kernels'
+layout (``parallel/halo.py``): nodes pad to ``halo_shards * rows_per_shard``
+and ``halo`` holds the host plan of every shard, which
+``parallel.place_halo_graph`` turns into one rank's shard.
 
 Unlike the JAX path's clip-mode gathers, an out-of-range index on the card is
 an illegal memory access, so ``build_graph`` checks every index on the host.
@@ -13,7 +18,7 @@ an illegal memory access, so ``build_graph`` checks every index on the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -36,6 +41,7 @@ class GraphData:
     num_real_edges: int
     max_etype: int       # -1 without edges
     csr: Optional[CSRGraph] = None  # the kernels' layout (use_pallas)
+    halo: Any = None     # HaloGraph (host plan) or one rank's HaloShard
 
     @property
     def num_edges_padded(self) -> int:
@@ -52,13 +58,17 @@ def build_graph(
     csr: bool = False,
     edge_pad_multiple: int = 128,
     node_pad_multiple: int = 8,
+    halo_shards: int = 0,
+    halo_overlap: bool = False,
     device: DeviceLike = "cuda",
 ) -> GraphData:
     """Build a padded, dst-sorted :class:`GraphData` from host COO arrays.
 
     ``csr=True`` adds the CSR layout the propagate kernels read (the
     counterpart of ``blocked=True``). ``num_rel`` bounds ``etype`` when
-    given; the layout then covers that many relations."""
+    given; the layout then covers that many relations. ``halo_shards > 1``
+    builds the halo plan (with the local/remote split if
+    ``halo_overlap``) in place of the layout; the shards build theirs."""
     dev = resolve_device(device)
     src = np.asarray(src).astype(np.int64).reshape(-1)
     dst = np.asarray(dst).astype(np.int64).reshape(-1)
@@ -81,7 +91,15 @@ def build_graph(
     order = np.argsort(dst, kind="stable")
     src, dst, etype = src[order], dst[order], etype[order]
 
-    num_nodes_padded = round_up(num_real_nodes + 1, node_pad_multiple)
+    plan = None
+    if halo_shards > 1:
+        from relgat_projector_tpu_torch.parallel.halo import build_halo_graph
+
+        plan = build_halo_graph(src, dst, etype, num_real_nodes, halo_shards,
+                                overlap=halo_overlap)
+        num_nodes_padded = plan.num_nodes
+    else:
+        num_nodes_padded = round_up(num_real_nodes + 1, node_pad_multiple)
     e_pad = round_up(max(num_real_edges, 1), edge_pad_multiple)
     pad_n = e_pad - num_real_edges
     pad_node = num_nodes_padded - 1
@@ -90,7 +108,7 @@ def build_graph(
     et_p = np.concatenate([etype, np.zeros(pad_n, np.int64)])
 
     layout = None
-    if csr:
+    if csr and plan is None:
         layout = build_csr_graph(
             src, dst, etype, num_nodes_padded,
             num_rel if num_rel is not None else max_etype + 1, dev,
@@ -104,6 +122,7 @@ def build_graph(
         num_real_edges=num_real_edges,
         max_etype=max_etype,
         csr=layout,
+        halo=plan,
     )
 
 

@@ -110,6 +110,7 @@ def apply_relgat_layer(
         use_pallas=use_pallas,
         csr=graph.csr,
         kernel_precision=kernel_precision,
+        halo=graph.halo,
     )
     out = agg.reshape(n, heads * out_dim)
 

@@ -104,7 +104,11 @@ def single_gat_step(
     ``cfg.remat`` each GAT layer runs under ``torch.utils.checkpoint`` (JAX:
     ``jax.checkpoint``): its activations are not kept for the backward,
     which runs the layer again. Its random draws are made before it and
-    passed in, so the second run draws nothing."""
+    passed in, so the second run draws nothing.
+
+    On a graph shard (``graph.halo`` a ``parallel.HaloShard``) ``node_emb``
+    and the result are the shard's rows; the output-dropout masks are drawn
+    for every node and sliced, so every rank's generators stay in step."""
     if node_emb.is_cuda:
         set_matmul_precision()
     compute_dtype = getattr(torch, cfg.compute_dtype)
@@ -123,13 +127,20 @@ def single_gat_step(
             kernel_precision=cfg.kernel_precision,
         )
 
+    rows = None
+    if graph.halo is not None:
+        lo, hi = graph.halo.row_range
+        rows = (graph.num_nodes, lo, hi)
     x = node_emb
     for li in range(num_layers):
         seed, keep = draw_layer_randomness(
-            rng, (x.shape[0], width), dropout_rate=cfg.dropout,
+            rng, (x.shape[0] if rows is None else rows[0], width),
+            dropout_rate=cfg.dropout,
             attn_dropout_rate=cfg.rel_attn_dropout, train=train,
             device=x.device,
         )
+        if rows is not None and keep is not None:
+            keep = keep[rows[1]:rows[2]]
         if cfg.remat and torch.is_grad_enabled():
             # preserve_rng_state would save and restore the default
             # generators, which the layer does not draw from.
@@ -144,7 +155,7 @@ def single_gat_step(
     if cfg.project_to_input_size:
         x = apply_projection_head(
             params["projection"], x, dropout_rate=cfg.projection_dropout,
-            train=train, rng=rng, compute_dtype=compute_dtype,
+            train=train, rng=rng, compute_dtype=compute_dtype, rows=rows,
         )
     return x
 

@@ -10,7 +10,7 @@ LayerNorm and dropout run in fp32.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -74,7 +74,11 @@ def apply_projection_head(
     train: bool = False,
     rng: Optional[RngStreams] = None,
     compute_dtype: torch.dtype = torch.float32,
+    rows: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
+    """The head over ``x``'s rows. ``rows = (total, lo, hi)``: ``x`` holds
+    rows ``[lo, hi)`` of ``total`` (a graph shard's), and the dropout mask
+    is drawn for all of them and sliced."""
     n_ln = len(params["ln_scale"])
     y = x
     for i, w in enumerate(params["linears"]):
@@ -83,8 +87,11 @@ def apply_projection_head(
             y = F.gelu(y, approximate="none")
             y = _layer_norm(y, params["ln_scale"][i], params["ln_bias"][i])
     if train and dropout_rate > 0.0 and rng is not None:
-        keep = torch.empty_like(y).bernoulli_(
+        shape = y.shape if rows is None else (rows[0], y.shape[1])
+        keep = y.new_empty(shape).bernoulli_(
             1.0 - dropout_rate, generator=rng.device
         )
+        if rows is not None:
+            keep = keep[rows[1]:rows[2]]
         y = y * keep / (1.0 - dropout_rate)
     return y

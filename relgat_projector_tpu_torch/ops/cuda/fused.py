@@ -27,13 +27,21 @@ A wrapper given CPU tensors computes its plain PyTorch version (the
 or raises: a CUDA tensor of another type than the kernel reads is refused,
 never converted. The plain versions are the reference the kernels are held
 to on the card; nothing on the card's main path calls them. Each wrapper
-counts its launches in a plain int attribute, ``<wrapper>.launches``.
+counts its launches in a plain int attribute, ``<wrapper>.launches``, where
+its kernel launches: a call that launches nothing (a src pass over no
+source rows) counts nothing.
 
-Shapes: ``h``/``g``/``out``/``dh`` are ``[N, H*F]`` over the layout's N
-(padded) node rows, fp32 (``h``/``g`` bf16 in the bf16 variants);
+Shapes, over the layout's ``N_src = csr.num_src`` source rows and
+``N = csr.num_nodes`` destination rows (both the padded node count on one
+device; a halo shard's subsets read their own source spaces,
+``parallel/halo.py``): ``h``/``dh`` are ``[N_src, H*F]`` and ``g``/``out``
+``[N, H*F]``, fp32 (``h``/``g`` bf16 in the bf16 variants);
 ``attn``/``dattn`` ``[H, R, F]``; the statistics ``m``, ``l`` (un-dropped
 softmax sum) and ``s_dot`` (``<out - bias, g>``) ``[N, H]``; ``gsum``
-(``sum_{h,f} g``) ``[N]``; ``W`` ``[N, H, R]`` and ``B`` ``[N, R]``.
+(``sum_{h,f} g``) ``[N]``; ``W`` ``[N_src, H, R]`` and ``B`` ``[N_src, R]``.
+A destination row without in-edges comes out with ``m = -inf``, ``l = 0``
+and ``out = 0``. Attention dropout hashes each edge's canonical id,
+``csr.eid``.
 """
 
 from __future__ import annotations
@@ -68,11 +76,10 @@ def _dropout_args(seed: Optional[int], rate: float):
     return 0, 0, 0, 1.0
 
 
-def _keep_scale(csr: CSRGraph, heads, seed, rate, device) -> Optional[torch.Tensor]:
+def _keep_scale(csr: CSRGraph, heads, seed, rate) -> Optional[torch.Tensor]:
     if not (rate > 0.0 and seed is not None):
         return None
-    eids = torch.arange(csr.num_edges, device=device)
-    return edge_keep_mask_all_heads(eids, heads, seed, rate) / (1.0 - rate)
+    return edge_keep_mask_all_heads(csr.eid, heads, seed, rate) / (1.0 - rate)
 
 
 def _on_card(
@@ -111,14 +118,15 @@ def _f32(like: torch.Tensor, shape) -> torch.Tensor:
 
 
 def check_shapes(name, h, attn, csr):
-    """The shape gate of the kernels: ``(N, H, R, F)`` of ``h [N, H*F]``
-    and ``attn [H, R, F]`` over ``csr``, or a ValueError naming what the
-    kernels do not take. The plain versions take any width."""
+    """The shape gate of the kernels: ``(N_src, H, R, F)`` of
+    ``h [N_src, H*F]`` and ``attn [H, R, F]`` over ``csr``, or a ValueError
+    naming what the kernels do not take. The plain versions take any
+    width."""
     n, hf = h.shape
     heads, num_rel, f = attn.shape
-    if hf != heads * f or n != csr.num_nodes:
+    if hf != heads * f or n != csr.num_src:
         raise ValueError(
-            f"{name}: h is {tuple(h.shape)}, expected [{csr.num_nodes}, "
+            f"{name}: h is {tuple(h.shape)}, expected [{csr.num_src}, "
             f"{heads * f}]"
         )
     if f > MAX_FEAT:
@@ -158,16 +166,17 @@ def relgat_fwd_plain(
     h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope, eps
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``relgat_fwd``: ``(out, m, l, bias)``."""
-    n, hf = h.shape
+    n_src, hf = h.shape
+    n = csr.num_nodes
     heads, _, f = attn.shape
     src, dst, et = csr.src.long(), csr.dst.long(), csr.etype.long()
-    hs = h.view(n, heads, f)[src]                                # [E, H, F]
+    hs = h.view(n_src, heads, f)[src]                            # [E, H, F]
     e = F.leaky_relu(_dots(hs, attn[:, et].transpose(0, 1)),
                      negative_slope)                             # [E, H]
     m = segment_max(e, dst, n)
     p = torch.exp(e - torch.where(torch.isfinite(m), m, 0.0)[dst])
     l = segment_sum(p, dst, n)
-    keep = _keep_scale(csr, heads, seed, rate, h.device)
+    keep = _keep_scale(csr, heads, seed, rate)
     if keep is not None:
         p = p * keep
     acc = segment_sum(hs * p[..., None], dst, n)
@@ -183,7 +192,8 @@ def relgat_fwd_split_plain(
     acc_c, bias_c)`` per work item of ``csr.fwd_items``, then each row's
     items merged, ``m = max m_c``, ``l = sum l_c e^(m_c - m)``, ``acc`` alike
     and the bias summed. The tests hold it to ``relgat_fwd_plain``."""
-    n, hf = h.shape
+    n_src, hf = h.shape
+    n = csr.num_nodes
     heads, _, f = attn.shape
     items = csr.fwd_items.long()
     row = items[:, 0]
@@ -191,13 +201,13 @@ def relgat_fwd_split_plain(
     item = torch.repeat_interleave(
         torch.arange(num_items, device=h.device), items[:, 2] - items[:, 1])
     src, et = csr.src.long(), csr.etype.long()
-    hs = h.view(n, heads, f)[src]                                # [E, H, F]
+    hs = h.view(n_src, heads, f)[src]                            # [E, H, F]
     e = F.leaky_relu(_dots(hs, attn[:, et].transpose(0, 1)),
                      negative_slope)                             # [E, H]
     m_c = segment_max(e, item, num_items)                        # [I, H]
     p = torch.exp(e - m_c[item])
     l_c = segment_sum(p, item, num_items)
-    keep = _keep_scale(csr, heads, seed, rate, h.device)
+    keep = _keep_scale(csr, heads, seed, rate)
     if keep is not None:
         p = p * keep
     acc_c = segment_sum(hs * p[..., None], item, num_items)
@@ -224,16 +234,19 @@ def relgat_fwd_bf16_plain(
 
 
 def _launch_fwd(
-    name, h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope,
+    wrapper, h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope,
     eps,
 ):
-    n, heads, num_rel, f = check_shapes(name, h, attn, csr)
+    """Launch ``wrapper``'s kernel and count the launch."""
+    name = wrapper.__name__
+    _, heads, num_rel, f = check_shapes(name, h, attn, csr)
     if csr.fwd_item_edges > FWD_ITEM_EDGES:
         raise ValueError(
             f"{name}: work items of {csr.fwd_item_edges} edges exceed "
             f"the kernel's edge table of {FWD_ITEM_EDGES}"
         )
-    out = _f32(h, h.shape)
+    n = csr.num_nodes
+    out = _f32(h, (n, heads * f))
     m = _f32(h, (n, heads))
     l = _f32(h, (n, heads))
     bias = _f32(h, (n,))
@@ -245,27 +258,27 @@ def _launch_fwd(
     rc = entry_point(name)(
         h.data_ptr(), attn.data_ptr(), rel_bias.data_ptr(),
         csr.fwd_items.data_ptr(), csr.src.data_ptr(), csr.etype.data_ptr(),
-        csr.fwd_merge.data_ptr(), out.data_ptr(), m.data_ptr(),
+        csr.eid.data_ptr(), csr.fwd_merge.data_ptr(), out.data_ptr(), m.data_ptr(),
         l.data_ptr(), bias.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), part_bias.data_ptr(), csr.fwd_num_items,
         csr.fwd_num_split, csr.fwd_item_edges, heads, f, num_rel,
         float(negative_slope), float(eps), use, s, thr, keep, _stream(),
     )
     _raise_on(rc, name)
+    wrapper.launches += 1
     return out, m, l, bias
 
 
 def relgat_fwd(
     h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope, eps
 ):
-    """Aggregate every row's in-edges: ``out [N, H*F]`` (rows without
-    in-edges are 0) and the saved statistics ``m, l [N, H]``, ``bias [N]``."""
+    """Aggregate every destination row's in-edges: ``out [N, H*F]`` (rows
+    without in-edges are 0) and the saved statistics ``m, l [N, H]``,
+    ``bias [N]``."""
     kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
     if not _on_card("relgat_fwd", csr, h, attn, rel_bias):
         return relgat_fwd_plain(h, attn, rel_bias, csr, **kw)
-    result = _launch_fwd("relgat_fwd", h, attn, rel_bias, csr, **kw)
-    relgat_fwd.launches += 1
-    return result
+    return _launch_fwd(relgat_fwd, h, attn, rel_bias, csr, **kw)
 
 
 def relgat_fwd_bf16(
@@ -275,9 +288,7 @@ def relgat_fwd_bf16(
     kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
     if not _on_card("relgat_fwd_bf16", csr, h, attn, rel_bias, bf16_rows=1):
         return relgat_fwd_bf16_plain(h, attn, rel_bias, csr, **kw)
-    result = _launch_fwd("relgat_fwd_bf16", h, attn, rel_bias, csr, **kw)
-    relgat_fwd_bf16.launches += 1
-    return result
+    return _launch_fwd(relgat_fwd_bf16, h, attn, rel_bias, csr, **kw)
 
 
 relgat_fwd.launches = 0
@@ -301,13 +312,14 @@ def relgat_bwd_src_plain(
     h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
     negative_slope, eps,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of ``relgat_bwd_src``: ``(dh [N, H*F], W [N, H, R],
-    B [N, R])``, W and B as segment sums over the key ``src * R + etype``."""
+    """Plain version of ``relgat_bwd_src``: ``(dh [N_src, H*F],
+    W [N_src, H, R], B [N_src, R])``, W and B as segment sums over the key
+    ``src * R + etype``."""
     n, hf = h.shape
     heads, num_rel, f = attn.shape
     src, dst, et = csr.src.long(), csr.dst.long(), csr.etype.long()
     hs = h.view(n, heads, f)[src]
-    gd = g.view(n, heads, f)[dst]
+    gd = g.view(-1, heads, f)[dst]
     ar = attn[:, et].transpose(0, 1)
     eraw = _dots(hs, ar)
     dalpha = _dots(hs, gd)
@@ -316,7 +328,7 @@ def relgat_bwd_src_plain(
     alpha = torch.exp(
         F.leaky_relu(eraw, negative_slope) - m_safe[dst]
     ) / l.clamp_min(eps)[dst]
-    keep = _keep_scale(csr, heads, seed, rate, h.device)
+    keep = _keep_scale(csr, heads, seed, rate)
     k = keep if keep is not None else 1.0
     de = alpha * (dalpha * k - s_dot[dst])
     de = de * torch.where(eraw >= 0, 1.0, negative_slope)
@@ -342,12 +354,17 @@ def relgat_bwd_src_bf16_plain(
 
 
 def _launch_bwd_src(
-    name, h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    wrapper, h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
     negative_slope, eps,
 ):
+    """Launch ``wrapper``'s kernel and count the launch; a layout without
+    source rows (an empty halo buffer) launches nothing and counts
+    nothing."""
+    name = wrapper.__name__
     n, heads, num_rel, f = check_shapes(name, h, attn, csr)
-    if (g.shape != h.shape or gsum.shape != (n,)
-            or not (m.shape == l.shape == s_dot.shape == (n, heads))):
+    nd = csr.num_nodes
+    if (g.shape != (nd, heads * f) or gsum.shape != (nd,)
+            or not (m.shape == l.shape == s_dot.shape == (nd, heads))):
         raise ValueError(f"{name}: g or statistics have wrong shapes")
     if num_rel > max_num_rel(heads):
         raise ValueError(
@@ -359,6 +376,8 @@ def _launch_bwd_src(
     dh = _f32(h, h.shape)
     w = _f32(h, (n, heads, num_rel))
     b = _f32(h, (n, num_rel))
+    if n == 0:  # no source row: a grid of no blocks is not a launch
+        return dh, w, b
     use, s, thr, keep = _dropout_args(seed, rate)
     rc = entry_point(name)(
         h.data_ptr(), g.data_ptr(), attn.data_ptr(), m.data_ptr(),
@@ -370,6 +389,7 @@ def _launch_bwd_src(
         use, s, thr, keep, _stream(),
     )
     _raise_on(rc, name)
+    wrapper.launches += 1
     return dh, w, b
 
 
@@ -378,14 +398,12 @@ def relgat_bwd_src(
     negative_slope, eps,
 ):
     """Gradient wrt ``h`` and the per-(src row, relation) sums ``W`` of the
-    logit gradient and ``B`` of ``gsum[dst]``, every row written."""
+    logit gradient and ``B`` of ``gsum[dst]``, every source row written."""
     args = (h, g, attn, m, l, s_dot, gsum, csr)
     kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
     if not _on_card("relgat_bwd_src", csr, *args[:-1]):
         return relgat_bwd_src_plain(*args, **kw)
-    result = _launch_bwd_src("relgat_bwd_src", *args, **kw)
-    relgat_bwd_src.launches += 1
-    return result
+    return _launch_bwd_src(relgat_bwd_src, *args, **kw)
 
 
 def relgat_bwd_src_bf16(
@@ -398,9 +416,7 @@ def relgat_bwd_src_bf16(
     kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
     if not _on_card("relgat_bwd_src_bf16", csr, *args[:-1], bf16_rows=2):
         return relgat_bwd_src_bf16_plain(*args, **kw)
-    result = _launch_bwd_src("relgat_bwd_src_bf16", *args, **kw)
-    relgat_bwd_src_bf16.launches += 1
-    return result
+    return _launch_bwd_src(relgat_bwd_src_bf16, *args, **kw)
 
 
 relgat_bwd_src.launches = 0
@@ -414,7 +430,8 @@ relgat_bwd_src_bf16.launches = 0
 def relgat_bwd_rel_plain(h, w, b) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``relgat_bwd_rel``: ``(dattn [H, R, F], dbias [R])``."""
     n, heads, _ = w.shape
-    dattn = torch.einsum("nhr,nhf->hrf", w, h.view(n, heads, -1))
+    dattn = torch.einsum("nhr,nhf->hrf", w,
+                         h.view(n, heads, h.shape[1] // heads))
     return dattn, b.sum(0)
 
 
@@ -424,7 +441,9 @@ def relgat_bwd_rel_bf16_plain(h, w, b) -> Tuple[torch.Tensor, torch.Tensor]:
     return relgat_bwd_rel_plain(h.to(w.dtype), w, b)
 
 
-def _launch_bwd_rel(name, h, w, b):
+def _launch_bwd_rel(wrapper, h, w, b):
+    """Launch ``wrapper``'s kernels and count the launch."""
+    name = wrapper.__name__
     n, hf = h.shape
     _, heads, num_rel = w.shape
     f = hf // heads
@@ -444,6 +463,7 @@ def _launch_bwd_rel(name, h, w, b):
         n, heads, f, num_rel, tiles, _stream(),
     )
     _raise_on(rc, name)
+    wrapper.launches += 1
     return dattn, dbias
 
 
@@ -452,18 +472,14 @@ def relgat_bwd_rel(h, w, b):
     over the node rows, deterministic."""
     if not _on_card("relgat_bwd_rel", None, h, w, b):
         return relgat_bwd_rel_plain(h, w, b)
-    result = _launch_bwd_rel("relgat_bwd_rel", h, w, b)
-    relgat_bwd_rel.launches += 1
-    return result
+    return _launch_bwd_rel(relgat_bwd_rel, h, w, b)
 
 
 def relgat_bwd_rel_bf16(h, w, b):
     """``relgat_bwd_rel`` reading ``h`` as bf16 rows; fp32 outputs."""
     if not _on_card("relgat_bwd_rel_bf16", None, h, w, b, bf16_rows=1):
         return relgat_bwd_rel_bf16_plain(h, w, b)
-    result = _launch_bwd_rel("relgat_bwd_rel_bf16", h, w, b)
-    relgat_bwd_rel_bf16.launches += 1
-    return result
+    return _launch_bwd_rel(relgat_bwd_rel_bf16, h, w, b)
 
 
 relgat_bwd_rel.launches = 0

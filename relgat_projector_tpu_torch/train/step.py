@@ -7,6 +7,15 @@ example) keeps the old parameters and optimizer state and does not advance
 ``step``: the skip is a select on the device, so the step never waits for
 the host. ``neg_dst`` may be injected; otherwise it is sampled on the
 device from the state's generator (the JAX stream cannot be reproduced).
+
+On a grid (``grid``, a ``parallel.Grid``) every rank gets the global batch
+and draws the global negatives from generators in the same state; it
+fetches the rows of its data slice's endpoints from their owners, the
+slices are joined, and every rank computes the global loss with the
+single-device code (``parallel/sharded.py``). The gradients of
+``loss / ranks`` summed over the world are the single-device gradients, so
+every rank takes the same Adam step, clipping and the non-finite skip
+included.
 """
 
 from __future__ import annotations
@@ -22,6 +31,10 @@ from relgat_projector_tpu_torch.data.graph import GraphData
 from relgat_projector_tpu_torch.models import scorer as sc
 from relgat_projector_tpu_torch.models.model import single_gat_step
 from relgat_projector_tpu_torch.ops.sampling import sample_negative_dst
+from relgat_projector_tpu_torch.parallel.sharded import (
+    all_reduce_grads,
+    batch_vectors,
+)
 from relgat_projector_tpu_torch.train.state import (
     Optimizer,
     TrainState,
@@ -44,8 +57,13 @@ def score_batch(
     *,
     rng: Optional[RngStreams] = None,
     neg_dst: Optional[torch.Tensor] = None,  # [B, K] injected negatives
+    grid=None,
+    halo=None,
+    split_data: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Loss and metrics of one triplet batch given the representations."""
+    """Loss and metrics of one triplet batch given the representations
+    (on a ``grid``, this rank's rows of them: all, or its shard's with
+    ``halo``; ``split_data`` fetches only its data slice's rows)."""
     if neg_dst is None:
         if rng is None:
             raise ValueError("score_batch needs rng or injected neg_dst")
@@ -53,13 +71,28 @@ def score_batch(
             rng.device, dst, num_nodes=num_real_nodes,
             num_neg=train_cfg.num_neg,
         )
-    num_neg = neg_dst.shape[1]
-    src_vec = x[src]
-    dst_vec = x[dst]
+    src_vec, dst_vec, neg_dst_vec = batch_vectors(
+        x, src, dst, neg_dst, grid, halo, split_data=split_data
+    )
+    return score_vectors(params, model_cfg, train_cfg, src_vec, rel, dst_vec,
+                         neg_dst_vec, weight)
+
+
+def score_vectors(
+    params: Any,
+    model_cfg: ModelConfig,
+    train_cfg: TrainConfig,
+    src_vec: torch.Tensor,      # [B, D_sc]
+    rel: torch.Tensor,          # [B]
+    dst_vec: torch.Tensor,      # [B, D_sc]
+    neg_dst_vec: torch.Tensor,  # [B, K, D_sc]
+    weight: torch.Tensor,       # [B]
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Loss and metrics of a batch given its endpoints' representations."""
+    num_neg = neg_dst_vec.shape[1]
     pos_score = sc.score_triplets(
         params["scorer"], model_cfg.scorer_type, src_vec, rel, dst_vec
     )
-    neg_dst_vec = x[neg_dst]                                  # [B, K, D]
     neg_score = sc.score_triplets(
         params["scorer"], model_cfg.scorer_type, src_vec[:, None, :],
         rel[:, None], neg_dst_vec,
@@ -118,22 +151,25 @@ def score_batch(
 def batch_forward(
     params, model_cfg, train_cfg, node_emb, graph: GraphData, src, rel, dst,
     weight, *, rng: Optional[RngStreams], train: bool,
-    neg_dst: Optional[torch.Tensor] = None,
+    neg_dst: Optional[torch.Tensor] = None, grid=None,
 ):
     """Full-graph forward, scoring and loss for one triplet batch."""
     x = single_gat_step(params, model_cfg, node_emb, graph, train=train, rng=rng)
     return score_batch(
         params, model_cfg, train_cfg, x, graph.num_real_nodes,
-        src, rel, dst, weight, rng=rng, neg_dst=neg_dst,
+        src, rel, dst, weight, rng=rng, neg_dst=neg_dst, grid=grid,
+        halo=graph.halo,
     )
 
 
 def loss_and_grads(
     params, model_cfg, train_cfg, node_emb, graph, src, rel, dst, weight, *,
     rng: Optional[RngStreams], neg_dst: Optional[torch.Tensor] = None,
+    grid=None,
 ):
     """``(loss, metrics, grads)`` of the training forward; grads share the
-    parameters' tree layout."""
+    parameters' tree layout. On a ``grid`` the loss is the global batch's
+    and the gradients are summed over the world."""
     leaves = tree_leaves(params)
     req = [p.detach().requires_grad_(True) for p in leaves]
     it = iter(req)
@@ -141,12 +177,16 @@ def loss_and_grads(
     with torch.enable_grad():
         loss, metrics = batch_forward(
             params_req, model_cfg, train_cfg, node_emb, graph, src, rel, dst,
-            weight, rng=rng, train=True, neg_dst=neg_dst,
+            weight, rng=rng, train=True, neg_dst=neg_dst, grid=grid,
         )
-        grads = torch.autograd.grad(loss, req, allow_unused=True)
+        scaled = loss if grid is None else loss / grid.size
+        grads = torch.autograd.grad(scaled, req, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(req, grads)]
     it = iter(grads)
-    return loss.detach(), metrics, tree_map(lambda _: next(it), params)
+    grads = tree_map(lambda _: next(it), params)
+    if grid is not None:
+        grads = all_reduce_grads(grads, grid)
+    return loss.detach(), metrics, grads
 
 
 def make_train_step(
@@ -154,9 +194,11 @@ def make_train_step(
     train_cfg: TrainConfig,
     optimizer: Optimizer,
     lr_schedule: Callable,
+    grid=None,
 ) -> Callable:
     """``train_step(state, node_emb, graph, src, rel, dst, weight,
-    neg_dst=None) -> (state, metrics)``; metrics stay on the device."""
+    neg_dst=None) -> (state, metrics)``; metrics stay on the device. On a
+    ``grid`` the batch (and ``neg_dst``) is the global one."""
     ks = tuple(train_cfg.eval_ks_ranks)
 
     def train_step(
@@ -165,7 +207,7 @@ def make_train_step(
     ):
         loss, fwd_metrics, grads = loss_and_grads(
             state.params, model_cfg, train_cfg, node_emb, graph, src, rel,
-            dst, weight, rng=state.rng, neg_dst=neg_dst,
+            dst, weight, rng=state.rng, neg_dst=neg_dst, grid=grid,
         )
         active = weight.sum() > 0
         finite = torch.isfinite(loss) & active
@@ -216,6 +258,7 @@ def make_scan_train_step(
     optimizer: Optimizer,
     lr_schedule: Callable,
     unroll_steps: int,
+    grid=None,
 ) -> Callable:
     """Counterpart of ``make_scan_train_step``: ``scan_step(state, node_emb,
     graph, src_s, rel_s, dst_s, weight_s, neg_dst_s=None, pad=0) -> (state,
@@ -229,7 +272,8 @@ def make_scan_train_step(
     knows), and they also leave the generators where they found them: in
     JAX a step's random keys derive from its step count, so a step that
     does not count draws nothing the next step would not draw again."""
-    step = make_train_step(model_cfg, train_cfg, optimizer, lr_schedule)
+    step = make_train_step(model_cfg, train_cfg, optimizer, lr_schedule,
+                           grid=grid)
 
     def scan_step(
         state: TrainState, node_emb, graph: GraphData, src_s, rel_s, dst_s,
@@ -259,11 +303,13 @@ def make_scan_train_step(
 
 
 def make_eval_step(
-    model_cfg: ModelConfig, train_cfg: TrainConfig
+    model_cfg: ModelConfig, train_cfg: TrainConfig, grid=None,
 ) -> Tuple[Callable, Callable]:
     """``(eval_repr, eval_step)``: ``eval_repr(params, node_emb, graph)``
     runs the full-graph stack once; ``eval_step`` scores one batch against
-    it and returns example-weighted sums for the host to aggregate."""
+    it and returns example-weighted sums for the host to aggregate. On a
+    ``grid`` every rank scores the whole batch, fetching its rows from
+    their owners, and returns the same sums."""
     ks = tuple(train_cfg.eval_ks_ranks)
 
     @torch.no_grad()
@@ -278,7 +324,8 @@ def make_eval_step(
     ) -> Dict[str, torch.Tensor]:
         loss, fwd = score_batch(
             params, model_cfg, train_cfg, x, graph.num_real_nodes,
-            src, rel, dst, weight, rng=rng, neg_dst=neg_dst,
+            src, rel, dst, weight, rng=rng, neg_dst=neg_dst, grid=grid,
+            halo=graph.halo, split_data=False,
         )
         mrr, hits = M.compute_mrr_hits(
             fwd["pos_score"], fwd["neg_score"], ks, weights=weight

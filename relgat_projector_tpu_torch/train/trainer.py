@@ -1,4 +1,4 @@
-"""RelGATTrainer — the training runtime, on one device.
+"""RelGATTrainer — the training runtime, on one device or a grid of them.
 
 Port of ``relgat_projector_tpu/train/trainer.py`` with the same wiring
 order (seed -> dataset -> schedule -> optimizer -> storage -> logger ->
@@ -26,10 +26,19 @@ of the last batch, which change nothing), each group up in one copy and
 through ``make_scan_train_step``; logs and evals fire in windows of the
 dispatch counter, a log reporting the means over the finite steps of the
 call that crossed its boundary. Both dispatch modes write the same
-checkpoints, so either resumes the other's. The JAX package's
-multi-process and mesh branches are not ported: their config values raise
-``NotImplementedError`` when the config is built, and so does a process
-group of more than one process here.
+checkpoints, so either resumes the other's.
+
+A mesh of ``data_axis`` x ``graph_axis`` devices runs as that many
+processes of one ``torch.distributed`` group (``parallel/``), each
+building this trainer with the same config. A rank holds its graph shard's
+rows of the embeddings (and builds only those, as the JAX trainer builds
+only its addressable shards) and the shard's edges, sees every batch whole
+and scores its data slice, and keeps a full copy of the parameters and
+Adam state, which rank 0's broadcast makes equal at the start. The JAX
+trainer's multi-process branches carry over: only the primary logs and
+writes checkpoints (a non-primary rank returns the same paths), ranks meet
+at a barrier before a resume and must agree on the checkpoint and its step,
+and evaluation runs over the sharded graph on every rank.
 """
 
 from __future__ import annotations
@@ -43,8 +52,21 @@ import torch
 
 from relgat_projector_tpu_torch.config import Defaults, RunConfig
 from relgat_projector_tpu_torch.data.dataset import Batch, RelGATData
-from relgat_projector_tpu_torch.device import DeviceLike, resolve_device
+from relgat_projector_tpu_torch.device import DeviceLike
 from relgat_projector_tpu_torch.models.model import init_model
+from relgat_projector_tpu_torch.parallel.distributed import (
+    process_count,
+    torch_device_of_rank,
+)
+from relgat_projector_tpu_torch.parallel.mesh import (
+    all_gather_cat,
+    barrier,
+    make_grid,
+)
+from relgat_projector_tpu_torch.parallel.sharded import (
+    broadcast_tree,
+    place_graph,
+)
 from relgat_projector_tpu_torch.schedules import (
     compute_total_and_warmup_steps,
     make_lr_schedule,
@@ -84,16 +106,48 @@ class RelGATTrainer:
         log_to_console: bool = True,
         device: DeviceLike = "cuda",
     ):
-        self.device = resolve_device(device)
-        if (
-            torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1
-        ):
-            raise NotImplementedError(
-                "multi-process training is not ported yet"
-            )
         tc = run_config.train
+        mesh_cfg, mcfg = run_config.mesh, run_config.model
+
+        # A mesh of several devices is a process group of as many ranks,
+        # one device each; the rank writes nothing unless it is primary.
+        self.grid = None
+        world = process_count()
+        if mesh_cfg.num_devices > 1 or world > 1:
+            if mesh_cfg.num_devices != world:
+                raise ValueError(
+                    f"a mesh of {mesh_cfg.num_devices} devices runs as as "
+                    "many processes of one process group "
+                    "(parallel.initialize_distributed, --distributed); this "
+                    f"one has {world}"
+                )
+            if mcfg.use_pallas and mcfg.mesh_propagate == "gspmd":
+                raise ValueError(
+                    "mesh_propagate='gspmd' has no kernel partitioning; use "
+                    "'halo' (default) with use_pallas"
+                )
+            self.grid = make_grid(mesh_cfg)
+        self._is_primary = self.grid is None or self.grid.is_primary
+        self.device = torch_device_of_rank(device)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+
+        # The halo route whenever the graph axis is split (JAX
+        # trainer.py:84-133): node-sharded features and a boundary-only
+        # exchange. The scanned propagate has no partial-merge form, so
+        # scan_segments > 1 turns the overlap split off, as in JAX; the
+        # kernels here run unsegmented either way.
+        use_halo = (self.grid is not None and self.grid.graph > 1
+                    and mcfg.mesh_propagate == "halo")
+        scan_segments = (mcfg.scan_segments
+                         if mcfg.use_pallas and mcfg.scan_segments > 1 else 0)
+        halo_overlap = mcfg.halo_overlap
+        if scan_segments > 1 and use_halo and halo_overlap:
+            print(
+                "scan_segments > 1: disabling halo comm/compute overlap "
+                "(scanned propagate has no partial-merge form)"
+            )
+            halo_overlap = False
 
         # Seed first so the split is reproducible (reference ``trainer:97-99``).
         self.seeder = RandomSeed(tc.seed)
@@ -103,7 +157,12 @@ class RelGATTrainer:
             edge_index_raw,
             train_ratio=tc.train_ratio,
             seed=tc.seed,
-            csr=run_config.model.use_pallas,
+            csr=mcfg.use_pallas,
+            halo_shards=self.grid.graph if use_halo else 0,
+            halo_overlap=halo_overlap,
+            scan_segments=scan_segments,
+            partition_nodes=mcfg.partition_nodes,
+            materialize_features=not use_halo,
             device=self.device,
         )
 
@@ -138,8 +197,9 @@ class RelGATTrainer:
             architecture_name=run_config.architecture_name,
             base_model_name=run_config.base_model_name,
             log_every_n_steps=tc.log_every_n_steps,
-            log_to_wandb=log_to_wandb,
-            log_to_console=log_to_console,
+            # One console stream and one W&B run per job.
+            log_to_wandb=log_to_wandb and self._is_primary,
+            log_to_console=log_to_console and self._is_primary,
             run_config=self.run_config.to_dict(),
         )
 
@@ -150,20 +210,34 @@ class RelGATTrainer:
         self.state: TrainState = create_train_state(
             params, self.optimizer, seed=self.seeder.train_seed
         )
-        self.node_emb = torch.from_numpy(self.dataset.node_emb).to(self.device)
         self.graph = self.dataset.graph
+        if use_halo:
+            # This rank's shard: its rows of the embeddings, built here
+            # alone, and its edges' layouts.
+            self.graph = place_graph(self.graph, self.grid,
+                                     self.dataset.num_rel,
+                                     csr=mcfg.use_pallas)
+            rows = self.dataset.feature_rows(*self.graph.halo.row_range)
+            self.node_emb = torch.from_numpy(rows).to(self.device)
+        else:
+            self.node_emb = torch.from_numpy(self.dataset.node_emb).to(
+                self.device)
+        if self.grid is not None:
+            broadcast_tree(self.state.params, self.grid)
 
         self.steps_per_call = max(1, int(tc.steps_per_call))
         self._train_step = make_train_step(
-            self.model_cfg, tc, self.optimizer, self.lr_schedule
+            self.model_cfg, tc, self.optimizer, self.lr_schedule,
+            grid=self.grid,
         )
         self._scan_step = None
         if self.steps_per_call > 1:
             self._scan_step = make_scan_train_step(
                 self.model_cfg, tc, self.optimizer, self.lr_schedule,
-                self.steps_per_call,
+                self.steps_per_call, grid=self.grid,
             )
-        self._eval_repr, self._eval_step = make_eval_step(self.model_cfg, tc)
+        self._eval_repr, self._eval_step = make_eval_step(
+            self.model_cfg, tc, grid=self.grid)
 
         # Loop bookkeeping. Two counters:
         # - dispatch_step: host-side count of dispatched train steps, exact
@@ -223,8 +297,18 @@ class RelGATTrainer:
     def maybe_resume(self, ckpt_dir: Optional[str] = None) -> bool:
         """Restore the full train state and the loop state from ``ckpt_dir``
         (or the newest resumable checkpoint under ``out_dir``). Returns True
-        if resumed."""
+        if resumed.
+
+        On a grid the ranks first meet at a barrier (so a primary still
+        writing cannot race the readers), then every rank must have found
+        the same checkpoint and step: divergent views of the file system
+        would otherwise train from mixed states."""
+        if self.grid is not None:
+            barrier(self.grid)
         target = ckpt_dir or self.storage.latest_resumable()
+        if self.grid is not None:
+            self._assert_ranks_agree("resume_target_found",
+                                     float(target is not None))
         if target is None:
             return False
         self.state = self.storage.load_checkpoint(target, self.state)
@@ -242,8 +326,22 @@ class RelGATTrainer:
             self.best_ckpt_dir = loop.get("best_ckpt_dir")
             if loop.get("dispatch_step") is not None:
                 self.dispatch_step = int(loop["dispatch_step"])
-        print(f"Resumed from {target} at step {self.global_step}")
+        if self.grid is not None:
+            self._assert_ranks_agree("resume_step", self.global_step + 1.0)
+        if self._is_primary:
+            print(f"Resumed from {target} at step {self.global_step}")
         return True
+
+    def _assert_ranks_agree(self, what: str, value: float) -> None:
+        """Fail on every rank if ``value`` differs across ranks (the same
+        collective on every rank, whatever its value)."""
+        mine = torch.tensor([value], dtype=torch.float64, device=self.device)
+        got = all_gather_cat(mine, self.grid.world_group,
+                             self.grid.backend).tolist()
+        if any(v != got[0] for v in got):
+            raise RuntimeError(
+                f"multi-process disagreement on {what}: rank values {got}"
+            )
 
     # ------------------------------------------------------------------
     # Evaluation (reference ``trainer:275-376``)
@@ -336,7 +434,8 @@ class RelGATTrainer:
 
         out_model_dir = self._save_checkpoint(subdir=None)
         self.storage.wait_for_writes()
-        print(f"\nTraining finished - model saved to: {out_model_dir}")
+        if self._is_primary:
+            print(f"\nTraining finished - model saved to: {out_model_dir}")
         self.log_adapter.finish_wandb_if_needed()
         return out_model_dir
 
@@ -455,11 +554,12 @@ class RelGATTrainer:
                 # Reconcile the finite-step counter (display only; the
                 # cadence stays on dispatch_step, so skips cannot drift it).
                 self.global_step = int(self.state.step)
-                print(
-                    f"\nGlobal step {self.global_step} "
-                    f"loss_step: {log['train/loss_step']:.8f} "
-                    f"lr: {log['train/lr']:.8f}"
-                )
+                if self._is_primary:
+                    print(
+                        f"\nGlobal step {self.global_step} "
+                        f"loss_step: {log['train/loss_step']:.8f} "
+                        f"lr: {log['train/lr']:.8f}"
+                    )
                 self.log_adapter.log_metrics(metrics=log, step=self.global_step)
 
             if (
@@ -535,13 +635,14 @@ class RelGATTrainer:
         if nfs:
             log["train/nonfinite_scores"] = nfs
 
-        print(
-            f"\nGlobal step {self.global_step} "
-            f"grad_norm {log['train/grad_norm']:.8f} "
-            f"loss_step: {avg_running_loss:.8f} "
-            f"lr: {log['train/lr']:.8f} "
-            f"step_time {step_time}"
-        )
+        if self._is_primary:
+            print(
+                f"\nGlobal step {self.global_step} "
+                f"grad_norm {log['train/grad_norm']:.8f} "
+                f"loss_step: {avg_running_loss:.8f} "
+                f"lr: {log['train/lr']:.8f} "
+                f"step_time {step_time}"
+            )
         self.log_adapter.log_metrics(metrics=log, step=self.global_step)
         # Reconcile with the device's finite-step counter.
         self.global_step = int(self.state.step)
@@ -602,7 +703,8 @@ class RelGATTrainer:
             ):
                 self.best_ckpt_dir = f"best_checkpoint_{self.global_step}"
                 self._save_checkpoint(subdir=self.best_ckpt_dir)
-                self.storage.prune_checkpoints()
+                if self._is_primary:
+                    self.storage.prune_checkpoints()
                 self.log_adapter.log_metrics(
                     metrics={"checkpoint/step": self.global_step},
                     step=self.global_step,
@@ -614,10 +716,11 @@ class RelGATTrainer:
             self.early_stop_patience is not None
             and self._no_improve_steps >= self.early_stop_patience
         ):
-            print(
-                "\n  Early-stopping triggered - no improvement for "
-                f"{self.early_stop_patience} evaluation steps."
-            )
+            if self._is_primary:
+                print(
+                    "\n  Early-stopping triggered - no improvement for "
+                    f"{self.early_stop_patience} evaluation steps."
+                )
             self.training_should_stop = True
             return True
         return False
@@ -643,6 +746,10 @@ class RelGATTrainer:
                 f"scorer-{self.model_cfg.scorer_type}_"
                 f"lrscheduler-{self.train_cfg.lr_scheduler}"
             )
+        if not self._is_primary:
+            # One writer a job: the other ranks return the same path, so
+            # their loop bookkeeping stays aligned.
+            return str(self.storage.save_dir / subdir)
         return self.storage.save_checkpoint(
             subdir=subdir,
             state=self.state,

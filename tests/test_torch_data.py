@@ -116,7 +116,8 @@ def test_relgat_data_matches(use_csr):
     assert port.steps_per_epoch(128) == ref.steps_per_epoch(128)
 
 
-@pytest.mark.parametrize("kw", [dict(graph_shards=2), dict(halo_shards=2),
+@pytest.mark.parametrize("kw", [dict(graph_shards=2),
+                                dict(graph_shards=2, halo_shards=2),
                                 dict(graph_shards=4, scan_segments=4)])
 def test_relgat_data_rejects_what_is_not_ported(kw):
     node2emb, rel2idx, triplets = generate_synthetic_kg(

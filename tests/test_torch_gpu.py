@@ -574,3 +574,152 @@ def test_serving_through_the_kernels(card, tmp_path):
     back = export_node_representations(
         params, dataclasses.replace(back_cfg, use_pallas=True), x, g)
     assert torch.equal(back, rep)
+
+
+def _subset(num_src, num_dst, e, seed, device):
+    """A halo subset's layout: ``num_src`` source rows, ``num_dst``
+    destination rows (the last 5 without in-edges, one heavy row the
+    forward splits), canonical ids that are not positions."""
+    from relgat_projector_tpu_torch.data.csr import build_csr_graph
+
+    rng = np.random.default_rng(seed)
+    dst = np.sort(np.concatenate([rng.integers(0, num_dst - 5, e),
+                                  np.full(FWD_ITEM_EDGES + 9, 3)]))
+    src = rng.integers(0, num_src, dst.shape[0])
+    et = rng.integers(0, 7, dst.shape[0])
+    eid = rng.permutation(4 * dst.shape[0])[:dst.shape[0]]
+    return build_csr_graph(src, dst, et, num_dst, 7, device,
+                           num_src=num_src, eid=eid)
+
+
+@pytest.mark.parametrize("num_src,num_dst", [(900, 300), (200, 500)])
+@pytest.mark.parametrize("bf16", (False, True))
+def test_split_kernels_take_a_source_space(card, num_src, num_dst, bf16):
+    """Source rows apart from destination rows and canonical edge ids: the
+    forward and both backward kernels against their plain versions, with
+    attention dropout 0.3, and the same bits twice."""
+    heads, feat = 16, 128
+    csr = _subset(num_src, num_dst, 4000, 1, card)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = torch.randn((num_src, heads * feat), generator=gen, device=card)
+    g = torch.randn((num_dst, heads * feat), generator=gen, device=card)
+    attn = torch.randn((heads, 7, feat), generator=gen, device=card) * 0.3
+    bias = torch.randn((7,), generator=gen, device=card) * 0.1
+    kw = dict(seed=99, rate=0.3, negative_slope=0.2, eps=1e-16)
+    rows = h.to(torch.bfloat16) if bf16 else h
+    grows = g.to(torch.bfloat16) if bf16 else g
+    fwd, bwd_src, bwd_rel = (
+        (kern.relgat_fwd_bf16, kern.relgat_bwd_src_bf16,
+         kern.relgat_bwd_rel_bf16) if bf16
+        else (kern.relgat_fwd, kern.relgat_bwd_src, kern.relgat_bwd_rel))
+    got = fwd(rows, attn, bias, csr, **kw)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, fwd(rows, attn, bias, csr, **kw)))
+    want = _exact(kern.relgat_fwd_plain, rows.float(), attn, bias, csr, **kw)
+    for a, b in zip(got, want):
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert _rel(a[fin], b[fin]) <= REL_TOL
+    out, m, l, b = got
+    assert torch.isinf(m[-5:]).all() and (l[-5:] == 0).all()
+    assert (out[-5:] == 0).all()
+    s_dot = ((out - b[:, None]) * g).view(num_dst, heads, feat).sum(-1)
+    gsum = g.sum(1)
+    dh, w, bb = bwd_src(rows, grows, attn, m, l, s_dot, gsum, csr, **kw)
+    assert dh.shape == (num_src, heads * feat) and w.shape[0] == num_src
+    again = bwd_src(rows, grows, attn, m, l, s_dot, gsum, csr, **kw)
+    assert all(torch.equal(x, y) for x, y in zip((dh, w, bb), again))
+    want = _exact(kern.relgat_bwd_src_plain, rows.float(), grows.float(),
+                  attn, m, l, s_dot, gsum, csr, **kw)
+    for x, y in zip((dh, w, bb), want):
+        assert _rel(x, y) <= REL_TOL
+    for x, y in zip(bwd_rel(rows, w, bb),
+                    _exact(kern.relgat_bwd_rel_plain, rows.float(), w, bb)):
+        assert _rel(x, y) <= REL_TOL
+
+
+def test_split_kernels_on_a_subset_without_edges(card):
+    from relgat_projector_tpu_torch.data.csr import build_csr_graph
+    from relgat_projector_tpu_torch.ops.propagate import (
+        relgat_propagate_kernels_overlapped,
+    )
+
+    heads, feat = 4, 32
+    empty = build_csr_graph(*(np.zeros(0, np.int64),) * 3, 64, 7, card,
+                            num_src=24)
+    loc = _subset(64, 64, 500, 2, card)
+    own = torch.randn((64, heads, feat), device=card, requires_grad=True)
+    halo = torch.randn((24, heads, feat), device=card, requires_grad=True)
+    attn = torch.randn((heads, 7, feat), device=card) * 0.3
+    before = kern.launch_counts()
+    out = relgat_propagate_kernels_overlapped(own, halo, attn, None, loc,
+                                              empty)
+    out.sum().backward()
+    after = kern.launch_counts()
+    for name in ("relgat_fwd", "relgat_bwd_src", "relgat_bwd_rel"):
+        assert after[name] - before[name] == 2, name
+    assert torch.isfinite(out).all() and (halo.grad == 0).all()
+
+
+@pytest.mark.parametrize("bf16", (False, True))
+def test_empty_halo_buffer_counts_no_src_launch(card, bf16):
+    """A remote subset of no source rows (halo_pair = 0): the src pass
+    launches nothing and counts nothing; the forward and the relation
+    reduction still launch once a subset."""
+    from relgat_projector_tpu_torch.data.csr import build_csr_graph
+    from relgat_projector_tpu_torch.ops.propagate import (
+        relgat_propagate_kernels_overlapped,
+    )
+
+    heads, feat = 4, 32
+    empty = build_csr_graph(*(np.zeros(0, np.int64),) * 3, 64, 7, card,
+                            num_src=0)
+    loc = _subset(64, 64, 500, 2, card)
+    own = torch.randn((64, heads, feat), device=card, requires_grad=True)
+    halo = torch.zeros((0, heads, feat), device=card, requires_grad=True)
+    attn = torch.randn((heads, 7, feat), device=card) * 0.3
+    fwd, bwd_src, bwd_rel = (
+        ("relgat_fwd_bf16", "relgat_bwd_src_bf16", "relgat_bwd_rel_bf16")
+        if bf16 else ("relgat_fwd", "relgat_bwd_src", "relgat_bwd_rel"))
+    before = kern.launch_counts()
+    out = relgat_propagate_kernels_overlapped(
+        own, halo, attn, None, loc, empty,
+        kernel_precision="default" if bf16 else "highest")
+    out.sum().backward()
+    after = kern.launch_counts()
+    assert after[fwd] - before[fwd] == 2
+    assert after[bwd_src] - before[bwd_src] == 1
+    assert after[bwd_rel] - before[bwd_rel] == 2
+    assert torch.isfinite(out).all() and halo.grad.shape == (0, heads, feat)
+    g = torch.randn((64, heads * feat), device=card)
+    rows = torch.zeros((0, heads * feat), device=card)
+    if bf16:
+        rows, g = rows.to(torch.bfloat16), g.to(torch.bfloat16)
+    stats = torch.zeros((64, heads), device=card)
+    before = kern.launch_counts()[bwd_src]
+    dh, w, b = getattr(kern, bwd_src)(
+        rows, g, attn, stats, stats, stats, torch.zeros(64, device=card),
+        empty, seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+    assert kern.launch_counts()[bwd_src] == before
+    assert dh.shape == (0, heads * feat) and w.shape == (0, heads, 7)
+
+
+def test_split_kernels_never_fall_back(card):
+    """A CUDA tensor launches or raises: h with the destination rows where
+    the layout's source space is asked for, a CPU layout, a bf16 h for the
+    fp32 kernel."""
+    csr = _subset(900, 300, 2000, 3, card)
+    attn = torch.randn((4, 7, 32), device=card)
+    bias = torch.zeros(7, device=card)
+    kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+    with pytest.raises(ValueError, match="expected \\[900,"):
+        kern.relgat_fwd(torch.randn((300, 128), device=card), attn, bias,
+                        csr, **kw)
+    cpu = _subset(900, 300, 2000, 3, torch.device("cpu"))
+    with pytest.raises(ValueError, match="inputs lie on"):
+        kern.relgat_fwd(torch.randn((900, 128), device=card), attn, bias,
+                        cpu, **kw)
+    with pytest.raises(NotImplementedError):
+        kern.relgat_fwd(torch.randn((900, 128), device=card,
+                                    dtype=torch.bfloat16), attn, bias, csr,
+                        **kw)

@@ -1,8 +1,8 @@
 """The port stands alone and never runs anywhere but where it was asked.
 
 - Importing every module of ``relgat_projector_tpu_torch`` loads neither JAX
-  nor the JAX package; no source file of the port, nor ``chip_smoke.py``,
-  imports them.
+  nor the JAX package; no source file of the port, nor ``chip_smoke.py``
+  and the two card tools beside it, imports them.
 - Without a CUDA device, ``chip_smoke.py`` exits non-zero (from the repo and
   from a directory that holds only the script), and the entry points given
   no device (the model, the graph, the weights bridge, the trainer and the
@@ -61,7 +61,8 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PKG.rglob("*.py"))
+    + [REPO / n for n in ("chip_smoke.py", "chip_bits.py", "halo_reading.py")],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_sources_import_nothing_of_jax(path):

@@ -175,4 +175,4 @@ def test_config_rejects_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError):
         tconfig.ModelConfig(in_dim=8, num_rel=3, **{field: value})
     with pytest.raises(NotImplementedError):
-        tconfig.MeshConfig(graph_axis=2)
+        tconfig.MeshConfig(model_axis=2)

@@ -143,7 +143,7 @@ def test_cli_config_layer_reads_a_jax_training_config(tmp_path):
 
 @pytest.mark.parametrize("model,mesh,field", [
     (dict(param_dtype="float16"), {}, "param_dtype"),
-    ({}, dict(graph_axis=4), "graph_axis=4"),
+    (dict(mesh_propagate="replicated"), dict(graph_axis=4), "graph_axis=4"),
     (dict(compute_dtype="float16"), {}, "compute_dtype"),
 ])
 def test_cli_config_layer_refuses_what_is_not_ported(tmp_path, model, mesh,
@@ -157,13 +157,14 @@ def test_cli_config_layer_refuses_what_is_not_ported(tmp_path, model, mesh,
 
 
 @pytest.mark.parametrize("flags,field", [
-    (["--mesh-graph", "2"], "graph_axis=2"),
+    (["--mesh-graph", "2", "--mesh-propagate", "replicated"], "graph_axis=2"),
     (["--mesh-model", "2"], "model_axis=2"),
-    (["--mesh-data", "2"], "data_axis=2"),
+    (["--mesh-data", "2", "--mesh-model", "2"], "data_axis=2"),
     ({"param_dtype": "float16"}, "param_dtype"),
     ({"compute_dtype": "float16"}, "compute_dtype"),
-    (["--distributed"], "--distributed"),
-    (["--num-processes", "2"], "--num-processes"),
+    (["--distributed", "--mesh-graph", "2", "--mesh-propagate", "gspmd"],
+     "gspmd"),
+    (["--num-processes", "2", "--mesh-model", "4"], "model_axis=4"),
 ])
 def test_cli_refuses_flags_it_cannot_run(tmp_path, flags, field):
     """A flag, or (a dict) model fields of a ``--config`` file that the CLI
