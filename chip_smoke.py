@@ -19,8 +19,10 @@ Phases, in order; any failure exits non-zero:
               run in float64 on the same inputs (for the bf16 variants the
               same bf16 values, widened exactly).
    parity_wide - the same for every kernel at (H, F) = (12, 300) (the
-              library's default), (4, 512), (2, 1024), (3, 301) and
-              (16, 128), on a 4,000-node graph whose rows have exactly 0, 1,
+              library's default), (4, 512), (2, 1024), (3, 301), (16, 128),
+              (3, 128) and (1, 128) (odd head counts: the bf16 pair
+              kernels' unpaired last head), on a 4,000-node graph whose
+              rows have exactly 0, 1,
               2 and 3 in- and out-edges, self-loops, a repeated triple and
               a row of 1,000 in-edges that the forward splits.
    agree    - one training forward and backward of a small model through
@@ -141,7 +143,7 @@ Phases, in order; any failure exits non-zero:
               this script (--rank-mode), joined on gloo, named explicitly
               (NCCL refuses two ranks on one device; gloo takes no CUDA
               tensor, so every collective goes through host memory).
-              TRAIN's model and graph, dropout off, lr 2e-5 constant, 3
+              TRAIN's model and graph, dropout off, lr 2e-5 constant, 2
               steps on each grid (data, graph) = (1, 2), (1, 4), (2, 2),
               each a process group of its own, in fp32 and the bf16 mode,
               against the same steps on one device through the kernels:
@@ -173,6 +175,27 @@ Phases, in order; any failure exits non-zero:
               subsets. One "halo" line: step ms and peak memory per rank
               (time-sharing, not a scaling number), halo_pair, exchange
               bytes, the errors.
+   grid_routes - the rest of the multi-device modes, the same way (3
+              steps, lr 2e-5 constant, each grid (data, graph, model) a
+              process group of its own, against the one-device run of the
+              same mode at the same bars): head tensor parallelism on the
+              halo route at (1, 1, 2), (1, 2, 2) (fp32 and bf16) and
+              (2, 2, 2); the replicated route at (1, 2, 1) (fp32, bf16, and
+              fp32 with TRAIN's dropout and an attention dropout of 0.2,
+              whose masks are one device's) and (2, 2, 1); the gspmd route
+              (plain, as in JAX) at (1, 2, 1) on phase 3's 20k-node graph.
+              Every rank the same parameters; each kernel of the mode
+              launched 2 x layers x steps times a rank on the halo route,
+              layers x steps on the replicated route, never on gspmd.
+              Then cli.main on two ranks for one epoch with --mesh-model 2,
+              and again with --mesh-propagate replicated --mesh-graph 2
+              (only rank 0 writes; the launches as in the halo CLI leg,
+              one subset on the replicated route). Rows of the kernels
+              line: a head-TP tile (8 heads, G = 2) and shard 0 of the
+              replicated plan at G = 4 (sources: every row). A
+              "grid_routes" line (step ms, peak, edges, the halo and join
+              bytes a rank sends a layer, the errors) and a
+              "grid_routes_cli" line.
 
 The last lines are the kernels JSON line, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}; a "single_device_settings" line gives the
@@ -243,6 +266,9 @@ from relgat_projector_tpu_torch.parallel.halo import (
     halo_rows_per_shard,
     shard_edges,
 )
+from relgat_projector_tpu_torch.parallel.pallas_sharded import (
+    shard_csr_layout,
+)
 from relgat_projector_tpu_torch.schedules import (
     compute_total_and_warmup_steps,
     make_lr_schedule,
@@ -275,8 +301,11 @@ TRAIN = dict(num_nodes=100_000, num_edges=1_000_000, num_rel=40, in_dim=1152,
 ZIPF = dict(warmup_steps=3, timed_steps=5, heavy_rows=16, random_rows=1_024)
 # Head widths past the TRAIN model's 128: the library's default (config.py,
 # 12 heads x 300), the widest the kernels take (1024), one not a multiple of
-# 4, and TRAIN's own width on the same graph for the bf16 pair kernels.
-WIDE_SHAPES = ((12, 300), (4, 512), (2, 1024), (3, 301), (16, 128))
+# 4, and TRAIN's own width on the same graph for the bf16 pair kernels,
+# also at odd head counts (3 and 1), whose last head the pair kernels run
+# unpaired: head tensor parallelism makes such tiles.
+WIDE_SHAPES = ((12, 300), (4, 512), (2, 1024), (3, 301), (16, 128),
+               (3, 128), (1, 128))
 WIDE = dict(num_nodes=4_000, num_edges=40_000, num_rel=40, hub_degree=1_000)
 # The library's default widths on TRAIN's graph: 12 heads x 300, one GAT
 # layer (config.py), the rest of the TRAIN model as it is.
@@ -2087,7 +2116,7 @@ def phase_trainer(card, out_lines, out_dir):
 # Phase 9: the halo route on a grid of ranks that share the card
 # ---------------------------------------------------------------------------
 
-# TRAIN's model on TRAIN's graph over grids of (data, graph) ranks, 3 steps
+# TRAIN's model on TRAIN's graph over grids of (data, graph) ranks, 2 steps
 # each in fp32 and the bf16 mode, dropout off, TRAIN's lr 2e-5 without
 # warm-up (a linear warm-up would leave the parameters where they start);
 # the same steps on one device through the kernels are the reference. The
@@ -2103,7 +2132,7 @@ def phase_trainer(card, out_lines, out_dir):
 # cli_num_neg negatives) keeps the epoch to 6 steps: on one card every
 # exchange and gather goes through gloo on the host, about a second a
 # step at 20k nodes.
-HALO = dict(grids=((1, 2), (1, 4), (2, 2)), steps=3, shards=4,
+HALO = dict(grids=((1, 2), (1, 4), (2, 2)), steps=2, shards=4,
             kernel_rate=0.2, kernel_seed=1234, clusters=8, intra=0.9,
             cli_ranks=2, cli_batch=4096, cli_num_neg=8, threads=2,
             timeout_s=900)
@@ -2151,12 +2180,14 @@ def leaf_names(tree, prefix=""):
     return [prefix]
 
 
-def halo_setup(bf16, device):
-    """TRAIN's model without dropout at a constant lr, its state from the
-    seed, and an optimizer that records each step's gradients."""
+def halo_setup(bf16, device, **model):
+    """TRAIN's model without dropout (``model`` overriding its config) at a
+    constant lr, its state from the seed, and an optimizer that records
+    each step's gradients."""
     t = TRAIN
-    mcfg, tcfg = production_configs(dropout=0.0, projection_dropout=0.0,
-                                    **(BF16_MODE if bf16 else {}))
+    mcfg, tcfg = production_configs(**{
+        "dropout": 0.0, "projection_dropout": 0.0,
+        **(BF16_MODE if bf16 else {}), **model})
     tcfg = dataclasses.replace(tcfg, lr_scheduler="constant")
     total, _ = compute_total_and_warmup_steps(
         t["num_edges"], t["batch"], t["epochs"], None)
@@ -2167,8 +2198,9 @@ def halo_setup(bf16, device):
     return mcfg, tcfg, opt, sched, state
 
 
-def halo_steps(step, state, node_emb, graph, batches):
-    """The steps, each timed to a synchronize; (state, record)."""
+def halo_steps(step, state, node_emb, graph, batches, snapshots=None):
+    """The steps, each timed to a synchronize; (state, record). Given a
+    list, ``snapshots`` gets the parameters on the host after each step."""
     weight = torch.ones(TRAIN["batch"], device=node_emb.device)
     torch.cuda.reset_peak_memory_stats()
     kern.reset_launch_counts()
@@ -2181,23 +2213,37 @@ def halo_steps(step, state, node_emb, graph, batches):
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
+        if snapshots is not None:
+            snapshots.append([p.detach().cpu()
+                              for p in tree_leaves(state.params)])
     return state, dict(losses=losses, grad_norms=norms, step_ms=ms,
                        peak_bytes=torch.cuda.max_memory_allocated(),
                        launches=kern.launch_counts())
 
 
-def halo_inputs():
-    """TRAIN's seeded graph and embeddings, and the phase's batches."""
+def halo_inputs(steps):
+    """TRAIN's seeded graph and embeddings, and ``steps`` batches."""
     src, dst, et, emb, picks = train_inputs(np.random.default_rng(SEED))
-    return src, dst, et, emb, edge_batches(src, et, dst,
-                                           picks[:HALO["steps"]])
+    return src, dst, et, emb, edge_batches(src, et, dst, picks[:steps])
+
+
+def reference_steps():
+    """Steps of the one-device runs: the most any grid takes."""
+    return max(HALO["steps"], ROUTES["steps"])
+
+
+def save_reference(path, init, grads, snapshots):
+    """A one-device run for the ranks: its initial parameters, each step's
+    gradients and the parameters after each step."""
+    torch.save(dict(init=init, grads=grads, params_by_step=snapshots), path)
 
 
 def halo_reference(work):
-    """The one-device runs, fp32 and bf16; their initial and final
-    parameters and each step's gradients go to ``work`` for the ranks."""
+    """The one-device runs, fp32 and bf16; their initial parameters, each
+    step's gradients and the parameters after each step go to ``work``
+    for the ranks."""
     t = TRAIN
-    src, dst, et, emb, batches = halo_inputs()
+    src, dst, et, emb, batches = halo_inputs(reference_steps())
     graph = build_graph(src, dst, et, t["num_nodes"], num_rel=t["num_rel"],
                         csr=True, device=DEVICE)
     node_emb = torch.from_numpy(
@@ -2206,11 +2252,11 @@ def halo_reference(work):
     for bf16 in (False, True):
         mcfg, tcfg, opt, sched, state = halo_setup(bf16, DEVICE)
         init = [p.detach().cpu() for p in tree_leaves(state.params)]
+        snapshots = []
         state, rec = halo_steps(make_train_step(mcfg, tcfg, opt, sched),
-                                state, node_emb, graph, batches)
-        torch.save(dict(init=init, grads=opt.grads, params=[
-            p.detach().cpu() for p in tree_leaves(state.params)]),
-                   work / f"ref_{int(bf16)}.pt")
+                                state, node_emb, graph, batches, snapshots)
+        save_reference(work / f"ref_{int(bf16)}.pt", init, opt.grads,
+                       snapshots)
         refs[bf16] = rec
         del state
     del graph, node_emb
@@ -2246,6 +2292,36 @@ def worst_param(names, leaves, ref, grads, tcfg):
     )
 
 
+def against_reference(state, opt, ref, grid, tcfg):
+    """A grid's run against the same number of steps of the one-device run
+    ``ref``: the first step's gradient leaf by leaf (and each step's worst
+    leaf), the parameters' worst element, and whether every rank holds the
+    same parameters."""
+    from relgat_projector_tpu_torch.parallel.mesh import all_gather_cat
+
+    steps = len(opt.grads)
+    ref = dict(init=ref["init"], grads=ref["grads"][:steps],
+               params=ref["params_by_step"][steps - 1])
+
+    leaves = [p.detach().cpu() for p in tree_leaves(state.params)]
+    names = leaf_names(state.params)
+    sums = torch.stack([p.double().sum() for p in leaves])
+    every = all_gather_cat(sums[None], grid.world_group, grid.backend)
+    l2 = [[l2_rel_err(a, b) for a, b in zip(got, want)]
+          for got, want in zip(opt.grads, ref["grads"])]
+    peak = [[rel_err(a, b) for a, b in zip(got, want)]
+            for got, want in zip(opt.grads, ref["grads"])]
+    first, worst = int(np.argmax(l2[0])), int(np.argmax(peak[0]))
+    return dict(
+        grad_err=l2[0][first], grad_err_leaf=names[first],
+        grad_err_by_step=[max(e) for e in l2],
+        grad_max_rel=peak[0][worst], grad_max_rel_leaf=names[worst],
+        grad_max_rel_by_step=[max(e) for e in peak],
+        param=worst_param(names, leaves, ref, opt.grads, tcfg),
+        ranks_agree=bool((every == every[0]).all()),
+    )
+
+
 def halo_rank(rank, world, port, work):
     """One rank of the grid ``GRID`` (a process group of its own), both
     modes; its records go to ``work/rank_DxG_R.json``."""
@@ -2256,7 +2332,6 @@ def halo_rank(rank, world, port, work):
         place_graph,
     )
     from relgat_projector_tpu_torch.parallel.distributed import shutdown
-    from relgat_projector_tpu_torch.parallel.mesh import all_gather_cat
 
     t = TRAIN
     data, shards = GRID
@@ -2264,7 +2339,7 @@ def halo_rank(rank, world, port, work):
                            device=DEVICE, timeout_s=HALO["timeout_s"])
     torch.set_num_threads(HALO["threads"])
     grid = make_grid(MeshConfig(data_axis=data, graph_axis=shards))
-    src, dst, et, emb, batches = halo_inputs()
+    src, dst, et, emb, batches = halo_inputs(HALO["steps"])
     hf = t["heads"] * t["feat"]
     base = build_graph(src, dst, et, t["num_nodes"], num_rel=t["num_rel"],
                        halo_shards=shards, halo_overlap=True, device=DEVICE)
@@ -2278,23 +2353,9 @@ def halo_rank(rank, world, port, work):
         step = make_train_step(mcfg, tcfg, opt, sched, grid=grid)
         state, rec = halo_steps(step, state, node_emb, graph, batches)
         ref = torch.load(work / f"ref_{int(bf16)}.pt", weights_only=True)
-        leaves = [p.detach().cpu() for p in tree_leaves(state.params)]
-        names = leaf_names(state.params)
-        sums = torch.stack([p.double().sum() for p in leaves])
-        every = all_gather_cat(sums[None], grid.world_group, grid.backend)
-        l2 = [[l2_rel_err(a, b) for a, b in zip(got, want)]
-              for got, want in zip(opt.grads, ref["grads"])]
-        peak = [[rel_err(a, b) for a, b in zip(got, want)]
-                for got, want in zip(opt.grads, ref["grads"])]
-        first, worst = int(np.argmax(l2[0])), int(np.argmax(peak[0]))
+        rec.update(against_reference(state, opt, ref, grid, tcfg))
         rec.update(
             grid=[data, shards], bf16=bf16, rank=rank,
-            grad_err=l2[0][first], grad_err_leaf=names[first],
-            grad_err_by_step=[max(e) for e in l2],
-            grad_max_rel=peak[0][worst], grad_max_rel_leaf=names[worst],
-            grad_max_rel_by_step=[max(e) for e in peak],
-            param=worst_param(names, leaves, ref, opt.grads, tcfg),
-            ranks_agree=bool((every == every[0]).all()),
             halo_pair=base.halo.halo_pair,
             rows_per_shard=base.halo.rows_per_shard,
             exchange_bytes_per_layer=(
@@ -2306,22 +2367,24 @@ def halo_rank(rank, world, port, work):
             exchange_via=grid.exchange_via(node_emb.device),
         )
         records.append(rec)
-        del state, step, leaves, opt, ref
+        del state, step, opt, ref
         torch.cuda.empty_cache()
     (work / f"rank_{data}x{shards}_{rank}.json").write_text(
         json.dumps(records))
     shutdown()
 
 
-def halo_cli_argv(save_dir, rank, world, port):
-    """TRAINER's CLI flags with --mesh-graph 2, a batch of cli_batch with
-    cli_num_neg negatives (one epoch, the eval at its end, no periodic
-    saves), joining the process group as rank ``rank``."""
+def halo_cli_argv(save_dir, rank, world, port, mesh=None):
+    """TRAINER's CLI flags with ``mesh`` (by default --mesh-graph of the
+    world), a batch of cli_batch with cli_num_neg negatives (one epoch, the
+    eval at its end, no periodic saves), joining the process group as rank
+    ``rank``."""
     return trainer_argv(save_dir) + [
         "--batch-size", str(HALO["cli_batch"]),
         "--num-neg", str(HALO["cli_num_neg"]), "--eval-every-n-steps", "",
         "--save-every-n-steps", "0", "--log-every-n-steps", "10",
-        "--mesh-graph", str(world), "--distributed", "--num-processes",
+    ] + (mesh or ["--mesh-graph", str(world)]) + [
+        "--distributed", "--num-processes",
         str(world), "--process-id", str(rank), "--coordinator-address",
         f"127.0.0.1:{port}",
     ]
@@ -2398,18 +2461,18 @@ def halo_cli_rank(rank, world, port, work):
     shutdown()
 
 
-def spawn_ranks(mode, world, work, grid=None):
+def spawn_ranks(mode, world, work, grid=None, runs=None):
     """``world`` processes of this script in rank mode ``mode`` (on
-    ``grid`` for ``halo``), on a free port; waits for all of them, each
-    within the phase's time limit, and kills whatever is left. Fails if any
-    rank fails."""
+    ``grid`` for ``halo`` and ``routes``, the latter running ``runs``), on a
+    free port; waits for all of them, each within the phase's time limit,
+    and kills whatever is left. Fails if any rank fails."""
     sock = socket.socket()
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
     (work / "config.json").write_text(json.dumps(dict(
-        TRAIN=TRAIN, TRAINER=TRAINER, HALO=HALO, DEVICE=DEVICE, SEED=SEED,
-        GRID=grid)))
+        TRAIN=TRAIN, TRAINER=TRAINER, HALO=HALO, ROUTES=ROUTES,
+        PARITY=PARITY, DEVICE=DEVICE, SEED=SEED, GRID=grid, RUNS=runs)))
     procs = [
         subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--rank-mode",
@@ -2428,11 +2491,345 @@ def spawn_ranks(mode, world, work, grid=None):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    tag = mode if grid is None else f"{mode}_{grid[0]}x{grid[1]}"
+    tag = mode if grid is None else f"{mode}_{'x'.join(map(str, grid))}"
     for r, (p, log) in enumerate(zip(procs, logs)):
         (work / f"{tag}_rank{r}.out").write_text(log)
         check(p.returncode == 0,
               f"{mode} rank {r} exited {p.returncode}:\n{log[-4000:]}")
+
+
+# Phase 9's grid_routes: the rest of the multi-device modes. Each entry of
+# grids is a (data, graph, model) grid, a process group of its own, and the
+# (route, mode) runs its ranks make in turn: 3 steps of TRAIN's model, lr
+# 2e-5 constant, against the one-device run of the same mode at HALO_TOL
+# (the one-device runs take 3 steps; the halo grids above, cut to 2 to
+# keep the script near half its time limit, are held to the first 2).
+# Modes: fp32, bf16, and "dropout": fp32 with TRAIN's dropout and an
+# attention dropout of rel_attn_dropout, which on the replicated route
+# draws one device's masks (the same seed on every shard, global edge ids).
+# The gspmd route (plain, as in JAX) runs on PARITY's graph: at TRAIN's its
+# E-sized plain tensors would not fit two ranks on the card. Then the CLI on
+# two ranks, one epoch a leg: head TP and the replicated route; the kernels
+# line's rows of a head-TP tile (8 heads) and of a replicated shard, whose
+# source space is every row (at G = replicated_kernel_shards, where a
+# float64 plain version fits the card beside it).
+ROUTES = dict(
+    grids=(((1, 1, 2), (("halo", "fp32"),)),
+           ((1, 2, 2), (("halo", "fp32"), ("halo", "bf16"))),
+           ((2, 2, 2), (("halo", "fp32"),)),
+           ((1, 2, 1), (("replicated", "fp32"), ("replicated", "bf16"),
+                        ("replicated", "dropout"), ("gspmd", "fp32"))),
+           ((2, 2, 1), (("replicated", "fp32"),))),
+    steps=3, rel_attn_dropout=0.2, replicated_kernel_shards=4,
+    cli_legs=(("model", ["--mesh-model", "2"]),
+              ("replicated", ["--mesh-propagate", "replicated",
+                              "--mesh-graph", "2"])),
+)
+# The one-device runs: the halo grids' fp32 and bf16 (halo_reference), and
+# these.
+REF_FILES = {"fp32": "ref_0.pt", "bf16": "ref_1.pt",
+             "dropout": "ref_dropout.pt", "gspmd": "ref_gspmd.pt"}
+RUNS = None  # a routes rank's (route, mode) runs, from its config.json
+
+
+def ref_key(route, mode):
+    return "gspmd" if route == "gspmd" else mode
+
+
+def route_model(route, mode):
+    """(bf16, model overrides) of a run."""
+    model = {}
+    if mode == "dropout":
+        model = dict(dropout=0.3, projection_dropout=0.3,
+                     rel_attn_dropout=ROUTES["rel_attn_dropout"])
+    if route == "gspmd":
+        model["use_pallas"] = False
+    return mode == "bf16", model
+
+
+def route_inputs(route):
+    """``((src, dst, et, emb, batches), nodes)`` of a route's runs: TRAIN's
+    (``halo_inputs``), or for gspmd PARITY's graph (phase 3's) with seeded
+    embeddings of TRAIN's width and batches of its size."""
+    steps = reference_steps()
+    if route != "gspmd":
+        return halo_inputs(steps), TRAIN["num_nodes"]
+    rng = np.random.default_rng(SEED)
+    src, dst, et = parity_graph(rng)
+    emb = rng.standard_normal((PARITY["num_nodes"], TRAIN["in_dim"]),
+                              dtype=np.float32)
+    picks = rng.integers(0, src.size, (steps, TRAIN["batch"]))
+    return ((src, dst, et, emb, edge_batches(src, et, dst, picks)),
+            PARITY["num_nodes"])
+
+
+def routes_reference(work):
+    """The one-device runs of the dropout mode and of the gspmd route's
+    graph, to ``work`` for the ranks (fp32 and bf16 are halo_reference's)."""
+    refs = {}
+    for key, route, mode in (("dropout", "replicated", "dropout"),
+                             ("gspmd", "gspmd", "fp32")):
+        (src, dst, et, emb, batches), n = route_inputs(route)
+        graph = build_graph(src, dst, et, n, num_rel=TRAIN["num_rel"],
+                            csr=route != "gspmd", device=DEVICE)
+        node_emb = torch.from_numpy(
+            pad_node_embeddings(emb, graph.num_nodes)).to(DEVICE)
+        bf16, model = route_model(route, mode)
+        mcfg, tcfg, opt, sched, state = halo_setup(bf16, DEVICE, **model)
+        init = [p.detach().cpu() for p in tree_leaves(state.params)]
+        snapshots = []
+        state, rec = halo_steps(make_train_step(mcfg, tcfg, opt, sched),
+                                state, node_emb, graph, batches, snapshots)
+        save_reference(work / REF_FILES[key], init, opt.grads, snapshots)
+        refs[key] = rec
+        del state, graph, node_emb
+        torch.cuda.empty_cache()
+    return refs
+
+
+def route_traffic(route, base, graph, grid):
+    """What a rank holds and sends a layer in the forward, in fp32 rows of
+    TRAIN's width: its edges, the halo exchange over its graph line, and
+    the join: the model line's heads (head TP), the graph line's rows
+    (replicated; an all-gather, so a rank sends its block to each peer),
+    or the merge's buffer (gspmd: the partial sum of [N, H*F + H + 1] and
+    the max of [N, H], all-reduced)."""
+    t = TRAIN
+    hf = t["heads"] * t["feat"]
+    if route == "halo":
+        hg, tile = base.halo, 4 * hf // grid.model
+        return dict(
+            edges=graph.halo.loc.num_edges + graph.halo.rem.num_edges,
+            halo_pair=hg.halo_pair, rows_per_shard=hg.rows_per_shard,
+            exchange_bytes_per_layer=hg.exchange_bytes_per_device(tile),
+            join_bytes_per_layer=(grid.model - 1) * hg.rows_per_shard * tile)
+    if route == "replicated":
+        shard = graph.edge_shard
+        return dict(edges=shard.csr.num_edges, rows_per_shard=shard.rows,
+                    exchange_bytes_per_layer=0,
+                    join_bytes_per_layer=(grid.graph - 1) * shard.rows * 4
+                    * hf)
+    return dict(edges=int(graph.edge_shard.src.shape[0]),
+                rows_per_shard=graph.num_nodes, exchange_bytes_per_layer=0,
+                join_bytes_per_layer=4 * graph.num_nodes
+                * (hf + 2 * t["heads"] + 1))
+
+
+def routes_rank(rank, world, port, work):
+    """One rank of the grid ``GRID`` (data, graph, model), a process group
+    of its own, making the ``RUNS`` in turn; its records go to
+    ``work/routes_DxGxM_R.json``."""
+    from relgat_projector_tpu_torch.config import MeshConfig
+    from relgat_projector_tpu_torch.parallel import (
+        initialize_distributed,
+        make_grid,
+        place_graph,
+    )
+    from relgat_projector_tpu_torch.parallel.distributed import shutdown
+
+    t = TRAIN
+    data, shards, model = GRID
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                           device=DEVICE, timeout_s=HALO["timeout_s"])
+    torch.set_num_threads(HALO["threads"])
+    grid = make_grid(MeshConfig(data_axis=data, graph_axis=shards,
+                                model_axis=model))
+    records = []
+    for route, mode in RUNS:
+        (src, dst, et, emb, batches), n = route_inputs(route)
+        batches = batches[:ROUTES["steps"]]
+        base = build_graph(
+            src, dst, et, n, num_rel=t["num_rel"],
+            csr=route == "replicated", graph_shards=shards,
+            halo_shards=shards if route == "halo" else 0, halo_overlap=True,
+            device=DEVICE)
+        graph = place_graph(base, grid, t["num_rel"],
+                            csr=route != "gspmd")
+        rows = pad_node_embeddings(emb, graph.num_nodes)
+        if route == "halo":
+            lo, hi = graph.halo.row_range
+            rows = np.ascontiguousarray(rows[lo:hi])
+        node_emb = torch.from_numpy(rows).to(DEVICE)
+        del rows, emb
+        bf16, over = route_model(route, mode)
+        mcfg, tcfg, opt, sched, state = halo_setup(bf16, DEVICE, **over)
+        step = make_train_step(mcfg, tcfg, opt, sched, grid=grid)
+        state, rec = halo_steps(step, state, node_emb, graph, batches)
+        ref = torch.load(work / REF_FILES[ref_key(route, mode)],
+                         weights_only=True)
+        rec.update(against_reference(state, opt, ref, grid, tcfg))
+        rec.update(grid=list(GRID), route=route, mode=mode, rank=rank,
+                   exchange_via=grid.exchange_via(node_emb.device),
+                   **route_traffic(route, base, graph, grid))
+        records.append(rec)
+        del state, step, opt, ref, graph, base, node_emb
+        torch.cuda.empty_cache()
+    tag = "x".join(map(str, GRID))
+    (work / f"routes_{tag}_{rank}.json").write_text(json.dumps(records))
+    shutdown()
+
+
+def routes_cli_rank(rank, world, port, work):
+    """``cli.main`` on this rank for each of ``ROUTES``' CLI legs, one
+    epoch each in a directory of its own, counting its checkpoint writes
+    and launches."""
+    from relgat_projector_tpu_torch.parallel import initialize_distributed
+    from relgat_projector_tpu_torch.parallel.distributed import shutdown
+    from relgat_projector_tpu_torch.train.checkpoint import RelGATStorage
+
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                           device=DEVICE, timeout_s=HALO["timeout_s"])
+    torch.set_num_threads(HALO["threads"])
+    writes = []
+    save = RelGATStorage.save_checkpoint
+
+    def spy_save(self, subdir, *a, **kw):
+        writes.append(subdir)
+        return save(self, subdir, *a, **kw)
+
+    RelGATStorage.save_checkpoint = spy_save
+    rec = {"rank": rank}
+    for leg, flags in ROUTES["cli_legs"]:
+        argv = halo_cli_argv(work / f"cli_{leg}", rank, world, port,
+                             mesh=flags)
+        buf = io.StringIO()
+        kern.reset_launch_counts()
+        writes.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        rec[leg] = dict(seconds=time.perf_counter() - t0,
+                        launches=kern.launch_counts(), writes=list(writes),
+                        log_bytes=len(buf.getvalue()))
+        (work / f"cli_{leg}_rank{rank}.log").write_text(buf.getvalue())
+        torch.cuda.empty_cache()
+    (work / f"routes_cli_rank_{rank}.json").write_text(json.dumps(rec))
+    shutdown()
+
+
+def route_launches(route, bf16, steps, layers):
+    """Each kernel's launches a rank makes in ``steps`` train steps: both
+    subsets on the halo route, one layout on the replicated route, no
+    kernel on the gspmd route."""
+    per = {"halo": 2, "replicated": 1, "gspmd": 0}[route] * layers * steps
+    return expected_launches(bf16, per)
+
+
+def route_kernel_rows(card, out_lines, launches):
+    """The kernels line's rows of a head-TP tile (graph shard 0 of the
+    G = 2 plan, model index 0: 8 heads, both subsets) and of shard 0 of
+    the replicated route's plan at G = ``replicated_kernel_shards``
+    (sources: every row). ``launches``: rank 0's counts of (1, 2, 2) and of
+    (1, 2, 1)'s replicated runs."""
+    t = TRAIN
+    src, dst, et, _, _ = train_inputs(np.random.default_rng(SEED))
+    plan = build_halo_graph(src, dst, et, t["num_nodes"], 2, overlap=True)
+    parts = shard_edges(plan, 0, t["num_rel"], torch.device(DEVICE),
+                        csr=True)
+    heads = t["heads"] // 2
+    rows = shard_kernel_rows(card, out_lines, [
+        ("head TP G=2 M=2 tile (0, 0) local", parts["loc"].csr, heads),
+        ("head TP G=2 M=2 tile (0, 0) remote", parts["rem"].csr, heads),
+    ], launches["halo"], "rank 0 of grid (1, 2, 2), both subsets")
+    del parts, plan
+    g = ROUTES["replicated_kernel_shards"]
+    base = build_graph(src, dst, et, t["num_nodes"], num_rel=t["num_rel"],
+                       csr=True, graph_shards=g, device=DEVICE)
+    csr = shard_csr_layout(base.edge_shard, 0, t["num_rel"],
+                           torch.device(DEVICE))
+    rows += shard_kernel_rows(
+        card, out_lines, [(f"replicated G={g} shard 0", csr, t["heads"])],
+        launches["replicated"], "rank 0 of grid (1, 2, 1), replicated")
+    return rows
+
+
+def grid_routes(card, out_lines, work, refs, out_dir):
+    """The grids of ``ROUTES`` against the one-device runs, the CLI legs
+    and the kernel rows; a ``grid_routes`` and a ``grid_routes_cli`` line.
+    ``refs``: halo_reference's records, by bf16."""
+    t, h = TRAIN, HALO
+    layers = t["layers"]
+    t0 = time.perf_counter()
+    refs = {"fp32": refs[False], "bf16": refs[True],
+            **routes_reference(work)}
+    records = []
+    for grid, runs in ROUTES["grids"]:
+        world = int(np.prod(grid))
+        spawn_ranks("routes", world, work, grid=grid, runs=runs)
+        tag = "x".join(map(str, grid))
+        records += [rec for r in range(world) for rec in
+                    json.loads((work / f"routes_{tag}_{r}.json").read_text())]
+    rows, launches = [], {"halo": {}, "replicated": {}}
+    for rec in records:
+        ref = refs[ref_key(rec["route"], rec["mode"])]
+        rec["loss_err"] = max(abs(a - b) / abs(b) for a, b in
+                              zip(rec["losses"], ref["losses"]))
+        rec["grad_norm_err"] = max(abs(a - b) / abs(b) for a, b in
+                                   zip(rec["grad_norms"], ref["grad_norms"]))
+        rows.append({k: rec[k] for k in (
+            "grid", "route", "mode", "rank", "step_ms", "peak_bytes",
+            "edges", "rows_per_shard", "exchange_bytes_per_layer",
+            "join_bytes_per_layer", "exchange_via", "grad_err",
+            "grad_err_leaf", "grad_err_by_step", "grad_max_rel",
+            "grad_max_rel_leaf", "loss_err", "grad_norm_err", "param")})
+        if rec["route"] == "halo" and "halo_pair" in rec:
+            rows[-1]["halo_pair"] = rec["halo_pair"]
+    grid_s = time.perf_counter() - t0
+    # The grids' line first, so that a failed check leaves its numbers.
+    emit({"phase": "grid_routes", "card": card, "grids": rows,
+          "reference": refs, "seconds": grid_s}, out_lines)
+    for rec in records:
+        bf16 = rec["mode"] == "bf16"
+        what = (f"{rec['route']} grid {tuple(rec['grid'])} {rec['mode']} "
+                f"rank {rec['rank']}")
+        tol = HALO_TOL[bf16]
+        for key in ("grad_err", "loss_err", "grad_norm_err"):
+            check(rec[key] <= tol, f"{what}: {key} {rec[key]:.3e} > {tol}")
+        check(rec["ranks_agree"], f"{what}: ranks hold other parameters")
+        want = route_launches(rec["route"], bf16, ROUTES["steps"], layers)
+        check(rec["launches"] == want,
+              f"{what}: launches {rec['launches']}, expected {want}")
+        if rec["rank"] == 0 and rec["mode"] in ("fp32", "bf16"):
+            if tuple(rec["grid"]) == (1, 2, 2):
+                launches["halo"][bf16] = rec["launches"]
+            if (tuple(rec["grid"]) == (1, 2, 1)
+                    and rec["route"] == "replicated"):
+                launches["replicated"][bf16] = rec["launches"]
+
+    t1 = time.perf_counter()
+    spawn_ranks("routes_cli", h["cli_ranks"], work)
+    cli_recs = [json.loads((work / f"routes_cli_rank_{r}.json").read_text())
+                for r in range(h["cli_ranks"])]
+    steps = -(-int(TRAINER["train_ratio"] * TRAINER["triplets"])
+              // h["cli_batch"])
+    cli_rec = dict(ranks=h["cli_ranks"], batch=h["cli_batch"],
+                   steps_per_epoch=steps)
+    for leg, flags in ROUTES["cli_legs"]:
+        subsets = 2 if leg == "model" else 1
+        want = expected_launches(False, subsets * layers * steps)
+        # one forward a layer a step and for the eval
+        want["relgat_fwd"] = subsets * layers * (steps + 1)
+        for rec in cli_recs:
+            primary = rec["rank"] == 0
+            check(rec[leg]["writes"] == ([FINAL_DIR] if primary else []),
+                  f"cli {leg} rank {rec['rank']} wrote {rec[leg]['writes']}")
+            check(rec[leg]["launches"] == want,
+                  f"cli {leg} rank {rec['rank']} launches "
+                  f"{rec[leg]['launches']}, expected {want}")
+        done, dispatch, _ = saved_counts(work / f"cli_{leg}" / FINAL_DIR)
+        check(done == dispatch == steps,
+              f"the CLI {leg} leg saved step {done}, dispatch {dispatch}")
+        cli_rec[leg] = dict(flags=flags, saved_step=done,
+                            seconds=[r[leg]["seconds"] for r in cli_recs])
+    cli_rec["seconds"] = time.perf_counter() - t1
+    if out_dir is not None:
+        for p in work.glob("routes*.out"):
+            (out_dir / f"chip_smoke_{p.name}").write_text(p.read_text())
+    emit({"phase": "grid_routes_cli", "card": card, **cli_rec}, out_lines)
+    kernel_rows = route_kernel_rows(card, out_lines, launches)
+    return kernel_rows, dict(grid_s=grid_s, cli=cli_rec,
+                             seconds=time.perf_counter() - t0)
 
 
 def clustered_graph(rng):
@@ -2482,36 +2879,45 @@ def halo_clustered():
 def halo_kernel_rows(card, out_lines, launches):
     """The kernels line's rows of the split kernels on shard 0 of the
     G = 4 plan (local and remote subsets: source rows apart from the
-    destination rows, canonical edge ids), fp32 and bf16, attention
-    dropout ``kernel_rate``: each against its plain version in float64,
-    the forward and src pass giving the same bits twice, timed beside its
-    bound and the row-gather floor over the subset's edges. ``launches``:
-    rank 0's counts in the (1, 4) run, both subsets."""
+    destination rows, canonical edge ids); ``launches``: rank 0's counts in
+    the (1, 4) run, both subsets."""
     t, h = TRAIN, HALO
     src, dst, et, _, _ = train_inputs(np.random.default_rng(SEED))
     plan = build_halo_graph(src, dst, et, t["num_nodes"], h["shards"],
                             overlap=True)
     parts = shard_edges(plan, 0, t["num_rel"], torch.device(DEVICE),
                         csr=True)
-    heads, feat, num_rel = t["heads"], t["feat"], t["num_rel"]
-    hf = heads * feat
-    rows = plan.rows_per_shard
+    label = f"halo G={h['shards']} shard 0"
+    return shard_kernel_rows(card, out_lines, [
+        (f"{label} local", parts["loc"].csr, t["heads"]),
+        (f"{label} remote", parts["rem"].csr, t["heads"]),
+    ], launches, "rank 0 of grid (1, 4), both subsets")
+
+
+def shard_kernel_rows(card, out_lines, cases, launches, launches_of):
+    """Rows of the kernels line for each ``(label, csr, heads)`` of
+    ``cases`` (TRAIN's feature width; source rows ``csr.num_src`` apart
+    from the destination rows), fp32 and bf16, attention dropout
+    ``kernel_rate``: each kernel against its plain version in float64, the
+    forward and src pass giving the same bits twice, timed beside its
+    bound and the row-gather floor over the layout's edges. ``launches``:
+    the counts of the main path's run named by ``launches_of``."""
+    t, h = TRAIN, HALO
+    feat, num_rel = t["feat"], t["num_rel"]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
-    space = {"local": torch.randn((rows, hf), generator=gen, device=DEVICE),
-             "remote": torch.randn((plan.num_shards * plan.halo_pair, hf),
-                                   generator=gen, device=DEVICE)}
-    g = torch.randn((rows, hf), generator=gen, device=DEVICE)
-    attn = torch.randn((heads, num_rel, feat), generator=gen,
-                       device=DEVICE) * 0.3
-    bias = torch.randn((num_rel,), generator=gen, device=DEVICE) * 0.1
     kw = dict(seed=h["kernel_seed"], rate=h["kernel_rate"],
               negative_slope=0.2, eps=1e-16)
     out_rows = []
-    for bf16 in (False, True):
-        fwd, bwd_src, bwd_rel = VARIANTS[bf16]
-        for subset, csr in (("local", parts["loc"].csr),
-                            ("remote", parts["rem"].csr)):
-            hs = space[subset]
+    for label, csr, heads in cases:
+        hf = heads * feat
+        rows = csr.num_nodes
+        hs = torch.randn((csr.num_src, hf), generator=gen, device=DEVICE)
+        g = torch.randn((rows, hf), generator=gen, device=DEVICE)
+        attn = torch.randn((heads, num_rel, feat), generator=gen,
+                           device=DEVICE) * 0.3
+        bias = torch.randn((num_rel,), generator=gen, device=DEVICE) * 0.1
+        for bf16 in (False, True):
+            fwd, bwd_src, bwd_rel = VARIANTS[bf16]
             rh = hs.to(torch.bfloat16) if bf16 else hs
             rg = g.to(torch.bfloat16) if bf16 else g
             res = KERNELS[fwd](rh, attn, bias, csr, **kw)
@@ -2525,14 +2931,14 @@ def halo_kernel_rows(card, out_lines, launches):
                 back, KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr,
                                        **kw)))
             check(same, f"{fwd} or {bwd_src} gave other bits in a second "
-                        f"call on the {subset} subset")
+                        f"call on {label}")
             rel = KERNELS[bwd_rel](rh, back[1], back[2])
             errs = {}
             want = PLAIN[fwd](*(x.double() for x in (rh, attn, bias)), csr,
                               **kw)
             fin = torch.isfinite(want[1])
             check(torch.equal(fin, torch.isfinite(m)),
-                  f"{fwd}: rows without edges differ on the {subset} subset")
+                  f"{fwd}: rows without edges differ on {label}")
             errs[fwd] = [(abs_err(a, c), rel_err(a, c)) for a, c in
                          zip((out, m[fin], l, b), (want[0], want[1][fin],
                                                    want[2], want[3]))]
@@ -2564,11 +2970,11 @@ def halo_kernel_rows(card, out_lines, launches):
                 source, replaces = KERNEL_SOURCES[name]
                 best, by = bound_ms(*bnd[kind])
                 row = {
-                    "name": name, "graph": f"halo G={h['shards']} shard 0 "
-                    f"{subset}", "heads": heads, "feat": feat,
-                    "route": "cuda", "source": source, "replaces": replaces,
+                    "name": name, "graph": label, "heads": heads,
+                    "feat": feat, "route": "cuda", "source": source,
+                    "replaces": replaces,
                     "launches": launches[bf16][name],
-                    "launches_of": "rank 0 of grid (1, 4), both subsets",
+                    "launches_of": launches_of,
                     "max_abs_err": max(e[0] for e in errs[name]),
                     "max_rel_err": max(e[1] for e in errs[name]),
                     "ms": cuda_ms(lambda: calls[name](KERNELS[name]),
@@ -2593,8 +2999,9 @@ def halo_kernel_rows(card, out_lines, launches):
                 out_rows.append(row)
             del res, back, rel, calls, library
             torch.cuda.empty_cache()
+        del hs, g
     check(all(r["max_rel_err"] <= REL_TOL for r in out_rows),
-          "split kernel parity failed")
+          f"shard kernel parity failed ({launches_of})")
     return out_rows
 
 
@@ -2695,6 +3102,9 @@ def phase_halo(card, out_lines, out_dir):
                 (out_dir / f"chip_smoke_halo_{p.name}").write_text(
                     p.read_text())
         kernel_rows = halo_kernel_rows(card, out_lines, launches)
+        route_rows, routes = grid_routes(card, out_lines, work, refs,
+                                         out_dir)
+        kernel_rows += route_rows
     emit({"phase": "halo", "card": card,
           "ranks": "processes time-sharing one card over gloo; step_ms is "
                    "not a scaling number",
@@ -2705,7 +3115,7 @@ def phase_halo(card, out_lines, out_dir):
                                        "loss_err", "grad_norm_err")}
                     for g in grids],
           "grid_s": grid_s, "clustered": clustered, "cli": cli_rec,
-          "seconds": time.perf_counter() - t0}, out_lines)
+          "routes": routes, "seconds": time.perf_counter() - t0}, out_lines)
     return kernel_rows
 
 
@@ -2714,7 +3124,8 @@ def rank_main(args) -> int:
     ``spawn_ranks`` with the phase's settings in ``WORK/config.json``."""
     work = Path(args.work)
     globals().update(json.loads((work / "config.json").read_text()))
-    run = {"halo": halo_rank, "cli": halo_cli_rank}[args.rank_mode]
+    run = {"halo": halo_rank, "cli": halo_cli_rank, "routes": routes_rank,
+           "routes_cli": routes_cli_rank}[args.rank_mode]
     run(int(args.rank), int(args.world), int(args.port), work)
     return 0
 

@@ -8,16 +8,17 @@ running on the CPU). ``--use-pallas`` selects the hand-written Hopper
 kernels; ``--kernel-precision default`` their bf16 row streams and
 ``--compute-dtype bfloat16`` bf16 projections; ``--remat``, ``--scan-segments``
 and ``--steps-per-call`` run as in the JAX package (``config.py``).
-``--mesh-data`` and ``--mesh-graph`` train on a grid of that many
-processes, one a device, the graph axis on the halo route
-(``--no-halo-overlap``, ``--partition-nodes``): start one process per
-device with ``--distributed --num-processes N --process-id I
+``--mesh-data``, ``--mesh-graph`` and ``--mesh-model`` train on a grid of
+that many processes, one a device, the graph axis on the route
+``--mesh-propagate`` names: ``halo`` (``--no-halo-overlap``,
+``--partition-nodes``; the only route with ``--mesh-model`` above 1),
+``replicated`` (with ``--use-pallas``) or ``gspmd`` (without): start one
+process per device with ``--distributed --num-processes N --process-id I
 --coordinator-address HOST:PORT``; the process group's backend follows
-``--device`` (NCCL on CUDA, gloo on the CPU). Flags this package cannot run
-yet (``--mesh-model`` above 1, the ``replicated`` and ``gspmd`` routes over a
-graph axis) raise ``NotImplementedError`` naming the field, as does a
-``--config`` file that asks for them or for a parameter or compute dtype
-other than float32 and bfloat16. As
+``--device`` (NCCL on CUDA, gloo on the CPU). A mesh and route the JAX
+trainer refuses raise its ``ValueError``; a ``--config`` file that asks for
+a parameter or compute dtype other than float32 and bfloat16 raises
+``NotImplementedError`` naming the field. As
 in the JAX package, no flag sets ``param_dtype``: bf16 parameters are a
 ``ModelConfig`` field of the Python API. Console entry point:
 ``relgat-projector-train-torch``; also ``python -m
@@ -251,8 +252,8 @@ def get_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mesh-graph", dest="mesh_graph", type=int, default=1,
                    help="devices on the 'graph' (edge-partition) mesh axis")
     p.add_argument("--mesh-model", dest="mesh_model", type=int, default=1,
-                   help="devices on the 'model' (head-TP) mesh axis (not "
-                        "ported: values above 1 raise)")
+                   help="devices on the 'model' (head-TP) mesh axis "
+                        "(halo route)")
     p.add_argument("--mesh-propagate", dest="mesh_propagate",
                    choices=["halo", "replicated", "gspmd"], default="halo",
                    help="graph-axis strategy: boundary-only halo exchange "
@@ -433,6 +434,13 @@ def main(argv=None) -> None:
     run_config = build_run_config(args)
 
     # The process group before the trainer is built (parallel/distributed.py).
+    mesh = run_config.mesh
+    if args.num_processes not in (None, mesh.num_devices):
+        raise ValueError(
+            f"--num-processes {args.num_processes} for a mesh of "
+            f"data_axis={mesh.data_axis}, graph_axis={mesh.graph_axis}, "
+            f"model_axis={mesh.model_axis}: one process a device"
+        )
     if args.distributed or args.num_processes is not None:
         from relgat_projector_tpu_torch.parallel import initialize_distributed
 

@@ -22,15 +22,18 @@ In this package:
   ``use_pallas`` it is ignored, as in the JAX package;
 - ``steps_per_call > 1`` runs that many steps a call
   (``train/step.py:make_scan_train_step``);
-- a mesh of ``data_axis`` x ``graph_axis`` devices runs as that many
-  processes of a ``torch.distributed`` group (``parallel/``), the graph
-  axis on the halo route (``mesh_propagate="halo"``, with
-  ``halo_overlap`` and ``partition_nodes``);
-- a value this package cannot run yet (a compute or parameter dtype other
-  than float32 and bfloat16, ``model_axis > 1``, the ``replicated`` and
-  ``gspmd`` routes over a graph axis) raises ``NotImplementedError``
-  naming the field, so a ``training-config.json`` from the JAX package
-  that asks for one fails when it is loaded.
+- a mesh of ``data_axis`` x ``graph_axis`` x ``model_axis`` devices runs
+  as that many processes of a ``torch.distributed`` group (``parallel/``),
+  the graph axis on the route ``mesh_propagate`` names: ``"halo"`` (with
+  ``halo_overlap`` and ``partition_nodes``, and head tensor parallelism
+  over ``model_axis``), ``"replicated"`` (the kernels on each rank's
+  destination range, features replicated) or ``"gspmd"`` (the plain
+  propagate on each rank's piece of the edge list);
+- a mesh and route the JAX trainer refuses raise the ``ValueError`` it
+  raises, here when the ``RunConfig`` is made (``check_mesh_route``);
+- a compute or parameter dtype other than float32 and bfloat16 raises
+  ``NotImplementedError`` naming the field, so a ``training-config.json``
+  from the JAX package that asks for one fails when it is loaded.
 """
 
 from __future__ import annotations
@@ -230,24 +233,55 @@ class MeshConfig:
     """Device-mesh layout: one process a device (``parallel/mesh.py``)."""
 
     data_axis: int = 1   # DP over the triplet batch
-    graph_axis: int = 1  # destination-row shards of the graph (halo route)
-    model_axis: int = 1  # TP over attention heads: not ported
+    graph_axis: int = 1  # destination-row or edge shards of the graph
+    model_axis: int = 1  # TP over attention heads (halo route)
 
     def __post_init__(self) -> None:
         for name in ("data_axis", "graph_axis", "model_axis"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1")
-        if self.model_axis > 1:
-            raise NotImplementedError(
-                f"mesh data_axis={self.data_axis}, "
-                f"graph_axis={self.graph_axis}, model_axis={self.model_axis}:"
-                " model_axis > 1 (head tensor parallelism) is not ported yet "
-                "(ROADMAP.md Queue 1 item 6)"
-            )
 
     @property
     def num_devices(self) -> int:
         return self.data_axis * self.graph_axis * self.model_axis
+
+
+def check_mesh_route(model: ModelConfig, mesh: MeshConfig) -> None:
+    """Raise the ``ValueError`` the JAX trainer raises for this mesh and
+    route (``train/trainer.py:84-94``, ``:117-122``, ``:242-257``), and
+    nothing where it trains."""
+    if mesh.num_devices == 1:
+        return
+    route, graph = model.mesh_propagate, mesh.graph_axis
+    if graph > 1 and route == "replicated" and not model.use_pallas:
+        raise ValueError(
+            f"mesh_propagate='replicated' with graph_axis={graph} is the "
+            "per-device kernel route and requires use_pallas=True; use "
+            "'halo' (default) or 'gspmd' for the plain route"
+        )
+    if (graph > 1 and route == "replicated" and model.use_pallas
+            and model.scan_segments > 1):
+        raise ValueError(
+            f"scan_segments={model.scan_segments} with graph_axis={graph} "
+            "requires mesh_propagate='halo' (the replicated route has no "
+            "scanned per-device layouts)"
+        )
+    if model.use_pallas and route == "gspmd":
+        raise ValueError(
+            "mesh_propagate='gspmd' has no kernel partitioning; use 'halo' "
+            "(default) or 'replicated' with use_pallas"
+        )
+    if mesh.model_axis > 1:
+        if route != "halo":
+            raise ValueError(
+                f"model_axis={mesh.model_axis} (head TP) requires "
+                f"mesh_propagate='halo', not {route!r}"
+            )
+        if model.gat_heads % mesh.model_axis != 0:
+            raise ValueError(
+                f"gat_heads={model.gat_heads} not divisible by "
+                f"model_axis={mesh.model_axis}"
+            )
 
 
 @dataclass
@@ -262,13 +296,7 @@ class RunConfig:
     run_name: Optional[str] = None
 
     def __post_init__(self) -> None:
-        route = self.model.mesh_propagate
-        if route != "halo" and self.mesh.graph_axis > 1:
-            raise NotImplementedError(
-                f"mesh_propagate={route!r} with "
-                f"graph_axis={self.mesh.graph_axis}: only the halo route is "
-                "ported (ROADMAP.md Queue 1 item 6)"
-            )
+        check_mesh_route(self.model, self.mesh)
 
     def to_dict(self) -> Dict[str, Any]:
         return {

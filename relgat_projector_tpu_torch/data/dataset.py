@@ -23,8 +23,11 @@ with its local/remote split when ``halo_overlap``; ``partition_nodes``
 then relabels the nodes first (``data/partition.py``), as the JAX package
 does, and only then (without halo shards it does nothing). With
 ``materialize_features=False`` the ``[N, D]`` embedding matrix is never
-stacked: a rank builds its own rows through ``feature_rows``. Graph shards
-(the ``replicated`` route) are not ported and raise.
+stacked: a rank builds its own rows through ``feature_rows``.
+``graph_shards > 1`` with ``csr`` builds the ``replicated`` route's
+destination ranges in place of the layout (``parallel/pallas_sharded.py``);
+as in the JAX package, the halo plan takes precedence and without ``csr``
+it changes nothing.
 """
 
 from __future__ import annotations
@@ -70,12 +73,6 @@ class RelGATData:
         materialize_features: bool = True,
         device: DeviceLike = "cuda",
     ):
-        if graph_shards > 1:
-            raise NotImplementedError(
-                f"graph_shards={graph_shards} (the replicated route) is not "
-                "ported yet (ROADMAP.md Queue 1 item 6)"
-            )
-
         self.rel2idx = dict(rel2idx)
         self.num_rel = len(rel2idx)
         self.train_ratio = float(train_ratio)
@@ -171,6 +168,7 @@ class RelGATData:
             csr=csr,
             edge_pad_multiple=edge_pad_multiple,
             node_pad_multiple=node_pad_multiple,
+            graph_shards=graph_shards,
             halo_shards=halo_shards,
             halo_overlap=halo_overlap,
             device=device,

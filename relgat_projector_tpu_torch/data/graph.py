@@ -6,10 +6,15 @@ nodes pad to ``round_up(N + 1, 8)`` with at least one padded row, edges pad
 to a multiple of 128, and padded edges point ``src = dst`` at the last
 padded row with ``etype = 0``.
 
-``halo_shards > 1`` builds the halo route's plan instead of the kernels'
+``halo_shards > 0`` builds the halo route's plan instead of the kernels'
 layout (``parallel/halo.py``): nodes pad to ``halo_shards * rows_per_shard``
 and ``halo`` holds the host plan of every shard, which
-``parallel.place_halo_graph`` turns into one rank's shard.
+``parallel.place_halo_graph`` turns into one rank's shard (a one-shard plan
+carries head tensor parallelism without a graph axis). ``graph_shards > 1``
+with ``csr`` builds the ``replicated`` route's plan instead
+(``parallel/pallas_sharded.py``): the one-device padding, and
+``edge_shard`` holds the destination ranges, which ``parallel.place_graph``
+turns into one rank's layout.
 
 Unlike the JAX path's clip-mode gathers, an out-of-range index on the card is
 an illegal memory access, so ``build_graph`` checks every index on the host.
@@ -42,6 +47,9 @@ class GraphData:
     max_etype: int       # -1 without edges
     csr: Optional[CSRGraph] = None  # the kernels' layout (use_pallas)
     halo: Any = None     # HaloGraph (host plan) or one rank's HaloShard
+    # The routes with replicated features: ShardedCSRGraph (the replicated
+    # route's host plan) or one rank's ReplicatedShard or GspmdShard.
+    edge_shard: Any = None
 
     @property
     def num_edges_padded(self) -> int:
@@ -58,6 +66,7 @@ def build_graph(
     csr: bool = False,
     edge_pad_multiple: int = 128,
     node_pad_multiple: int = 8,
+    graph_shards: int = 1,
     halo_shards: int = 0,
     halo_overlap: bool = False,
     device: DeviceLike = "cuda",
@@ -66,9 +75,11 @@ def build_graph(
 
     ``csr=True`` adds the CSR layout the propagate kernels read (the
     counterpart of ``blocked=True``). ``num_rel`` bounds ``etype`` when
-    given; the layout then covers that many relations. ``halo_shards > 1``
+    given; the layout then covers that many relations. ``halo_shards > 0``
     builds the halo plan (with the local/remote split if
-    ``halo_overlap``) in place of the layout; the shards build theirs."""
+    ``halo_overlap``), and ``graph_shards > 1`` with ``csr`` the
+    replicated route's plan, in place of the layout; the shards build
+    theirs."""
     dev = resolve_device(device)
     src = np.asarray(src).astype(np.int64).reshape(-1)
     dst = np.asarray(dst).astype(np.int64).reshape(-1)
@@ -92,7 +103,7 @@ def build_graph(
     src, dst, etype = src[order], dst[order], etype[order]
 
     plan = None
-    if halo_shards > 1:
+    if halo_shards > 0:
         from relgat_projector_tpu_torch.parallel.halo import build_halo_graph
 
         plan = build_halo_graph(src, dst, etype, num_real_nodes, halo_shards,
@@ -107,8 +118,15 @@ def build_graph(
     dst_p = np.concatenate([dst, np.full(pad_n, pad_node, np.int64)])
     et_p = np.concatenate([etype, np.zeros(pad_n, np.int64)])
 
-    layout = None
-    if csr and plan is None:
+    layout = sharded = None
+    if csr and plan is None and graph_shards > 1:
+        from relgat_projector_tpu_torch.parallel.pallas_sharded import (
+            shard_csr_graph,
+        )
+
+        sharded = shard_csr_graph(src, dst, etype, num_nodes_padded,
+                                  graph_shards)
+    elif csr and plan is None:
         layout = build_csr_graph(
             src, dst, etype, num_nodes_padded,
             num_rel if num_rel is not None else max_etype + 1, dev,
@@ -123,6 +141,7 @@ def build_graph(
         max_etype=max_etype,
         csr=layout,
         halo=plan,
+        edge_shard=sharded,
     )
 
 

@@ -7,6 +7,13 @@ One ``[N, in] x [in, H*F]`` product projects every head; it stays
 ``compute_dtype`` and an fp32 result. The layer's random draws are made by
 ``draw_layer_randomness`` before it runs and passed in, so that remat can
 recompute it.
+
+Under head tensor parallelism (a halo shard on a grid whose ``model`` axis
+``M`` is above 1) a rank projects and propagates only its heads
+``[m H/M, (m+1) H/M)``, and the ranks of its model line join their
+``[rows, H/M * F]`` outputs into ``[rows, H * F]`` before the output
+dropout; the join's backward sums the cotangents over the line and keeps
+the rank's columns (``parallel/mesh.py:gather_blocks``).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from relgat_projector_tpu_torch.data.graph import GraphData
 from relgat_projector_tpu_torch.device import compute_matmul
 from relgat_projector_tpu_torch.models.initializers import xavier_uniform
 from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
+from relgat_projector_tpu_torch.parallel.mesh import gather_blocks
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 
 
@@ -91,7 +99,12 @@ def apply_relgat_layer(
     dropout when ``keep`` is (``draw_layer_randomness``). Parameters of any
     storage type enter as JAX promotes them: ``proj`` cast to
     ``compute_dtype``, ``attn`` widened to fp32, ``rel_bias`` as stored."""
-    proj = params["proj"]
+    proj, attn = params["proj"], params["attn"]
+    grid = getattr(graph.halo, "grid", None)
+    if grid is not None and grid.model > 1:
+        per = proj.shape[0] // grid.model
+        lo = grid.model_index * per
+        proj, attn = proj[lo:lo + per], attn[lo:lo + per]
     heads, in_dim, out_dim = proj.shape
     n = x.shape[0]
     w = proj.permute(1, 0, 2).reshape(in_dim, heads * out_dim)
@@ -99,7 +112,7 @@ def apply_relgat_layer(
 
     agg = relgat_propagate(
         h,
-        params["attn"].float(),
+        attn.float(),
         params.get("rel_bias"),
         graph.src,
         graph.dst,
@@ -111,8 +124,12 @@ def apply_relgat_layer(
         csr=graph.csr,
         kernel_precision=kernel_precision,
         halo=graph.halo,
+        edge_shard=graph.edge_shard,
     )
     out = agg.reshape(n, heads * out_dim)
+    if grid is not None and grid.model > 1:
+        out = gather_blocks(out, grid.model_group, grid.model_index,
+                            grid.backend, dim=1)
 
     # Output dropout on the concatenated heads (reference ``layer.py:322``).
     if keep is not None:

@@ -57,7 +57,7 @@ from relgat_projector_tpu_torch.ops.dropout import (
     edge_keep_mask_all_heads,
     keep_threshold,
 )
-from relgat_projector_tpu_torch.ops.segment import segment_max, segment_sum
+from relgat_projector_tpu_torch.ops.segment import segment_max
 
 MAX_FEAT = 1024  # csrc/relgat_common.cuh kMaxFeatPerLane * 32
 # FWD_ITEM_EDGES (data/csr.py) is csrc/relgat_fwd.cu kItemEdges.
@@ -65,6 +65,16 @@ MAX_WARPS_PER_BLOCK = 8  # csrc/relgat_common.cuh kMaxWarpsPerBlock
 MAX_BWD_SMEM_BYTES = 48 * 1024  # csrc/relgat_bwd.cu kMaxBwdSmemBytes
 EDGE_TABLE_BYTES = 32 * 32  # csrc/relgat_bwd.cu 32 EdgeEntry a warp
 REL_TILE_ROWS = 512  # csrc/relgat_bwd.cu kRelTileRows
+
+
+def _atomic_sum(data, segment_ids, num_segments):
+    """The plain versions' segment sum: ``index_add_``, whose atomics add in
+    any order on the card. The plain versions are held in float64, and
+    their time is the kernels' plain ms, so they keep the sum those times
+    were measured with; the model's plain route takes
+    ``ops.segment.segment_sum``, which is ordered."""
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_add_(0, segment_ids, data)
 
 
 def _dropout_args(seed: Optional[int], rate: float):
@@ -175,12 +185,12 @@ def relgat_fwd_plain(
                      negative_slope)                             # [E, H]
     m = segment_max(e, dst, n)
     p = torch.exp(e - torch.where(torch.isfinite(m), m, 0.0)[dst])
-    l = segment_sum(p, dst, n)
+    l = _atomic_sum(p, dst, n)
     keep = _keep_scale(csr, heads, seed, rate)
     if keep is not None:
         p = p * keep
-    acc = segment_sum(hs * p[..., None], dst, n)
-    bias = segment_sum(rel_bias[et], dst, n)
+    acc = _atomic_sum(hs * p[..., None], dst, n)
+    bias = _atomic_sum(rel_bias[et], dst, n)
     out = acc / l.clamp_min(eps)[..., None] + bias[:, None, None]
     return out.reshape(n, hf), m, l, bias
 
@@ -206,18 +216,18 @@ def relgat_fwd_split_plain(
                      negative_slope)                             # [E, H]
     m_c = segment_max(e, item, num_items)                        # [I, H]
     p = torch.exp(e - m_c[item])
-    l_c = segment_sum(p, item, num_items)
+    l_c = _atomic_sum(p, item, num_items)
     keep = _keep_scale(csr, heads, seed, rate)
     if keep is not None:
         p = p * keep
-    acc_c = segment_sum(hs * p[..., None], item, num_items)
-    bias_c = segment_sum(rel_bias[et], item, num_items)
+    acc_c = _atomic_sum(hs * p[..., None], item, num_items)
+    bias_c = _atomic_sum(rel_bias[et], item, num_items)
     m = segment_max(m_c, row, n)
     # only the one item of a row without in-edges has m_c = -inf
     w = torch.exp(m_c - torch.where(torch.isfinite(m), m, 0.0)[row])
-    l = segment_sum(l_c * w, row, n)
-    acc = segment_sum(acc_c * w[..., None], row, n)
-    bias = segment_sum(bias_c, row, n)
+    l = _atomic_sum(l_c * w, row, n)
+    acc = _atomic_sum(acc_c * w[..., None], row, n)
+    bias = _atomic_sum(bias_c, row, n)
     out = acc / l.clamp_min(eps)[..., None] + bias[:, None, None]
     return out.reshape(n, hf), m, l, bias
 
@@ -332,12 +342,12 @@ def relgat_bwd_src_plain(
     k = keep if keep is not None else 1.0
     de = alpha * (dalpha * k - s_dot[dst])
     de = de * torch.where(eraw >= 0, 1.0, negative_slope)
-    dh = segment_sum((alpha * k)[..., None] * gd, src, n)
-    dh += segment_sum(de[..., None] * ar, src, n)
+    dh = _atomic_sum((alpha * k)[..., None] * gd, src, n)
+    dh += _atomic_sum(de[..., None] * ar, src, n)
     dh = dh.reshape(n, hf)
     key = src * num_rel + et
-    w = segment_sum(de, key, n * num_rel).view(n, num_rel, heads)
-    b = segment_sum(gsum[dst], key, n * num_rel).view(n, num_rel)
+    w = _atomic_sum(de, key, n * num_rel).view(n, num_rel, heads)
+    b = _atomic_sum(gsum[dst], key, n * num_rel).view(n, num_rel)
     return dh, w.transpose(1, 2).contiguous(), b
 
 

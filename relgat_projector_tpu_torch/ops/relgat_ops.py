@@ -12,7 +12,12 @@ the graph's CSR layout; ``kernel_precision`` picks their fp32 ("highest",
 ``_plain_propagate``, the counterpart of ``_xla_propagate``, runs over the
 padded COO in the input's precision and ignores ``kernel_precision``, as
 the JAX path does. Given a graph shard's ``halo`` plan, the propagate runs
-on the shard's rows with the boundary exchange (``parallel/halo.py``).
+on the shard's rows with the boundary exchange (``parallel/halo.py``);
+given an ``edge_shard``, on every row from this rank's part of the edges,
+joined over its graph line: the kernels over its destination range on the
+``replicated`` route (``parallel/pallas_sharded.py``), the plain partial
+state of its piece of the edges on the ``gspmd`` route
+(``parallel/sharded.py``).
 
 ``relgat_propagate_partial`` and ``merge_propagate_partials`` are the halo
 route's plain form: the un-normalized online-softmax state of an edge
@@ -55,14 +60,26 @@ def relgat_propagate(
     csr: Optional[CSRGraph] = None,
     kernel_precision: str = "highest",
     halo=None,
+    edge_shard=None,
 ) -> torch.Tensor:
     """Aggregated messages ``[N, H, F]``. Dropout applies when the rate is
     positive and a seed is given (the JAX path's ``dropout_rng``). With
     ``halo`` (a ``parallel.halo.HaloShard``) ``h`` holds this shard's rows
-    and so does the result; ``src``/``dst``/``etype``/``csr`` are unused."""
-    if (use_pallas or halo is not None) and (
+    and so does the result; with ``edge_shard`` (a
+    ``parallel.pallas_sharded.ReplicatedShard``, which takes ``use_pallas``,
+    or a ``parallel.sharded.GspmdShard``, which refuses it) ``h`` and the
+    result hold every row. Either way ``src``/``dst``/``etype``/``csr`` are
+    unused."""
+    if (use_pallas or halo is not None or edge_shard is not None) and (
             kernel_precision not in KERNEL_PRECISIONS):
         raise ValueError(f"Unknown kernel_precision: {kernel_precision}")
+    if edge_shard is not None:
+        return _sharded_propagate(
+            h, attn_bank, rel_bias, edge_shard, use_pallas=use_pallas,
+            negative_slope=negative_slope, eps=eps,
+            attn_dropout_rate=attn_dropout_rate, dropout_seed=dropout_seed,
+            kernel_precision=kernel_precision,
+        )
     if halo is not None:
         from relgat_projector_tpu_torch.parallel.halo import halo_propagate
 
@@ -92,6 +109,32 @@ def relgat_propagate(
         h, attn_bank, rel_bias, src, dst, etype,
         num_nodes=num_nodes, negative_slope=negative_slope, eps=eps,
         attn_dropout_rate=attn_dropout_rate, dropout_seed=dropout_seed,
+    )
+
+
+def _sharded_propagate(h, attn_bank, rel_bias, edge_shard, *, use_pallas,
+                       kernel_precision, **kw):
+    """The routes with replicated features (JAX: ``use_pallas`` selects the
+    replicated route's kernels; the gspmd route has none)."""
+    from relgat_projector_tpu_torch.parallel.pallas_sharded import (
+        ReplicatedShard,
+        pallas_sharded_propagate,
+    )
+    from relgat_projector_tpu_torch.parallel.sharded import (
+        GspmdShard,
+        gspmd_propagate,
+    )
+
+    if isinstance(edge_shard, ReplicatedShard) and use_pallas:
+        return pallas_sharded_propagate(h, attn_bank, rel_bias, edge_shard,
+                                        kernel_precision=kernel_precision,
+                                        **kw)
+    if isinstance(edge_shard, GspmdShard) and not use_pallas:
+        return gspmd_propagate(h, attn_bank, rel_bias, edge_shard, **kw)
+    raise ValueError(
+        f"{type(edge_shard).__name__} with use_pallas={use_pallas}: the "
+        "replicated route runs the kernels and the gspmd route the plain "
+        "propagate, each on a rank's part placed with parallel.place_graph"
     )
 
 

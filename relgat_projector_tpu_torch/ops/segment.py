@@ -3,8 +3,16 @@
 Port of ``relgat_projector_tpu/ops/segment.py``: the stable softmax
 subtracts the true per-destination max, a segment whose scores are all
 ``-inf`` takes a max of 0 (so ``exp(-inf - 0) = 0``, not NaN), and the
-denominator is clamped at ``STABLE_SOFTMAX_EPS``. These are the CPU path and
-the reference the kernels are held to.
+denominator is clamped at ``STABLE_SOFTMAX_EPS``. These are the model's
+plain route: the CPU path, and on the card the route without the kernels
+(``use_pallas=False``, the ``gspmd`` route).
+
+Every op here gives the same bits on every call, as XLA's do: on the card
+``segment_sum`` accumulates in sorted order (``index_put_``), since
+``index_add_`` adds with atomics in whatever order the threads reach them.
+A run that differs in its last bits can put an attention logit near 0 on
+the other side of LeakyReLU's kink, and so move a whole block of the
+attention bank's gradient.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ def segment_sum(
 ) -> torch.Tensor:
     """Sum rows of ``data`` into ``num_segments`` buckets; empty ones are 0."""
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    if data.is_cuda:
+        return out.index_put_((segment_ids,), data, accumulate=True)
     return out.index_add_(0, segment_ids, data)
 
 

@@ -35,10 +35,19 @@ rank's ``HaloShard``: index tensors on its device, and the kernels' CSR
 layouts (``data/csr.py``, source space apart from the destination rows)
 when the kernels run.
 
-Attention dropout: JAX folds the graph index into the layer's key
-(``jax.random.fold_in``), which torch cannot reproduce (``ROADMAP.md``
-"RNG"). Here a shard's seed is ``shard_seed(seed, g)``, a pure int32
-function of the layer's drawn seed and the graph index.
+Head tensor parallelism (a ``model`` axis of ``M``): the rank at
+``(g, m)`` holds the tile ``[rows, H/M, F]`` of ``h`` and the attention
+bank's heads ``[m H/M, (m+1) H/M)`` (``models/layer.py`` slices them), and
+runs everything here on that tile; the exchange over its graph line ships
+``H/M * F``-wide rows, so a rank's bytes fall by ``M``.
+
+Attention dropout: JAX folds the graph and model indices into the layer's
+key (``jax.random.fold_in``), which torch cannot reproduce (``ROADMAP.md``
+"RNG"). Here a tile's seed is ``shard_seed(seed, g, model_index=m,
+num_shards=G)``, a pure int32 function of the layer's drawn seed and the
+tile index ``g + m * G``: with ``M = 1`` the seed of graph shard ``g``, and
+no two tiles share one. The kernels hash the tile's local head index, as
+JAX's do.
 """
 
 from __future__ import annotations
@@ -377,12 +386,17 @@ def place_halo_graph(
     )
 
 
-def shard_seed(seed: int, shard: int) -> int:
-    """The attention-dropout seed of graph shard ``shard`` from a layer's
-    int32 ``seed``: the fmix32 finalizer of ``seed + (shard + 1) *
-    0x9E3779B9`` (mod 2**32), as a signed int32. Every shard's masks differ,
-    and none is the layer's own."""
-    x = (int(seed) + (int(shard) + 1) * 0x9E3779B9) & 0xFFFFFFFF
+def shard_seed(seed: int, shard: int, *, model_index: int = 0,
+               num_shards: int = 1) -> int:
+    """The attention-dropout seed of the tile at graph shard ``shard`` and
+    model index ``model_index`` (of a grid with ``num_shards`` graph
+    shards) from a layer's int32 ``seed``: the fmix32 finalizer of ``seed
+    + (t + 1) * 0x9E3779B9`` (mod 2**32) with ``t = shard + model_index *
+    num_shards``, as a signed int32. The finalizer and the odd multiplier
+    are bijections, so no two tiles of a layer share a seed, and model
+    index 0 gives graph shard ``shard``'s seed."""
+    tile = int(shard) + int(model_index) * int(num_shards)
+    x = (int(seed) + (tile + 1) * 0x9E3779B9) & 0xFFFFFFFF
     x ^= x >> 16
     x = (x * 0x85EBCA6B) & 0xFFFFFFFF
     x ^= x >> 13
@@ -432,8 +446,9 @@ def halo_propagate(
     """The shard's aggregate ``[rows, H, F]`` (JAX ``halo_propagate``): the
     exchange, then the overlapped (local and remote subsets, merged) or the
     unsplit propagate over the shard's edges; ``use_pallas`` runs the
-    kernels, else the plain route. ``dropout_seed`` is the layer's seed;
-    the shard hashes with ``shard_seed(dropout_seed, index)``."""
+    kernels, else the plain route. Under head tensor parallelism ``h``,
+    ``attn_bank`` and the result hold the rank's heads. ``dropout_seed`` is
+    the layer's seed; the tile hashes with its ``shard_seed``."""
     if not isinstance(shard, HaloShard):
         raise ValueError(
             "the graph holds the halo plan of every shard: place this "
@@ -444,7 +459,9 @@ def halo_propagate(
         raise ValueError(f"h has {rows} rows, the shard {shard.rows}")
     seed = None
     if attn_dropout_rate > 0.0 and dropout_seed is not None:
-        seed = shard_seed(dropout_seed, shard.index)
+        seed = shard_seed(dropout_seed, shard.index,
+                          model_index=shard.grid.model_index,
+                          num_shards=shard.num_shards)
     rate = attn_dropout_rate if seed is not None else 0.0
     halo = halo_exchange(h.reshape(rows, heads * f), shard)
     halo = halo.view(-1, heads, f)

@@ -10,15 +10,19 @@ holds and which ranks it talks to:
 - ``graph`` the destination rows of the message-passing graph, in
   contiguous ranges (``parallel/halo.py``): a rank holds one shard's rows
   and the edges into them, and exchanges boundary rows along its graph line;
-- ``model`` tensor parallelism over attention heads: not ported
-  (``config.py`` refuses ``model_axis > 1``).
+- ``model`` tensor parallelism over attention heads, on the halo route: a
+  rank computes its head range of every GAT layer over its shard's rows,
+  and the ranks of a model line join their heads (``models/layer.py``).
 
 Rank ``r`` sits at ``(d, g, m)`` with ``r = (d * G + g) * M + m``, the order
 ``mesh_utils.create_device_mesh`` gives a list of devices. A rank belongs to
-one ``graph`` line (the ranks of its ``d``, in ``g`` order: the halo
-exchange and the gather of the batch's rows), one ``data`` line (the ranks
-of its ``g``, in ``d`` order: the batch's slices) and the world (the sum of
-the gradients). Every parameter and Adam moment is whole on every rank.
+one ``graph`` line (the ranks of its ``(d, m)``, in ``g`` order: the halo
+exchange, the gather of the batch's rows, the join of the ``replicated``
+route's rows and the merge of the ``gspmd`` route's partials), one ``data``
+line (the ranks of its ``(g, m)``, in ``d`` order: the batch's slices), one
+``model`` line when ``M > 1`` (the ranks of its ``(d, g)``, in ``m`` order:
+the join of the heads) and the world (the sum of the gradients). Every
+parameter and Adam moment is whole on every rank.
 
 The collectives run on the process group's backend. Gloo has no collectives
 on CUDA tensors, so on gloo a CUDA tensor goes through host memory and back
@@ -48,6 +52,8 @@ class Grid:
     data_group: Any         # this rank's data line, in data order
     world_group: Any        # every rank of the process group
     backend: str
+    model_index: int = 0
+    model_group: Any = None  # this rank's model line, in model order (M > 1)
 
     @property
     def size(self) -> int:
@@ -57,7 +63,8 @@ class Grid:
     def rank(self) -> int:
         """This rank's position in the grid, its rank in the process
         group."""
-        return self.data_index * self.graph + self.graph_index
+        return ((self.data_index * self.graph + self.graph_index)
+                * self.model + self.model_index)
 
     @property
     def is_primary(self) -> bool:
@@ -72,6 +79,27 @@ class Grid:
 def grid_coords(rank: int, data: int, graph: int, model: int = 1):
     """``(d, g, m)`` of grid position ``rank``."""
     return (rank // (graph * model), (rank // model) % graph, rank % model)
+
+
+def grid_lines(data: int, graph: int, model: int = 1):
+    """Every line of the grid as lists of ranks, in the order ``make_grid``
+    makes their groups: ``{"graph": [...], "data": [...]}``, and
+    ``"model"`` when ``model > 1``. With ``model == 1`` the graph and data
+    lines are those of a ``data`` x ``graph`` grid."""
+
+    def rank(d, g, m):
+        return (d * graph + g) * model + m
+
+    lines = {
+        "graph": [[rank(d, g, m) for g in range(graph)]
+                  for d in range(data) for m in range(model)],
+        "data": [[rank(d, g, m) for d in range(data)]
+                 for g in range(graph) for m in range(model)],
+    }
+    if model > 1:
+        lines["model"] = [[rank(d, g, m) for m in range(model)]
+                          for d in range(data) for g in range(graph)]
+    return lines
 
 
 def make_grid(mesh_cfg) -> Grid:
@@ -92,19 +120,18 @@ def make_grid(mesh_cfg) -> Grid:
             f"ranks, the process group has {world}"
         )
     mine = dist.get_rank()
-    graph_lines = [[d * graph + g for g in range(graph)] for d in range(data)]
-    data_lines = [[d * graph + g for d in range(data)] for g in range(graph)]
-    made = {}
-    for key, lines in (("graph", graph_lines), ("data", data_lines)):
+    made = {"model": None}
+    for key, lines in grid_lines(data, graph, model).items():
         for line in lines:
             group = dist.new_group(line)
             if mine in line:
                 made[key] = group
-    d, g, _ = grid_coords(mine, data, graph, model)
+    d, g, m = grid_coords(mine, data, graph, model)
     return Grid(
         data=data, graph=graph, model=model, data_index=d, graph_index=g,
         graph_group=made["graph"], data_group=made["data"],
         world_group=dist.group.WORLD, backend=dist.get_backend(),
+        model_index=m, model_group=made["model"],
     )
 
 
@@ -128,6 +155,14 @@ def all_reduce_sum(t: torch.Tensor, group, backend: str) -> torch.Tensor:
     return buf.to(t.device) if staged else buf
 
 
+def all_reduce_max(t: torch.Tensor, group, backend: str) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group``, a new tensor."""
+    staged = _staged(backend, t.device)
+    buf = t.cpu() if staged else t.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return buf.to(t.device) if staged else buf
+
+
 def all_to_all(send: torch.Tensor, group, backend: str) -> torch.Tensor:
     """``recv[o] = send_o[me]`` over the ``group``'s ranks ``o``: chunk ``i``
     of ``send`` (its leading axis, one chunk a rank) goes to rank ``i``."""
@@ -138,15 +173,65 @@ def all_to_all(send: torch.Tensor, group, backend: str) -> torch.Tensor:
     return recv.to(send.device) if staged else recv
 
 
-def all_gather_cat(t: torch.Tensor, group, backend: str) -> torch.Tensor:
-    """The ``group``'s ``t``, concatenated in rank order on axis 0."""
+def all_gather_cat(t: torch.Tensor, group, backend: str,
+                   dim: int = 0) -> torch.Tensor:
+    """The ``group``'s ``t``, concatenated in rank order on axis ``dim``."""
     staged = _staged(backend, t.device)
     src = _host(t.contiguous(), staged)
     parts: List[torch.Tensor] = [torch.empty_like(src)
                                  for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts)
+    out = torch.cat(parts, dim)
     return out.to(t.device) if staged else out
+
+
+# ---------------------------------------------------------------------------
+# The collectives autograd runs through. Every rank computes the global loss
+# from its copies and takes the gradient of ``loss / ranks``; the gradients
+# are summed over the world (``parallel/sharded.py``). So the transpose of a
+# collective that gives every rank of a group the same value sums the
+# cotangents of those copies over the group.
+# ---------------------------------------------------------------------------
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum over a group; its transpose is the same sum."""
+
+    @staticmethod
+    def forward(ctx, t, group, backend):
+        ctx.args = (group, backend)
+        return all_reduce_sum(t, group, backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_reduce_sum(g.contiguous(), *ctx.args),) + (None,) * 2
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """The group's blocks joined on ``dim`` in rank order; the backward
+    sums the cotangents over the group and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, t, group, index, backend, dim):
+        ctx.args = (group, index, backend, dim, t.shape[dim])
+        return all_gather_cat(t, group, backend, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, index, backend, dim, size = ctx.args
+        total = all_reduce_sum(g.contiguous(), group, backend)
+        return (total.narrow(dim, index * size, size),) + (None,) * 4
+
+
+def sum_over(t: torch.Tensor, group, backend: str) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, differentiable."""
+    return _SumOverGroup.apply(t, group, backend)
+
+
+def gather_blocks(t: torch.Tensor, group, index: int, backend: str,
+                  dim: int = 0) -> torch.Tensor:
+    """The ``group``'s ``t`` (this rank's block at position ``index``),
+    joined on axis ``dim``, differentiable."""
+    return _GatherBlocks.apply(t, group, index, backend, dim)
 
 
 def broadcast_(t: torch.Tensor, src_rank: int, group, backend: str) -> None:

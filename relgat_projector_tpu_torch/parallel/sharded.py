@@ -18,14 +18,26 @@ replicated) and GSPMD inserts the collectives; here each is explicit:
 - ``all_reduce_grads`` sums the gradients over the world before Adam, so
   every rank takes the same step from the same global gradient;
 - ``broadcast_tree`` gives every rank rank 0's initial state;
-- ``place_graph`` keeps a rank's shard of the graph.
+- ``place_graph`` keeps a rank's part of the graph: its halo shard, its
+  destination range on the ``replicated`` route (``pallas_sharded.py``),
+  or its piece of the edge list on the ``gspmd`` route;
+- ``gspmd_propagate`` is that route's propagate (JAX leaves it to GSPMD's
+  partial sums of ``[N, ...]`` over edge shards): each rank runs the plain
+  partial propagate over its contiguous piece of the padded dst-sorted
+  edges into every row, and the pieces' softmax states merge over the
+  graph line (``relgat_ops.merge_partial_states`` is the form of one
+  rank). Dropout hashes each edge's global position, so the masks are
+  one device's. It has no kernel form, as in JAX.
 
 Autograd: the loss on every rank is the global one, and each rank takes the
 gradient of ``loss / world``. ``gather_data``'s backward sums its
 cotangents over the data line and keeps this rank's slice;
 ``gather_rows``' backward sums them over the graph line (an all-reduce is
-its own transpose) and scatters each owner's rows into its own. So the
-gradients summed over the world are those of the single-device loss.
+its own transpose) and scatters each owner's rows into its own; the
+joins of the ``replicated`` route's rows and of head tensor parallelism's
+heads sum them over their line and keep the rank's block, and the
+``gspmd`` merge's sum is its own transpose. So the gradients summed over
+the world are those of the single-device loss.
 """
 
 from __future__ import annotations
@@ -35,12 +47,19 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from relgat_projector_tpu_torch.ops.segment import STABLE_SOFTMAX_EPS
 from relgat_projector_tpu_torch.parallel.halo import place_halo_graph
 from relgat_projector_tpu_torch.parallel.mesh import (
     Grid,
-    all_gather_cat,
+    all_reduce_max,
     all_reduce_sum,
     broadcast_,
+    gather_blocks,
+    sum_over,
+)
+from relgat_projector_tpu_torch.parallel.pallas_sharded import (
+    ShardedCSRGraph,
+    place_sharded_csr,
 )
 from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -66,35 +85,6 @@ def shard_batch_arrays(grid: Grid, *arrays):
     return tuple(out) if len(out) > 1 else out[0]
 
 
-class _SumOverGroup(torch.autograd.Function):
-    """The sum over a group; its transpose is the same sum."""
-
-    @staticmethod
-    def forward(ctx, t, group, backend):
-        ctx.args = (group, backend)
-        return all_reduce_sum(t, group, backend)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (all_reduce_sum(g.contiguous(), *ctx.args),) + (None,) * 2
-
-
-class _GatherData(torch.autograd.Function):
-    """The data line's tensors in data order; the backward sums the
-    cotangents over the line and keeps this rank's block."""
-
-    @staticmethod
-    def forward(ctx, t, grid: Grid):
-        ctx.grid, ctx.rows = grid, t.shape[0]
-        return all_gather_cat(t, grid.data_group, grid.backend)
-
-    @staticmethod
-    def backward(ctx, g):
-        grid, rows = ctx.grid, ctx.rows
-        total = all_reduce_sum(g.contiguous(), grid.data_group, grid.backend)
-        return total[grid.data_index * rows:(grid.data_index + 1) * rows], None
-
-
 def gather_rows(x: torch.Tensor, idx: torch.Tensor, grid: Optional[Grid],
                 halo=None) -> torch.Tensor:
     """Rows ``idx`` (global node ids) of the node representations, where
@@ -106,14 +96,14 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor, grid: Optional[Grid],
     mine = (idx >= lo) & (idx < hi)
     local = torch.where(mine, idx - lo, 0)
     part = x[local] * mine[:, None].to(x.dtype)
-    return _SumOverGroup.apply(part, grid.graph_group, grid.backend)
+    return sum_over(part, grid.graph_group, grid.backend)
 
 
 def gather_data(t: torch.Tensor, grid: Grid) -> torch.Tensor:
     """The data slices' ``t`` joined in data order (axis 0)."""
     if grid.data == 1:
         return t
-    return _GatherData.apply(t, grid)
+    return gather_blocks(t, grid.data_group, grid.data_index, grid.backend)
 
 
 def batch_vectors(
@@ -173,12 +163,94 @@ def broadcast_tree(tree: Any, grid: Grid) -> Any:
     return tree
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class GspmdShard:
+    """The rank's piece of the padded dst-sorted COO on the ``gspmd``
+    route: ``eid`` are the edges' global positions, ``num_nodes`` the
+    padded node count (every row is an output row)."""
+
+    grid: Grid
+    src: torch.Tensor
+    dst: torch.Tensor
+    etype: torch.Tensor
+    eid: torch.Tensor
+    num_nodes: int
+
+
+def gspmd_pieces(num_edges: int, num_shards: int):
+    """``[(first, end), ...]``: the contiguous equal pieces of ``num_edges``
+    edges, one a graph shard (the last may be shorter)."""
+    per = -(-num_edges // num_shards)
+    return [(min(g * per, num_edges), min((g + 1) * per, num_edges))
+            for g in range(num_shards)]
+
+
 def place_graph(graph, grid: Grid, num_rel: int, *, csr: bool):
     """``graph`` as the rank of ``grid`` holds it: its shard of the halo plan
-    (``parallel.halo``), with the kernels' layouts if ``csr``; a graph
-    without a plan is held whole."""
-    if graph.halo is None:
+    (``parallel.halo``), with the kernels' layouts if ``csr``; its range of
+    the ``replicated`` route's plan; else, over a graph axis, its piece of
+    the edge list (the ``gspmd`` route, plain only). A graph without a
+    plan on a grid without a graph axis is held whole."""
+    if graph.halo is not None:
+        shard = place_halo_graph(graph.halo, grid, num_rel,
+                                 graph.src.device, csr=csr)
+        return dataclasses.replace(graph, halo=shard)
+    if isinstance(graph.edge_shard, ShardedCSRGraph):
+        shard = place_sharded_csr(graph.edge_shard, grid, num_rel,
+                                  graph.src.device)
+        return dataclasses.replace(graph, edge_shard=shard)
+    if grid.graph == 1:
         return graph
-    shard = place_halo_graph(graph.halo, grid, num_rel, graph.src.device,
-                             csr=csr)
-    return dataclasses.replace(graph, halo=shard)
+    if csr:
+        raise ValueError(
+            "the kernels over a graph axis need the halo or replicated "
+            "route's plan (build_graph with halo_shards or graph_shards)"
+        )
+    lo, hi = gspmd_pieces(graph.num_edges_padded,
+                          grid.graph)[grid.graph_index]
+    shard = GspmdShard(
+        grid=grid, src=graph.src[lo:hi], dst=graph.dst[lo:hi],
+        etype=graph.etype[lo:hi],
+        eid=torch.arange(lo, hi, device=graph.src.device),
+        num_nodes=graph.num_nodes,
+    )
+    return dataclasses.replace(graph, edge_shard=shard)
+
+
+def gspmd_propagate(
+    h: torch.Tensor,               # [N_pad, H, F] every row (replicated)
+    attn_bank: torch.Tensor,       # [H, R, F]
+    rel_bias: Optional[torch.Tensor],
+    shard: GspmdShard,
+    *,
+    negative_slope: float = 0.2,
+    eps: float = STABLE_SOFTMAX_EPS,
+    attn_dropout_rate: float = 0.0,
+    dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """The aggregate ``[N_pad, H, F]`` on every rank of the graph line:
+    this rank's partial state over its piece, merged over the line (the
+    max of ``m``; then ``l``, ``acc`` and the bias sum rescaled to it and
+    summed, in one collective)."""
+    from relgat_projector_tpu_torch.ops.relgat_ops import (
+        relgat_propagate_partial,
+    )
+
+    rate = attn_dropout_rate if dropout_seed is not None else 0.0
+    acc, m, l, bias = relgat_propagate_partial(
+        h, attn_bank, rel_bias, shard.src, shard.dst, shard.etype,
+        num_out=shard.num_nodes, negative_slope=negative_slope,
+        attn_dropout_rate=rate, dropout_seed=dropout_seed,
+        dropout_edge_ids=shard.eid,
+    )
+    grid = shard.grid
+    m_all = all_reduce_max(m, grid.graph_group, grid.backend)
+    m_fin = torch.where(torch.isfinite(m_all), m_all, 0.0)
+    scale = torch.where(torch.isfinite(m), torch.exp(m - m_fin), 0.0)
+    parts = (acc * scale[..., None], l * scale, bias)
+    total = sum_over(torch.cat([p.reshape(-1) for p in parts]),
+                     grid.graph_group, grid.backend)
+    acc_t, l_t, bias_t = (t.view_as(p) for t, p in zip(
+        total.split([p.numel() for p in parts]), parts))
+    out = acc_t / l_t.clamp_min(eps)[..., None]
+    return out + bias_t[:, None, None]

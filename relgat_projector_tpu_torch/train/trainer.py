@@ -28,11 +28,13 @@ dispatch counter, a log reporting the means over the finite steps of the
 call that crossed its boundary. Both dispatch modes write the same
 checkpoints, so either resumes the other's.
 
-A mesh of ``data_axis`` x ``graph_axis`` devices runs as that many
-processes of one ``torch.distributed`` group (``parallel/``), each
-building this trainer with the same config. A rank holds its graph shard's
-rows of the embeddings (and builds only those, as the JAX trainer builds
-only its addressable shards) and the shard's edges, sees every batch whole
+A mesh of ``data_axis`` x ``graph_axis`` x ``model_axis`` devices runs as
+that many processes of one ``torch.distributed`` group (``parallel/``),
+each building this trainer with the same config. On the halo route a rank
+holds its graph shard's rows of the embeddings (and builds only those, as
+the JAX trainer builds only its addressable shards) and the shard's edges,
+and computes its model index's heads; on the ``replicated`` and ``gspmd``
+routes it holds every row and its part of the edges. It sees every batch whole
 and scores its data slice, and keeps a full copy of the parameters and
 Adam state, which rank 0's broadcast makes equal at the start. The JAX
 trainer's multi-process branches carry over: only the primary logs and
@@ -116,15 +118,13 @@ class RelGATTrainer:
         if mesh_cfg.num_devices > 1 or world > 1:
             if mesh_cfg.num_devices != world:
                 raise ValueError(
-                    f"a mesh of {mesh_cfg.num_devices} devices runs as as "
-                    "many processes of one process group "
+                    f"a mesh of data_axis={mesh_cfg.data_axis}, "
+                    f"graph_axis={mesh_cfg.graph_axis}, "
+                    f"model_axis={mesh_cfg.model_axis} (mesh_propagate="
+                    f"{mcfg.mesh_propagate!r}) runs as "
+                    f"{mesh_cfg.num_devices} processes of one process group "
                     "(parallel.initialize_distributed, --distributed); this "
                     f"one has {world}"
-                )
-            if mcfg.use_pallas and mcfg.mesh_propagate == "gspmd":
-                raise ValueError(
-                    "mesh_propagate='gspmd' has no kernel partitioning; use "
-                    "'halo' (default) with use_pallas"
                 )
             self.grid = make_grid(mesh_cfg)
         self._is_primary = self.grid is None or self.grid.is_primary
@@ -132,13 +132,21 @@ class RelGATTrainer:
         if self.device.type == "cuda" and self.device.index is not None:
             torch.cuda.set_device(self.device)
 
-        # The halo route whenever the graph axis is split (JAX
-        # trainer.py:84-133): node-sharded features and a boundary-only
-        # exchange. The scanned propagate has no partial-merge form, so
+        # The graph axis's route (JAX trainer.py:72-160; RunConfig has
+        # refused what JAX refuses): "halo" whenever the propagate is split
+        # at all, over destination rows or heads (a one-shard plan carries
+        # the heads' tiles), with node-sharded features; "replicated" the
+        # kernels on each rank's destination range and "gspmd" the plain
+        # propagate on each rank's piece of the edges, both with replicated
+        # features. The scanned propagate has no partial-merge form, so
         # scan_segments > 1 turns the overlap split off, as in JAX; the
         # kernels here run unsegmented either way.
-        use_halo = (self.grid is not None and self.grid.graph > 1
-                    and mcfg.mesh_propagate == "halo")
+        graph_axis = self.grid.graph if self.grid is not None else 1
+        route = mcfg.mesh_propagate
+        use_halo = self.grid is not None and route == "halo" and (
+            graph_axis > 1 or self.grid.model > 1)
+        graph_shards = (graph_axis if graph_axis > 1 and mcfg.use_pallas
+                        and route == "replicated" else 1)
         scan_segments = (mcfg.scan_segments
                          if mcfg.use_pallas and mcfg.scan_segments > 1 else 0)
         halo_overlap = mcfg.halo_overlap
@@ -158,7 +166,8 @@ class RelGATTrainer:
             train_ratio=tc.train_ratio,
             seed=tc.seed,
             csr=mcfg.use_pallas,
-            halo_shards=self.grid.graph if use_halo else 0,
+            graph_shards=graph_shards,
+            halo_shards=graph_axis if use_halo else 0,
             halo_overlap=halo_overlap,
             scan_segments=scan_segments,
             partition_nodes=mcfg.partition_nodes,
@@ -211,12 +220,15 @@ class RelGATTrainer:
             params, self.optimizer, seed=self.seeder.train_seed
         )
         self.graph = self.dataset.graph
-        if use_halo:
-            # This rank's shard: its rows of the embeddings, built here
-            # alone, and its edges' layouts.
+        if self.grid is not None:
+            # This rank's part of the graph: its shard's edges and rows on
+            # the halo route, its destination range or piece of the edges
+            # on the other two.
             self.graph = place_graph(self.graph, self.grid,
                                      self.dataset.num_rel,
                                      csr=mcfg.use_pallas)
+        if use_halo:
+            # The shard's rows of the embeddings, built here alone.
             rows = self.dataset.feature_rows(*self.graph.halo.row_range)
             self.node_emb = torch.from_numpy(rows).to(self.device)
         else:

@@ -120,10 +120,29 @@ def test_relgat_data_matches(use_csr):
                                 dict(graph_shards=2, halo_shards=2),
                                 dict(graph_shards=4, scan_segments=4)])
 def test_relgat_data_rejects_what_is_not_ported(kw):
-    node2emb, rel2idx, triplets = generate_synthetic_kg(
-        num_nodes=20, num_edges=50, num_rel=2, emb_dim=4, seed=0)
-    with pytest.raises(NotImplementedError):
-        RelGATData(node2emb, rel2idx, triplets, device="cpu", **kw)
+    """Graph shards (the replicated route) are ported: without the kernels'
+    layout they change nothing and the halo plan takes precedence, as in
+    the JAX package; with it, the ranges hold every real edge once, in
+    dst order."""
+    kg = generate_synthetic_kg(num_nodes=20, num_edges=50, num_rel=2,
+                               emb_dim=4, seed=0)
+    port = RelGATData(*kg, device="cpu", **kw)
+    ref = JaxRelGATData(*kg, **kw)
+    for name in ("src", "dst", "etype"):
+        assert np.array_equal(getattr(port.graph, name).numpy(),
+                              np.asarray(getattr(ref.graph, name)))
+    assert port.graph.num_nodes == ref.graph.num_nodes
+    assert port.graph.edge_shard is None
+    assert (port.graph.halo is not None) == ("halo_shards" in kw)
+    if "halo_shards" in kw:
+        return
+    plan = RelGATData(*kg, device="cpu", csr=True, **kw).graph.edge_shard
+    assert plan.num_shards == kw["graph_shards"]
+    assert plan.edge_ptr[0] == 0 and plan.edge_ptr[-1] == plan.src.shape[0]
+    rows = plan.rows_per_shard
+    for g in range(plan.num_shards):
+        lo, hi = plan.edge_ptr[g], plan.edge_ptr[g + 1]
+        assert np.all(plan.dst[lo:hi] // rows == g)
 
 
 def test_partition_nodes_alone_changes_nothing():

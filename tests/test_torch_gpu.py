@@ -68,7 +68,8 @@ def _case(heads, feat, num_rel=7, n=400, e=3000, seed=0):
 @pytest.mark.parametrize(
     "heads,feat,num_rel",
     [(1, 8, 7), (3, 40, 7), (16, 128, 7), (9, 200, 7), (4, 32, 1),
-     (16, 128, 300), (12, 300, 7), (4, 512, 7), (2, 1024, 7), (3, 301, 7)],
+     (16, 128, 300), (12, 300, 7), (4, 512, 7), (2, 1024, 7), (3, 301, 7),
+     (3, 128, 7), (1, 128, 7)],
 )
 @pytest.mark.parametrize("rate", (0.0, 0.3))
 def test_kernels_match_plain(card, heads, feat, num_rel, rate):
@@ -103,7 +104,7 @@ def test_kernels_match_plain(card, heads, feat, num_rel, rate):
     "heads,feat,num_rel",
     [(1, 8, 7), (3, 40, 7), (16, 128, 7), (9, 200, 7), (2, 6, 3),
      (2, 12, 3), (16, 128, 300), (12, 300, 7), (4, 512, 7), (2, 1024, 7),
-     (3, 301, 7)],
+     (3, 301, 7), (3, 128, 7), (1, 128, 7)],
 )
 @pytest.mark.parametrize("rate", (0.0, 0.3))
 def test_bf16_kernels_match_plain(card, heads, feat, num_rel, rate):
@@ -111,7 +112,9 @@ def test_bf16_kernels_match_plain(card, heads, feat, num_rel, rate):
     one-value loads everywhere; F = 12 and 300 the 8-byte row loads and
     8-byte staging in relgat_bwd_rel; F = 8, 40 and 128 (at most 16 heads)
     the pair kernels, two heads a warp (1 and 3 heads leave a warp's
-    second half idle); the other widths the vector paths."""
+    second half idle: an unpaired last head, as head tensor parallelism's
+    tiles of 3 heads have at F = 128); the other widths the vector
+    paths."""
     g, h, gr, attn, bias = _case(heads, feat, num_rel=num_rel)
     h16, g16 = h.to(torch.bfloat16), gr.to(torch.bfloat16)
     csr = g.csr
@@ -303,6 +306,32 @@ def test_backward_is_deterministic(card):
         grads.append(torch.autograd.grad((out * gr.view_as(out)).sum(), leaves))
     for a, b in zip(*grads):
         assert torch.equal(a, b)
+
+
+def test_plain_propagate_is_deterministic(card):
+    """The plain route (``use_pallas=False``, the gspmd route's) gives the
+    same bits twice, forward and backward, and its segment sum is the
+    float64 one within the bar."""
+    from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
+    from relgat_projector_tpu_torch.ops.segment import segment_sum
+
+    g, h, gr, attn, bias = _case(16, 128, seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in (h, attn, bias)]
+    runs = []
+    for _ in range(2):
+        out = relgat_propagate(
+            leaves[0].view(g.num_nodes, 16, 128), leaves[1], leaves[2],
+            g.src, g.dst, g.etype, num_nodes=g.num_nodes,
+            attn_dropout_rate=0.3, dropout_seed=11,
+        )
+        runs.append((out.detach(), *torch.autograd.grad(
+            (out * gr.view_as(out)).sum(), leaves)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    rows = h[g.src]
+    want = torch.zeros((g.num_nodes, h.shape[1]), dtype=torch.float64,
+                       device=card).index_add_(0, g.dst, rows.double())
+    assert _rel(segment_sum(rows, g.dst, g.num_nodes), want) <= REL_TOL
 
 
 def test_cuda_tensors_never_fall_back(card):

@@ -174,5 +174,3 @@ def test_config_fields_and_json_match_jax():
 def test_config_rejects_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError):
         tconfig.ModelConfig(in_dim=8, num_rel=3, **{field: value})
-    with pytest.raises(NotImplementedError):
-        tconfig.MeshConfig(model_axis=2)

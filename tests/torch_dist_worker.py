@@ -7,11 +7,15 @@ joins a gloo process group on ``127.0.0.1:PORT``, reads its inputs from
 
 Modes:
 
-- ``propagate``: the halo propagate on this rank's shard of ``in.npz``
-  (global ``h``, a cotangent ``g``, the graph and the settings), forward and
-  backward; writes its rows of the output and of ``dh``, and its ``dattn``
-  and ``dbias`` (partial sums; the parameters' gradients are summed over
-  the ranks by the caller, as the step does).
+- ``propagate``: the propagate of ``in.json``'s route on this rank's part
+  of ``in.npz`` (global ``h``, a cotangent ``g``, the graph and the
+  settings), forward and backward. ``halo``: on a (graph, model) grid of
+  ``model`` heads' tiles, it writes its tile of the output and of ``dh``,
+  its heads' ``dattn`` and its ``dbias``; ``replicated`` and ``gspmd``
+  (features replicated, the output on every rank, each rank's backward
+  from ``g / ranks`` as the step's ``loss / ranks``): the whole output and
+  this rank's ``dh``, ``dattn`` and ``dbias``. The caller sums the partial
+  gradients over the ranks, as the step does.
 - ``trainer``: a ``RelGATTrainer`` on the grid of ``config.json`` over the
   synthetic KG it names, ``steps`` train steps over the first batches
   (with the injected negatives of ``neg.npy`` if present; in one call when
@@ -40,32 +44,56 @@ from relgat_projector_tpu_torch.parallel import (
 
 def _propagate(rank, world, work):
     from relgat_projector_tpu_torch.config import MeshConfig
+    from relgat_projector_tpu_torch.data.graph import build_graph
     from relgat_projector_tpu_torch.parallel import (
         build_halo_graph,
         halo_propagate,
         make_grid,
+        place_graph,
         place_halo_graph,
     )
+    from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
 
     z = np.load(work / "in.npz")
     cfg = json.loads((work / "in.json").read_text())
-    grid = make_grid(MeshConfig(graph_axis=world))
-    hg = build_halo_graph(z["src"], z["dst"], z["et"], cfg["num_nodes"],
-                          world, overlap=cfg["overlap"])
-    shard = place_halo_graph(hg, grid, cfg["num_rel"], torch.device("cpu"),
-                             csr=cfg["use_pallas"])
-    lo, hi = shard.row_range
-    h = torch.from_numpy(z["h"][lo:hi]).requires_grad_(True)
-    attn = torch.from_numpy(z["attn"]).requires_grad_(True)
-    bias = torch.from_numpy(z["bias"]).requires_grad_(True)
-    out = halo_propagate(
-        h, attn, bias, shard, use_pallas=cfg["use_pallas"],
-        attn_dropout_rate=cfg["rate"], dropout_seed=cfg["seed"],
-    )
-    out.backward(torch.from_numpy(z["g"][lo:hi]))
+    route, model = cfg.get("route", "halo"), cfg.get("model", 1)
+    grid = make_grid(MeshConfig(graph_axis=world // model, model_axis=model))
+    kw = dict(attn_dropout_rate=cfg["rate"], dropout_seed=cfg["seed"])
+    if route == "halo":
+        hg = build_halo_graph(z["src"], z["dst"], z["et"], cfg["num_nodes"],
+                              grid.graph, overlap=cfg["overlap"])
+        shard = place_halo_graph(hg, grid, cfg["num_rel"],
+                                 torch.device("cpu"), csr=cfg["use_pallas"])
+        lo, hi = shard.row_range
+        per = z["attn"].shape[0] // model
+        heads = slice(grid.model_index * per, (grid.model_index + 1) * per)
+        h = torch.from_numpy(z["h"][lo:hi, heads]).requires_grad_(True)
+        attn = torch.from_numpy(z["attn"][heads]).requires_grad_(True)
+        bias = torch.from_numpy(z["bias"]).requires_grad_(True)
+        out = halo_propagate(h, attn, bias, shard,
+                             use_pallas=cfg["use_pallas"], **kw)
+        g = torch.from_numpy(z["g"][lo:hi, heads])
+    else:
+        graph = build_graph(z["src"], z["dst"], z["et"], cfg["num_nodes"],
+                            num_rel=cfg["num_rel"], csr=route == "replicated",
+                            graph_shards=world, device="cpu")
+        graph = place_graph(graph, grid, cfg["num_rel"],
+                            csr=route == "replicated")
+        h = torch.from_numpy(z["h"]).requires_grad_(True)
+        attn = torch.from_numpy(z["attn"]).requires_grad_(True)
+        bias = (torch.from_numpy(z["bias"]).requires_grad_(True)
+                if cfg.get("use_bias", True) else None)
+        out = relgat_propagate(
+            h, attn, bias, graph.src, graph.dst, graph.etype,
+            num_nodes=graph.num_nodes, use_pallas=route == "replicated",
+            edge_shard=graph.edge_shard, **kw)
+        g = torch.from_numpy(z["g"]) / world
+    out.backward(g)
     np.savez(work / f"out_{rank}.npz", out=out.detach().numpy(),
              dh=h.grad.numpy(), dattn=attn.grad.numpy(),
-             dbias=bias.grad.numpy())
+             dbias=(bias.grad.numpy() if bias is not None
+                    else np.zeros(0, np.float32)),
+             model_index=grid.model_index, graph_index=grid.graph_index)
 
 
 def _kg(cfg):
