@@ -68,6 +68,17 @@ Phases, in order; any failure exits non-zero:
               with bf16 parameters through the kernels on the card against
               the same route on a CPU copy within 1e-2; step time and peak
               memory beside train_bf16's.
+   train_fp16 - TRAIN with compute_dtype="float16" (fp32 parameters) for 3
+              steps on the train phase's graph, embeddings and batches:
+              the projections take fp16 operands with an fp32 product, so
+              each fp32 kernel launches layers x steps times and the bf16
+              ones never; the first step's loss within 1e-2 relative of
+              the fp32 first step's; step time and peak memory.
+   param_fp16 - the AGREE model with param_dtype="float16", 3 Adam steps
+              through the kernels on the card and on a CPU copy: each
+              step's finite flag and count of non-finite scores equal (the
+              JAX package's fp16 Adam goes non-finite, and the port takes
+              the same steps), finite losses within 1e-2.
    edges_8m - TRAIN's model on a seeded uniform graph of 100,000 nodes and
               8,000,000 edges (the size the JAX package's scanned propagate
               was made for), in fp32 and bf16: 3 steps with
@@ -165,9 +176,16 @@ Phases, in order; any failure exits non-zero:
               line). A clustered graph (TRAIN's size, 8 clusters, 90% of
               the edges inside them, ids at random) gives halo_pair and
               the bytes sent a layer at G = 4 with and without the
-              partitioner. Last, cli.main on two ranks with --mesh-graph 2
+              partitioner, on its native (C++, built here with g++) route,
+              which must load, and on its NumPy route: each route's
+              seconds and halo_pair, and the native edge cut within the
+              JAX package's bar, 1.3 x the NumPy route's + 0.02. Last,
+              cli.main on two ranks with --mesh-graph 2 --partition-nodes
               on TRAINER's KG (batch 4096 with 8 negatives, one epoch of 6
-              steps, then --resume): only
+              steps, then --resume), rank 1 on the partitioner's NumPy
+              route (RELGAT_NO_NATIVE=1): both ranks log rank 0's edge
+              cut, rank 0 loads the native library and rank 1 does not;
+              only
               rank 0 writes, the state a trainer resumes from the final
               checkpoint equals the CLI trainer's and one step from each
               gives the same bits, the launches are one forward a layer a
@@ -199,7 +217,8 @@ Phases, in order; any failure exits non-zero:
 
 The last lines are the kernels JSON line, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}; a "single_device_settings" line gives the
-seconds the remat, param_bf16 and edges_8m phases took, and a "serve" line
+seconds the remat, param_bf16, train_fp16, param_fp16 and edges_8m phases
+took, and a "serve" line
 (after phase 8) the serve phase's and the export CLI's times and launches.
 The profiles go through the package's utils.profiling.trace. The timing runs --kernels-only
 (phase 6 alone, launches null) and --zipf-only (phase 7 alone) end with
@@ -217,6 +236,7 @@ import dataclasses
 import io
 import itertools
 import json
+import os
 import pickle
 import re
 import socket
@@ -233,7 +253,9 @@ from relgat_projector_tpu_torch import cli
 from relgat_projector_tpu_torch import export as export_cli
 from relgat_projector_tpu_torch.config import ModelConfig, TrainConfig
 from relgat_projector_tpu_torch.data.dataset import RelGATData
+from relgat_projector_tpu_torch.data.native import load_native
 from relgat_projector_tpu_torch.data.partition import (
+    edge_cut_fraction,
     partition_node_permutation,
 )
 from relgat_projector_tpu_torch.data.graph import (
@@ -325,6 +347,13 @@ REMAT = dict(steps=3, warmup_steps=1, rel_attn_dropout=0.2)
 EDGES_8M = dict(num_edges=8_000_000, scan_segments=4, warmup_steps=1,
                 timed_steps=2, margin=1.10, max_bytes_per_edge=64)
 PARAM_BF16 = dict(steps=4, warmup_steps=1, param_dtype="bfloat16")
+# fp16 projections (fp32 parameters) at TRAIN: 3 steps through the fp32
+# kernels, the first step's loss held to the fp32 step's at
+# TRAIN_LOSS_TOL. fp16 parameters on the AGREE model: 3 Adam steps on the
+# card and on a CPU copy, whose finite flags must agree step by step (JAX's
+# fp16 Adam goes non-finite, and the port takes the same steps).
+FP16 = dict(steps=3, warmup_steps=1, compute_dtype="float16")
+PARAM_FP16 = dict(steps=3, param_dtype="float16")
 # Serving TRAIN's model: exports timed (and counted) per variant, and a
 # batch of queries held to a float64 recomputation: scores within
 # score_tol, ids equal wherever the float64 scores are not tied within
@@ -1353,6 +1382,107 @@ def phase_param_bf16(card, out_lines, graph, node_emb, batches, bf16_record):
           f"by {max(errs)} > {AGREE_BF16_TOL}")
 
 
+def phase_train_fp16(card, out_lines, graph, node_emb, batches,
+                     fp32_first_loss):
+    """``TRAIN`` with fp16 projections (``compute_dtype="float16"``, fp32
+    parameters) on the train phase's graph, embeddings, batches and seeds:
+    ``h`` is still the fp32 product, so each fp32 kernel launches layers x
+    steps times and the bf16 ones never; the first step's loss within
+    TRAIN_LOSS_TOL of the fp32 step's; step time and peak memory."""
+    c, t = FP16, TRAIN
+    torch.cuda.empty_cache()
+    _, _, state, metrics, step_s, counts, first_loss = train_steps(
+        node_emb, graph, batches[:c["steps"]], c["warmup_steps"],
+        compute_dtype=c["compute_dtype"])
+    peak = torch.cuda.max_memory_allocated()
+    loss_rel = abs(first_loss - fp32_first_loss) / abs(fp32_first_loss)
+    dtypes = sorted({str(x.dtype) for x in tree_leaves(state.params)})
+    del state
+    emit({"phase": "train_fp16", "card": card,
+          "compute_dtype": c["compute_dtype"], "steps": c["steps"],
+          "timed_steps": c["steps"] - c["warmup_steps"],
+          "step_ms": step_s * 1e3,
+          "edge_messages_per_s": t["num_edges"] * t["layers"] / step_s,
+          "max_memory_allocated_bytes": peak, "param_dtypes": dtypes,
+          "loss": float(metrics["loss"]), "first_step_loss": first_loss,
+          "first_step_loss_fp32": fp32_first_loss,
+          "first_step_loss_rel_diff": loss_rel, "tol": TRAIN_LOSS_TOL,
+          "launches": counts}, out_lines)
+    check_train(metrics, counts,
+                expected_launches(False, t["layers"] * c["steps"]),
+                "train_fp16")
+    check(loss_rel <= TRAIN_LOSS_TOL,
+          f"first fp16 step's loss {first_loss} is {loss_rel} from the fp32 "
+          f"step's {fp32_first_loss}")
+
+
+def agree_steps(device, steps, **model):
+    """Each step's ``(finite, nonfinite_scores, loss)`` over ``steps`` Adam
+    steps of the ``AGREE`` model on ``device`` through the kernel route,
+    on one batch with injected negatives and no dropout but the attention
+    hash's (the same draws on every device)."""
+    a = AGREE
+    rng = np.random.default_rng(SEED + 4)
+    n, e, b = a["num_nodes"], a["num_edges"], a["batch"]
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    et = rng.integers(0, a["num_rel"], e)
+    emb = rng.standard_normal((n, a["in_dim"]), dtype=np.float32)
+    batch = [torch.from_numpy(v).to(device) for v in (
+        rng.integers(0, n, b), rng.integers(0, a["num_rel"], b),
+        rng.integers(0, n, b))]
+    neg = torch.from_numpy(rng.integers(0, n, (b, a["num_neg"]))).to(device)
+    graph = build_graph(src, dst, et, n, num_rel=a["num_rel"], csr=True,
+                        device=device)
+    x = torch.from_numpy(
+        pad_node_embeddings(emb, graph.num_nodes)).to(device)
+    tcfg = TrainConfig(train_batch_size=b, num_neg=a["num_neg"], lr=1e-3,
+                       lr_scheduler="constant", use_self_adv_neg=True)
+    mcfg = ModelConfig(
+        in_dim=a["in_dim"], num_rel=a["num_rel"], gat_out_dim=a["feat"],
+        gat_heads=a["heads"], gat_num_layers=a["layers"],
+        projection_layers=2, dropout=0.0, rel_attn_dropout=0.3,
+        projection_dropout=0.0, use_pallas=True, **model)
+    sched = make_lr_schedule(tcfg.lr, "constant", steps, 0)
+    opt = make_optimizer(tcfg, sched)
+    state = create_train_state(init_model(mcfg, seed=SEED, device=device),
+                               opt, seed=SEED)
+    step = make_train_step(mcfg, tcfg, opt, sched)
+    out = []
+    for _ in range(steps):
+        state, m = step(state, x, graph, *batch,
+                        torch.ones(b, device=device), neg_dst=neg)
+        loss = float(m["loss"])
+        out.append((bool(m["finite"]), int(m["nonfinite_scores"]),
+                    loss if np.isfinite(loss) else None))
+    return out
+
+
+def phase_param_fp16(card, out_lines):
+    """The ``AGREE`` model with fp16 parameters, ``PARAM_FP16["steps"]``
+    Adam steps through the kernels on the card and on a CPU copy (their
+    plain versions): each step's finite flag and count of non-finite scores
+    equal, and the finite steps' losses within AGREE_BF16_TOL."""
+    c = PARAM_FP16
+    kern.reset_launch_counts()
+    on_card = agree_steps(DEVICE, c["steps"], param_dtype=c["param_dtype"])
+    counts = kern.launch_counts()
+    on_cpu = agree_steps("cpu", c["steps"], param_dtype=c["param_dtype"])
+    loss_errs = [abs(k[2] - p[2]) / abs(p[2])
+                 for k, p in zip(on_card, on_cpu) if p[0]]
+    emit({"phase": "param_fp16", "card": card,
+          "param_dtype": c["param_dtype"], "steps": c["steps"],
+          "card_steps": on_card, "cpu_steps": on_cpu,
+          "finite_loss_max_rel_err": max(loss_errs, default=0.0),
+          "tol": AGREE_BF16_TOL, "launches": counts}, out_lines)
+    check([k[:2] for k in on_card] == [p[:2] for p in on_cpu],
+          f"param_fp16: the card's steps {on_card} and the CPU's {on_cpu} "
+          "differ in their finite flags")
+    check(max(loss_errs, default=0.0) <= AGREE_BF16_TOL,
+          f"param_fp16: finite losses differ by {loss_errs}")
+    check(counts["relgat_fwd"] == AGREE["layers"] * c["steps"],
+          f"param_fp16: relgat_fwd launched {counts['relgat_fwd']} times")
+
+
 def profile_steps(step, state, node_emb, graph, batch, weight, step_ms,
                   matmul_flops, card, out_lines, out_dir, phase="profile"):
     """Where the step's device time goes, from torch.profiler over two
@@ -2134,8 +2264,8 @@ def phase_trainer(card, out_lines, out_dir):
 # step at 20k nodes.
 HALO = dict(grids=((1, 2), (1, 4), (2, 2)), steps=2, shards=4,
             kernel_rate=0.2, kernel_seed=1234, clusters=8, intra=0.9,
-            cli_ranks=2, cli_batch=4096, cli_num_neg=8, threads=2,
-            timeout_s=900)
+            cli_ranks=2, cli_batch=4096, cli_num_neg=8, cli_numpy_ranks=[1],
+            threads=2, timeout_s=900)
 # The first step's gradient leaf by leaf (||a - b|| / ||b|| over each
 # leaf), each step's loss and grad norm against the one-device run: the
 # repo's parity bar in fp32; bf16 precision in the bf16 mode (as
@@ -2399,10 +2529,13 @@ def halo_cli_rank(rank, world, port, work):
     from relgat_projector_tpu_torch.parallel.distributed import shutdown
     from relgat_projector_tpu_torch.train.checkpoint import RelGATStorage
 
+    if rank in HALO["cli_numpy_ranks"]:
+        os.environ["RELGAT_NO_NATIVE"] = "1"
     initialize_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
                            device=DEVICE, timeout_s=HALO["timeout_s"])
     torch.set_num_threads(HALO["threads"])
-    argv = halo_cli_argv(work / "cli", rank, world, port)
+    argv = halo_cli_argv(work / "cli", rank, world, port) + [
+        "--partition-nodes"]
     writes, trainers = [], []
     save, train = RelGATStorage.save_checkpoint, RelGATTrainer.train
 
@@ -2416,7 +2549,7 @@ def halo_cli_rank(rank, world, port, work):
 
     RelGATStorage.save_checkpoint = spy_save
     RelGATTrainer.train = keep
-    rec = {"rank": rank}
+    rec = {"rank": rank, "native": load_native() is not None}
     for leg, extra in (("leg1", []), ("leg2", ["--resume"])):
         buf = io.StringIO()
         kern.reset_launch_counts()
@@ -2425,10 +2558,12 @@ def halo_cli_rank(rank, world, port, work):
         with contextlib.redirect_stdout(buf):
             cli.main(argv + extra)
         torch.cuda.synchronize()
+        cut = [line for line in buf.getvalue().splitlines()
+               if line.startswith("Partitioned nodes for halo exchange")]
         rec[leg] = dict(seconds=time.perf_counter() - t0,
                         launches=kern.launch_counts(), writes=list(writes),
                         resumed="Resumed from" in buf.getvalue(),
-                        log_bytes=len(buf.getvalue()))
+                        log_bytes=len(buf.getvalue()), cut=cut)
         (work / f"cli_{leg}_rank{rank}.log").write_text(buf.getvalue())
         if leg == "leg1":
             live = trainers[-1]
@@ -2852,27 +2987,60 @@ def clustered_graph(rng):
 def halo_clustered():
     """halo_pair and the bytes each rank sends a layer (fp32 rows of
     TRAIN's width) on the clustered graph at G = 4, with and without the
-    partitioner's relabeling."""
+    partitioner's relabeling, on its native (C++) route and on its NumPy
+    route: the native library must load here, and the native cut must meet
+    the JAX package's bar against the NumPy one (``tests/
+    test_partition.py``: ``cut_native <= 1.3 * cut_numpy + 0.02``). The
+    top-level fields are the native route's, the default."""
     t = TRAIN
     n, shards = t["num_nodes"], HALO["shards"]
     feat_bytes = 4 * t["heads"] * t["feat"]
     src, dst, et = clustered_graph(np.random.default_rng(SEED + 3))
-    rec = {}
     t0 = time.perf_counter()
-    perm, stats = partition_node_permutation(
-        src, dst, n, shards, halo_rows_per_shard(n, shards))
-    rec["partition_s"] = time.perf_counter() - t0
-    rec.update(stats)
-    for name, (s, d) in (("ids_as_drawn", (src, dst)),
-                         ("partitioned", (perm[src], perm[dst]))):
+    check(load_native() is not None,
+          "the native partition library did not build or load")
+    native_load_s = time.perf_counter() - t0  # the g++ build included
+
+    def traffic(s, d):
         hg = build_halo_graph(s, d, et, n, shards, overlap=True)
-        rec[name] = dict(
+        return dict(
             halo_pair=hg.halo_pair,
             exchange_bytes_per_layer=hg.exchange_bytes_per_device(feat_bytes),
             remote_edges=int(hg.rem_mask.sum()),
         )
-    check(rec["partitioned"]["halo_pair"] < rec["ids_as_drawn"]["halo_pair"],
-          f"the partitioner did not cut halo_pair: {rec}")
+
+    routes = {}
+    for route in ("native", "numpy"):
+        if route == "numpy":
+            os.environ["RELGAT_NO_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            perm, stats = partition_node_permutation(
+                src, dst, n, shards, halo_rows_per_shard(n, shards))
+            seconds = time.perf_counter() - t0
+        finally:
+            os.environ.pop("RELGAT_NO_NATIVE", None)
+        routes[route] = dict(partition_route=route, partition_s=seconds,
+                             perm=perm, **stats,
+                             partitioned=traffic(perm[src], perm[dst]))
+    rec = {k: v for k, v in routes["native"].items() if k != "perm"}
+    rec["native_load_s"] = native_load_s
+    rec["ids_as_drawn"] = traffic(src, dst)
+    rec["numpy_route"] = {k: v for k, v in routes["numpy"].items()
+                          if k != "perm"}
+    rec["routes_differ"] = not np.array_equal(routes["native"]["perm"],
+                                              routes["numpy"]["perm"])
+    cut_native = rec["edge_cut_after"]
+    cut_numpy = rec["numpy_route"]["edge_cut_after"]
+    rec["cut_bar"] = 1.3 * cut_numpy + 0.02
+    for r in (rec, rec["numpy_route"]):
+        check(r["partitioned"]["halo_pair"]
+              < rec["ids_as_drawn"]["halo_pair"],
+              f"the partitioner ({r['partition_route']} route) did not cut "
+              f"halo_pair: {rec}")
+    check(cut_native <= rec["cut_bar"],
+          f"native edge cut {cut_native} above 1.3 x the NumPy route's "
+          f"{cut_numpy} + 0.02")
     return rec
 
 
@@ -3088,11 +3256,23 @@ def phase_halo(card, out_lines, out_dir):
                   "differs from the live one")
             check(rec["steps"] == steps, f"cli rank {rec['rank']} took "
                                          f"{rec['steps']} steps, not {steps}")
+            numpy_rank = rec["rank"] in h["cli_numpy_ranks"]
+            check(rec["native"] != numpy_rank,
+                  f"cli rank {rec['rank']}: native library loaded "
+                  f"{rec['native']}")
+            for leg in ("leg1", "leg2"):
+                check(len(rec[leg]["cut"]) == 1
+                      and rec[leg]["cut"] == cli_recs[0]["leg1"]["cut"],
+                      f"cli rank {rec['rank']} {leg} logged the cut "
+                      f"{rec[leg]['cut']}, rank 0 "
+                      f"{cli_recs[0]['leg1']['cut']}")
         done, dispatch, _ = saved_counts(final)
         check(done == dispatch == 2 * steps,
               f"the resumed CLI run saved step {done}, dispatch {dispatch}")
         cli_rec = dict(ranks=h["cli_ranks"], batch=h["cli_batch"],
-                       steps_per_epoch=steps,
+                       steps_per_epoch=steps, partition_nodes=True,
+                       numpy_ranks=h["cli_numpy_ranks"],
+                       cut=cli_recs[0]["leg1"]["cut"],
                        leg1_s=[r["leg1"]["seconds"] for r in cli_recs],
                        leg2_s=[r["leg2"]["seconds"] for r in cli_recs],
                        resume_bit_identical=True, saved_step=done,
@@ -3200,6 +3380,9 @@ def main(argv=None) -> int:
         phase_remat(card, out_lines, graph, node_emb, batches)
         phase_param_bf16(card, out_lines, graph, node_emb, batches,
                          bf16_record)
+        phase_train_fp16(card, out_lines, graph, node_emb, batches,
+                         first_loss)
+        phase_param_fp16(card, out_lines)
         phase_edges_8m(card, out_lines, graph, node_emb)
         emit({"phase": "single_device_settings", "card": card,
               "seconds": time.perf_counter() - t0}, out_lines)

@@ -16,12 +16,13 @@ that many processes, one a device, the graph axis on the route
 process per device with ``--distributed --num-processes N --process-id I
 --coordinator-address HOST:PORT``; the process group's backend follows
 ``--device`` (NCCL on CUDA, gloo on the CPU). A mesh and route the JAX
-trainer refuses raise its ``ValueError``; a ``--config`` file that asks for
-a parameter or compute dtype other than float32 and bfloat16 raises
-``NotImplementedError`` naming the field. As
-in the JAX package, no flag sets ``param_dtype``: bf16 parameters are a
-``ModelConfig`` field of the Python API. Console entry point:
-``relgat-projector-train-torch``; also ``python -m
+trainer refuses raise its ``ValueError``. ``--compute-dtype`` takes float32
+and bfloat16, as JAX's flag does; a ``--config`` file may name any dtype
+the JAX package takes (float16 too), and one that JAX rejects raises its
+error naming the field. As in the JAX package, the CLI sets no
+``param_dtype`` (a ``--config`` file's is checked and then dropped): bf16
+or fp16 parameters are a ``ModelConfig`` field of the Python API. Console
+entry point: ``relgat-projector-train-torch``; also ``python -m
 relgat_projector_tpu_torch.cli``.
 """
 

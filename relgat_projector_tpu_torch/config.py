@@ -11,8 +11,10 @@ In this package:
 - ``kernel_precision="default"`` runs the kernels' bf16 row streams and
   ``compute_dtype="bfloat16"`` the projections on bf16 operands, both with
   fp32 arithmetic and results, as in the JAX package;
-- ``param_dtype`` ("float32" or "bfloat16") is the storage type of every
-  parameter and of the Adam moments;
+- ``param_dtype`` is the storage type of every parameter and of the Adam
+  moments, and ``compute_dtype`` the operand type of the projections
+  (``device.compute_matmul``); both take any name the JAX package's
+  ``jnp.dtype`` takes, with what JAX gives for it (``torch_dtype``);
 - ``remat`` recomputes each GAT layer in the backward
   (``torch.utils.checkpoint``);
 - ``scan_segments > 1`` is accepted with ``use_pallas`` and runs the
@@ -31,9 +33,9 @@ In this package:
   propagate on each rank's piece of the edge list);
 - a mesh and route the JAX trainer refuses raise the ``ValueError`` it
   raises, here when the ``RunConfig`` is made (``check_mesh_route``);
-- a compute or parameter dtype other than float32 and bfloat16 raises
-  ``NotImplementedError`` naming the field, so a ``training-config.json``
-  from the JAX package that asks for one fails when it is loaded.
+- a dtype name the JAX package rejects raises its error, naming the
+  field, when the config is made: where JAX raises at the first forward
+  (float8 parameters), the port raises when the config is loaded.
 """
 
 from __future__ import annotations
@@ -77,8 +79,73 @@ class Defaults:
     MODEL_CONFIG_FILE_NAME = "config.json"
 
 
-# The storage and compute types this package runs.
-FLOAT_DTYPES = ("float32", "bfloat16")
+# Types that numpy learns from ``ml_dtypes`` and the JAX package knows by
+# name (``torch_dtype`` finds the ones torch also has).
+_ML_DTYPES = (
+    "bfloat16", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+    "float8_e5m2fnuz", "float8_e8m0fnu", "float8_e4m3b11fnuz",
+    "float8_e3m4", "float8_e4m3", "float4_e2m1fn", "float6_e2m3fn",
+    "float6_e3m2fn", "int2", "int4", "uint2", "uint4",
+)
+# JAX without x64 stores a 64-bit type in its 32-bit twin.
+_X64_OFF = {"float64": "float32", "int64": "int32", "uint64": "uint32",
+            "complex128": "complex64"}
+
+
+def dtype_name(name: str) -> str:
+    """The canonical name of the type the JAX package (x64 off) stores for
+    ``name``: ``"half"`` is ``"float16"``, ``"float64"`` and ``"double"``
+    are ``"float32"``. Raises JAX's ``TypeError`` for a name it does not
+    understand or a type it cannot hold (``float128``)."""
+    name = str(name)
+    if name in _ML_DTYPES:
+        return name
+    import numpy as np
+
+    try:
+        dt = np.dtype(name)
+    except TypeError:
+        raise TypeError(f"data type {name!r} not understood") from None
+    if dt.kind not in "biufc" or dt.name in ("float128", "complex256"):
+        raise TypeError(
+            "JAX only supports number, bool, and string dtypes, got dtype "
+            f"{dt.name}")
+    return _X64_OFF.get(dt.name, dt.name)
+
+
+def torch_dtype(name: str):
+    """The torch type that holds what the JAX package stores for
+    ``name``."""
+    import torch
+
+    canon = dtype_name(name)
+    dtype = getattr(torch, canon, None)
+    if not isinstance(dtype, torch.dtype):
+        raise NotImplementedError(
+            f"{canon} has no torch type: the port cannot hold it")
+    return dtype
+
+
+def check_dtypes(param_dtype: str, compute_dtype: str) -> None:
+    """Raise what the JAX package raises for these names: a name
+    ``jnp.dtype`` does not take, parameters of a type ``jax.random.uniform``
+    cannot draw, and float8 parameters, which its forward cannot promote
+    against fp32. Every other name runs, as in JAX."""
+    for field_name, value in (("param_dtype", param_dtype),
+                              ("compute_dtype", compute_dtype)):
+        try:
+            torch_dtype(value)
+        except (TypeError, NotImplementedError) as exc:
+            raise type(exc)(f"{field_name}={value!r}: {exc}") from None
+    canon = dtype_name(param_dtype)
+    if canon.startswith("float8"):
+        raise ValueError(
+            f"param_dtype={param_dtype!r}: Input dtypes ('float32', "
+            f"'{canon}') have no available implicit dtype promotion path")
+    if canon not in ("float16", "float32", "bfloat16"):
+        raise ValueError(
+            f"param_dtype={param_dtype!r}: dtype argument to `uniform` must "
+            f"be a float dtype, got {canon}")
 
 
 # Architecture presets, the JAX package's (the reference left them as
@@ -135,13 +202,7 @@ class ModelConfig:
             raise ValueError(
                 f"Unknown kernel_precision: {self.kernel_precision}"
             )
-        for name in ("param_dtype", "compute_dtype"):
-            value = getattr(self, name)
-            if value not in FLOAT_DTYPES:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet: float32 or "
-                    "bfloat16"
-                )
+        check_dtypes(self.param_dtype, self.compute_dtype)
 
     @property
     def gat_concat_dim(self) -> int:

@@ -129,7 +129,9 @@ class RelGATData:
 
         # Min-cut relabeling for the halo route: clusters of train-edge
         # structure packed into the shards' contiguous id ranges, applied
-        # to the embeddings and both edge splits alike.
+        # to the embeddings and both edge splits alike. On a grid every
+        # rank gets here (the condition is the run config's), because the
+        # partitioner broadcasts rank 0's permutation over the world.
         self.node_perm: Optional[np.ndarray] = None
         self.partition_stats: Optional[Dict[str, float]] = None
         if partition_nodes and halo_shards > 1:

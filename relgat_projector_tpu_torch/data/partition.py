@@ -1,19 +1,22 @@
 """Graph partitioner: node relabeling that minimizes halo-exchange traffic.
 
-Port of ``relgat_projector_tpu/data/partition.py``, its NumPy route. The
-halo route (``parallel/halo.py``) partitions destination rows by contiguous
-node-id ranges, so its boundary traffic (``halo_pair``) depends on how node
-ids are laid out: a clustered KG whose labels arrive shuffled pays
+Port of ``relgat_projector_tpu/data/partition.py``. The halo route
+(``parallel/halo.py``) partitions destination rows by contiguous node-id
+ranges, so its boundary traffic (``halo_pair``) depends on how node ids
+are laid out: a clustered KG whose labels arrive shuffled pays
 near-worst-case exchange. This module groups strongly connected nodes by
 capacity-constrained label propagation, seeded by BFS growing, and packs
 each group into one shard's id range. The result is a relabeling
 permutation, applied by ``data/dataset.py`` to embeddings and both edge
 splits; model semantics are permutation-invariant.
 
-The JAX package runs the LPA and BFS passes in C++ when its native library
-loads (``data/native.py``) and broadcasts process 0's permutation, because
-the two routes give different partitions. The port has the NumPy route
-only, which is deterministic, so every rank computes the same permutation.
+As in the JAX package, the LPA and BFS-growing passes run in C++ when the
+native library loads (``data/native.py``, built from the port's copy of the
+JAX package's source, so the two packages give the same permutation), and
+in NumPy otherwise (``RELGAT_NO_NATIVE`` set, or no ``g++``). The two
+routes give different partitions, both deterministic, so on a process
+group of more than one rank ``partition_node_permutation`` broadcasts rank
+0's permutation and every rank relabels alike, whichever route it ran.
 """
 
 from __future__ import annotations
@@ -21,6 +24,26 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from relgat_projector_tpu_torch.data.native import (
+    native_bfs_grow,
+    native_lpa_refine,
+)
+from relgat_projector_tpu_torch.parallel.distributed import process_count
+from relgat_projector_tpu_torch.parallel.mesh import broadcast_
+
+
+def _broadcast_from_rank0(perm: np.ndarray) -> np.ndarray:
+    """Rank 0's ``perm`` on every rank of the world group: through host
+    memory on gloo, on this rank's card on NCCL."""
+    backend = dist.get_backend()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if backend == "nccl" else torch.device("cpu"))
+    t = torch.from_numpy(np.ascontiguousarray(perm, np.int64)).to(dev)
+    broadcast_(t, 0, None, backend)
+    return t.cpu().numpy()
 
 
 def edge_cut_fraction(
@@ -77,6 +100,19 @@ def lpa_partition(
     if src.shape[0] == 0 or g <= 1:
         return labels
 
+    # Native route: async LPA in C++ (data/native.py; ~25x the synchronous
+    # NumPy passes at 4M edges by the JAX package's measure), with the
+    # exact-caps repair. Falls through to NumPy when the library is
+    # unavailable.
+    soft_caps = np.maximum(
+        caps, np.ceil(caps * (1.0 + float(slack))).astype(np.int64)
+    )
+    refined = native_lpa_refine(src, dst, n, caps, soft_caps, labels,
+                                max_passes)
+    if refined is not None:
+        assert np.array_equal(np.bincount(refined, minlength=g), caps)
+        return refined
+
     # Undirected incidence: each edge contributes to both endpoints' votes.
     u = np.concatenate([src, dst]).astype(np.int64)
     v = np.concatenate([dst, src]).astype(np.int64)
@@ -85,9 +121,6 @@ def lpa_partition(
     keep = u != v
     u, v = u[keep], v[keep]
 
-    soft_caps = np.maximum(
-        caps, np.ceil(caps * (1.0 + float(slack))).astype(np.int64)
-    )
     idx = np.arange(n)
     best_cut = float(np.mean(labels[u] != labels[v]))
     best_labels = labels.copy()
@@ -213,6 +246,10 @@ def bfs_grow_partition(
     caps = np.asarray(caps, np.int64)
     if src.shape[0] == 0 or g <= 1:
         return np.zeros(n, np.int64)
+
+    grown = native_bfs_grow(src, dst, n, caps)
+    if grown is not None:
+        return grown
 
     # Undirected CSR adjacency.
     u = np.concatenate([src, dst]).astype(np.int64)
@@ -424,6 +461,15 @@ def partition_node_permutation(
     perm[order] = offsets
     # Capacity enforcement guarantees every new id is a real-node id.
     assert perm.max() < n and perm.min() >= 0
+
+    # Multi-process agreement: the native and NumPy routes give different
+    # partitions, so ranks with and without the library would relabel
+    # differently and the halo exchange would mix node ids. Rank 0's
+    # permutation is authoritative; the logged cut is recomputed from it.
+    if process_count() > 1:
+        perm = _broadcast_from_rank0(perm)
+        labels_bcast = np.minimum(perm // rows, g - 1)
+        cut_after = edge_cut_fraction(labels_bcast, src, dst)
 
     stats = {
         "edge_cut_before": cut_before,

@@ -4,9 +4,11 @@
 ``init_model`` returns (or a trained one), as numpy arrays or anything
 ``np.asarray`` accepts, and returns this package's parameters: the same
 nested layout, tensors on ``device``, each leaf in its own floating type:
-float32 stays float32, and bfloat16 (``ml_dtypes.bfloat16`` in numpy) comes
-across as ``torch.bfloat16`` through float32, which holds every bf16 value
-exactly. Both packages then compute the same function on the same weights.
+float32 stays float32, float16 comes across bit for bit as
+``torch.float16``, and bfloat16 (``ml_dtypes.bfloat16`` in numpy) as
+``torch.bfloat16`` through float32, which holds every bf16 value exactly;
+any other type becomes float32. Both packages then compute the same
+function on the same weights.
 Nothing of JAX is imported here; convert with ``jax.device_get`` first.
 
 The rest is the port of ``relgat_projector_tpu/interop.py``: the reference
@@ -55,6 +57,8 @@ from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 
 def _leaf(a: Any, dev: torch.device) -> torch.Tensor:
     a = np.asarray(a)
+    if a.dtype == np.float16:
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
     bf16 = a.dtype.name == "bfloat16"
     t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
     return t.to(dev, torch.bfloat16 if bf16 else torch.float32)
@@ -77,15 +81,18 @@ def import_torch_state_dict(
 ) -> Tuple[dict, ModelConfig]:
     """Map a reference ``state_dict`` to ``(params, ModelConfig)``, the
     tensors on ``device``. The leaves keep their type when all of them are
-    bfloat16 (the config then says ``param_dtype="bfloat16"``); otherwise
-    they become float32, as in the JAX package."""
+    of one half type, bfloat16 or float16 (the config's ``param_dtype``
+    then names it); otherwise they become float32, as in the JAX
+    package."""
     dev = resolve_device(device)
     params = params_from_state_dict(sd)
     layers = params["layers"]
     heads, in_dim, out_dim = layers[0]["proj"].shape
     linears = params.get("projection", {}).get("linears", [])
     projection_layers = len(linears)
-    bf16 = all(t.dtype == torch.bfloat16 for t in tree_leaves(params))
+    kinds = {t.dtype for t in tree_leaves(params)}
+    dtype = (kinds.pop() if kinds in ({torch.bfloat16}, {torch.float16})
+             else torch.float32)
     cfg = ModelConfig(
         in_dim=int(in_dim),
         num_rel=int(layers[0]["attn"].shape[1]),
@@ -98,7 +105,7 @@ def import_torch_state_dict(
         projection_layers=projection_layers,
         projection_hidden_dim=(int(linears[0].shape[1])
                                if projection_layers > 1 else 0),
-        param_dtype="bfloat16" if bf16 else "float32",
+        param_dtype=str(dtype).removeprefix("torch."),
     )
     rel_dim = params["scorer"]["rel_emb"].shape[1]
     if rel_dim != cfg.scorer_dim:
@@ -106,7 +113,6 @@ def import_torch_state_dict(
             f"scorer rel_dim {rel_dim} != derived scorer space "
             f"{cfg.scorer_dim} (projection inference wrong?)"
         )
-    dtype = torch.bfloat16 if bf16 else torch.float32
     return tree_map(lambda t: t.to(dev, dtype).contiguous(), params), cfg
 
 

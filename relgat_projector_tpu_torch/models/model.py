@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from relgat_projector_tpu_torch.config import Defaults, ModelConfig
+from relgat_projector_tpu_torch.config import Defaults, ModelConfig, torch_dtype
 from relgat_projector_tpu_torch.data.graph import GraphData
 from relgat_projector_tpu_torch.device import (
     DeviceLike,
@@ -67,7 +67,7 @@ def init_model(
     ``cfg.param_dtype`` and moved to ``device`` (the same numbers on every
     device)."""
     dev = resolve_device(device)
-    dtype = getattr(torch, cfg.param_dtype)
+    dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator().manual_seed(int(seed))
     layers = []
     in_dim = cfg.in_dim
@@ -111,7 +111,7 @@ def single_gat_step(
     for every node and sliced, so every rank's generators stay in step."""
     if node_emb.is_cuda:
         set_matmul_precision()
-    compute_dtype = getattr(torch, cfg.compute_dtype)
+    compute_dtype = torch_dtype(cfg.compute_dtype)
     num_layers = cfg.gat_num_layers
     width = cfg.gat_concat_dim
 

@@ -7,8 +7,8 @@ directory holds the model (``save_pretrained``: ``config.json`` and
 and the full train state in ``train-state.pt``:
 
 - params, Adam ``mu``/``nu``/``count``, ``step`` and ``nonfinite_steps``,
-  as CPU tensors of their own types (bf16 parameters and moments come back
-  bf16, bit for bit);
+  as CPU tensors of their own types (bf16 and fp16 parameters and moments
+  come back in their type, bit for bit);
 - both generators of the state's ``RngStreams`` and the device type they
   came from (``utils/rng.py``), so a resumed run draws the same dropout
   masks and negatives as the uninterrupted one.
@@ -23,9 +23,10 @@ A directory of the JAX package holds ``train-state.msgpack`` instead, which
 trained with the JAX package resumes here. Its parameters, Adam's ``mu``,
 ``nu`` and ``count``, ``step`` and ``nonfinite_steps`` come across as they
 are, with two changes: a moment stored in another type than its parameter
-(JAX's fp32 moments of a bf16 ``rel_bias`` on its Pallas route) is cast to
-the parameter's type, as this package stores moments; and JAX's key, which
-no torch generator can continue, seeds the streams (see ``_jax_rng``).
+(JAX's fp32 moments of a bf16 or fp16 ``rel_bias`` on its Pallas route)
+is cast to the parameter's type, as this package stores moments; and
+JAX's key, which no torch generator can continue, seeds the streams (see
+``_jax_rng``).
 """
 
 from __future__ import annotations

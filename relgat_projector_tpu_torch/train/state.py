@@ -13,10 +13,13 @@ function on tensors, in the same order and with the same formulas:
 
 Every leaf's moments live in its parameter's type and the arithmetic runs
 in that type with Python-float constants, as optax 0.2.6's
-``scale_by_adam`` and ``apply_updates`` do: bf16 parameters (``param_dtype
-="bfloat16"``) take bf16 moments; the bias corrections and the learning
-rate are fp32 scalars cast to the leaf's type, and ``p + u`` is cast back
-to ``p``'s type.
+``scale_by_adam`` and ``apply_updates`` do: bf16 or fp16 parameters
+(``param_dtype="bfloat16"`` or ``"float16"``) take moments of their type;
+the bias corrections and the learning rate are fp32 scalars cast to the
+leaf's type, and ``p + u`` is cast back to ``p``'s type. In fp16, eps
+rounds to 0 and the square of a gradient below about 2.4e-4 to 0, so an
+update can be 0 / 0 and the parameters go non-finite; JAX's steps do the
+same, and the non-finite-step skip takes over as it does there.
 
 ``torch.optim.Adam`` is not used: its step count advances on every call,
 while a skipped non-finite step here must leave the count (and with it the

@@ -10,9 +10,10 @@ emits (flax 0.12's ``serialization.py``), without flax or msgpack:
 - ext type 1 (``ndarray``) and ext type 3 (``npscalar``), in any of the
   ext formats (fixext 1/2/4/8/16, ext 8/16/32): a nested msgpack array of
   (shape, dtype name, C-order little-endian bytes). Each becomes a CPU
-  tensor of that type, a scalar a 0-d tensor. ``"bfloat16"``, which numpy
-  does not know, is read as ``uint16`` and viewed as ``torch.bfloat16``,
-  so it comes across bit for bit;
+  tensor of that type, a scalar a 0-d tensor (``"float16"`` a
+  ``torch.float16`` one). ``"bfloat16"``, which numpy does not know, is
+  read as ``uint16`` and viewed as ``torch.bfloat16``, so it comes across
+  bit for bit;
 - the ``__msgpack_chunked_array__`` dicts that flax writes for leaves above
   ``MAX_CHUNK_SIZE`` (2^30 bytes), joined back into one tensor.
 

@@ -340,17 +340,17 @@ def test_bf16_train_step_matches_jax(seed):
     assert max(grad_errs) <= STEP_GRAD_TOL, grad_errs
 
 
-class _Fp32CotangentMatMul(device._Bf16MatMul):
-    """``_Bf16MatMul`` with the cotangent kept fp32 in its backward
+class _Fp32CotangentMatMul(device._CastMatMul):
+    """``_CastMatMul`` with the cotangent kept fp32 in its backward
     products, as JAX's VJP keeps it on the CPU; each product is still
-    rounded to bf16 once."""
+    rounded to the operands' type (bf16 or fp16) once."""
 
     @staticmethod
     def backward(ctx, g):
-        x16, w16 = ctx.saved_tensors
-        dx = (g @ w16.float().t()).to(torch.bfloat16).float()
-        dw = (x16.float().t() @ g).to(torch.bfloat16).float()
-        return dx, dw
+        xq, wq = ctx.saved_tensors
+        dx = (g @ wq.float().t()).to(xq.dtype).float()
+        dw = (xq.float().t() @ g).to(xq.dtype).float()
+        return dx, dw, None
 
 
 @pytest.mark.parametrize("seed", (13, 14))
@@ -360,7 +360,7 @@ def test_bf16_train_step_with_fp32_cotangent_meets_jax_closely(
     the bf16 products matches JAX's, so the gradients meet JAX's to
     ``FP32_COTANGENT_GRAD_TOL``: a change to the forward product's rounding
     shows here and cannot hide under ``STEP_GRAD_TOL``."""
-    monkeypatch.setattr(device, "_Bf16MatMul", _Fp32CotangentMatMul)
+    monkeypatch.setattr(device, "_CastMatMul", _Fp32CotangentMatMul)
     loss_err, grad_errs = _train_step_errors(seed)
     assert loss_err <= STEP_LOSS_TOL
     assert max(grad_errs) <= FP32_COTANGENT_GRAD_TOL, grad_errs
@@ -403,8 +403,11 @@ def test_config_takes_the_bf16_mode_and_round_trips():
     assert back.model.compute_dtype == "bfloat16"
     jax_run = json.loads(run.to_json())
     assert JaxModelConfig(**jax_run["model"]).to_dict() == cfg.to_dict()
-    with pytest.raises(NotImplementedError, match="param_dtype"):
-        ModelConfig(in_dim=8, num_rel=3, param_dtype="float16", **BF16_MODE)
+    half = ModelConfig(in_dim=8, num_rel=3, param_dtype="float16",
+                       **BF16_MODE)
+    assert RunConfig.from_json(RunConfig(model=half).to_json()).model == half
+    with pytest.raises(TypeError, match="param_dtype"):
+        ModelConfig(in_dim=8, num_rel=3, param_dtype="float17", **BF16_MODE)
 
 
 def test_cli_trains_saves_and_resumes_in_bf16(tmp_path):

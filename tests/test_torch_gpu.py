@@ -561,6 +561,70 @@ def test_bf16_parameter_step_on_the_kernel_route(card):
     assert abs(float(m["loss"]) - float(loss)) <= 1e-2 * abs(float(loss))
 
 
+def test_fp16_product_on_the_card(card):
+    """``compute_matmul`` in fp16 on the card (one tensor-core product with
+    an fp32 output) against the float64 product of the fp16-rounded
+    operands, within the repo's kernel bar of 1e-5 of the largest value
+    (the tensor cores' fp32 sums measured 1.8e-6 here, the CPU's 5.5e-7),
+    never rounded to fp16; the gradients rounded to fp16 on the card and
+    on the CPU, within one fp16 step of each other."""
+    from relgat_projector_tpu_torch.device import (
+        compute_matmul,
+        set_matmul_precision,
+    )
+
+    set_matmul_precision()
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((512, 1152), generator=gen)
+    w = torch.randn((1152, 384), generator=gen) * 0.05
+    gr = torch.randn((512, 384), generator=gen)
+    out = []
+    for dev in ("cpu", card):
+        xd = x.to(dev).detach().requires_grad_(True)
+        wd = w.to(dev).detach().requires_grad_(True)
+        y = compute_matmul(xd, wd, torch.float16)
+        y.backward(gr.to(dev))
+        out.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+    (_, dx_cpu, dw_cpu), (y, dx, dw) = out
+    assert y.dtype == torch.float32
+    assert not torch.equal(y, y.half().float())
+    assert _rel(y, x.half().double() @ w.half().double()) <= REL_TOL
+    for got, want in ((dx, dx_cpu), (dw, dw_cpu)):
+        assert torch.equal(got, got.half().float())
+        assert _rel(got, want) <= 2.0 ** -10
+
+
+def test_fp16_compute_step_on_the_kernel_route(card):
+    """fp16 projections with fp32 parameters: one step launches the fp32
+    kernels (``h`` is the fp32 product) and its loss is within 1e-2 of the
+    same forward's through the plain route on a CPU copy."""
+    from relgat_projector_tpu_torch.models.model import single_gat_step
+    from relgat_projector_tpu_torch.train.step import score_batch
+    from relgat_projector_tpu_torch.utils.tree import tree_map
+
+    fp16 = dict(compute_dtype="float16", dropout=0.0, rel_attn_dropout=0.0,
+                projection_dropout=0.0)
+    cfg, tc, step, state, x, g, batch, coo = _card_step(card, **fp16)
+    neg = torch.randint(0, g.num_real_nodes, (64, 8),
+                        generator=torch.Generator().manual_seed(4))
+    host_params = tree_map(lambda t: t.cpu(), state.params)
+    kern.reset_launch_counts()
+    state, m = step(state, x, g, *batch, neg_dst=neg.to(card))
+    torch.cuda.synchronize()
+    counts = kern.launch_counts()
+    assert counts["relgat_fwd"] == 2 and counts["relgat_fwd_bf16"] == 0
+    assert {t.dtype for t in _card_leaves(state)} == {torch.float32}
+    g_cpu = build_graph(*coo, g.num_real_nodes, num_rel=cfg.num_rel,
+                        device="cpu")
+    cpu_cfg = dataclasses.replace(cfg, use_pallas=False)
+    with torch.no_grad():
+        xs = single_gat_step(host_params, cpu_cfg, x.cpu(), g_cpu)
+        loss, _ = score_batch(host_params, cpu_cfg, tc, xs,
+                              g_cpu.num_real_nodes,
+                              *(t.cpu() for t in batch), neg_dst=neg)
+    assert abs(float(m["loss"]) - float(loss)) <= 1e-2 * abs(float(loss))
+
+
 def test_serving_through_the_kernels(card, tmp_path):
     """``export_node_representations`` on the card (one relgat_fwd per
     layer, no backward kernel) agrees with the same call on a CPU copy

@@ -1,7 +1,7 @@
 """The port's msgpack reader against flax, on the JAX package's own files.
 
 ``relgat-model.msgpack`` and ``train-state.msgpack`` written by the JAX
-package's ``save_pretrained`` and ``save_train_state`` (fp32 and bf16
+package's ``save_pretrained`` and ``save_train_state`` (fp32, bf16 and fp16
 parameters; Adam and AdamW, each with and without clipping and decay) are
 read by ``relgat_projector_tpu_torch.utils.msgpack`` and by
 ``flax.serialization.msgpack_restore``: the same tree, every leaf of the
@@ -78,7 +78,7 @@ def _jax_params(param_dtype):
     return cfg, jax_init_model(jax.random.PRNGKey(0), cfg)
 
 
-@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16", "float16"])
 def test_model_file_matches_flax(tmp_path, param_dtype):
     cfg, params = _jax_params(param_dtype)
     jax_save(str(tmp_path), params, cfg)
@@ -92,13 +92,12 @@ def test_model_file_matches_flax(tmp_path, param_dtype):
         serialization.from_bytes(jax.device_get(params), data))
     assert len(tree_leaves(got)) == len(want)
     for g, w in zip(tree_leaves(got), want):
-        assert g.dtype == (torch.bfloat16 if param_dtype == "bfloat16"
-                           else torch.float32)
+        assert g.dtype == getattr(torch, param_dtype)
         assert_same(g, np.asarray(w))
 
 
 @pytest.mark.parametrize("opt_name", sorted(OPTIMIZERS))
-@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16", "float16"])
 def test_train_state_file_matches_flax(tmp_path, opt_name, param_dtype):
     _, params = _jax_params(param_dtype)
     tc = JaxTrainConfig(**OPTIMIZERS[opt_name])

@@ -172,5 +172,11 @@ def test_config_fields_and_json_match_jax():
     ("compute_dtype", "float16"), ("compute_dtype", "float64"),
 ])
 def test_config_rejects_what_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError):
-        tconfig.ModelConfig(in_dim=8, num_rel=3, **{field: value})
+    """Both names are ported now: the config takes them and resolves each
+    to the type JAX stores for it (x64 off: float64 is float32). What the
+    port still rejects is a name JAX rejects, with JAX's error."""
+    cfg = tconfig.ModelConfig(in_dim=8, num_rel=3, **{field: value})
+    stored = jnp.zeros(1, jnp.dtype(value)).dtype.name
+    assert tconfig.torch_dtype(getattr(cfg, field)) == getattr(torch, stored)
+    with pytest.raises(TypeError, match=field):
+        tconfig.ModelConfig(in_dim=8, num_rel=3, **{field: value + "x"})

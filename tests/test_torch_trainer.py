@@ -142,9 +142,9 @@ def test_cli_config_layer_reads_a_jax_training_config(tmp_path):
 
 
 @pytest.mark.parametrize("model,mesh,field", [
-    (dict(param_dtype="float16"), {}, "param_dtype"),
+    (dict(param_dtype="int32"), {}, "param_dtype"),
     (dict(mesh_propagate="replicated"), dict(graph_axis=4), "graph_axis=4"),
-    (dict(compute_dtype="float16"), {}, "compute_dtype"),
+    (dict(compute_dtype="float17"), {}, "compute_dtype"),
 ])
 def test_cli_config_layer_refuses_what_is_not_ported(tmp_path, model, mesh,
                                                      field):
@@ -152,9 +152,10 @@ def test_cli_config_layer_refuses_what_is_not_ported(tmp_path, model, mesh,
                        mesh=JaxMeshConfig(**mesh))
     path = tmp_path / "training-config.json"
     path.write_text(run.to_json())
-    # a dtype is not ported; a mesh and route JAX's trainer refuses is
-    # refused with its ValueError
-    refusal = NotImplementedError if field.endswith("dtype") else ValueError
+    # a dtype JAX cannot train (int32 parameters: ValueError) or does not
+    # know (TypeError), and a mesh and route JAX's trainer refuses
+    # (ValueError), are refused with JAX's error
+    refusal = TypeError if field == "compute_dtype" else ValueError
     with pytest.raises(refusal, match=field):
         cli.get_args(["--config", str(path), "--synthetic"])
 
@@ -163,22 +164,23 @@ def test_cli_config_layer_refuses_what_is_not_ported(tmp_path, model, mesh,
     (["--mesh-graph", "2", "--mesh-propagate", "replicated"], "graph_axis=2"),
     (["--mesh-model", "2"], "model_axis=2"),
     (["--mesh-data", "2", "--mesh-model", "2"], "data_axis=2"),
-    ({"param_dtype": "float16"}, "param_dtype"),
-    ({"compute_dtype": "float16"}, "compute_dtype"),
+    ({"param_dtype": "int32"}, "param_dtype"),
+    ({"compute_dtype": "float17"}, "compute_dtype"),
     (["--distributed", "--mesh-graph", "2", "--mesh-propagate", "gspmd"],
      "gspmd"),
     (["--num-processes", "2", "--mesh-model", "4"], "model_axis=4"),
 ])
 def test_cli_refuses_flags_it_cannot_run(tmp_path, flags, field):
     """A flag, or (a dict) model fields of a ``--config`` file that the CLI
-    has no flag for. A dtype is not ported; a mesh the process group cannot
-    hold, or a route JAX's trainer refuses, raises a ValueError naming it."""
+    has no flag for. A dtype JAX rejects raises JAX's error; a mesh the
+    process group cannot hold, or a route JAX's trainer refuses, raises a
+    ValueError naming it."""
     if isinstance(flags, dict):
         run = JaxRunConfig(model=JaxModelConfig(in_dim=8, num_rel=2, **flags))
         path = tmp_path / "training-config.json"
         path.write_text(run.to_json())
         flags = ["--config", str(path)]
-    refusal = NotImplementedError if field.endswith("dtype") else ValueError
+    refusal = TypeError if field == "compute_dtype" else ValueError
     with pytest.raises(refusal, match=field):
         cli.main(["--synthetic", "--synthetic-nodes", "20",
                   "--synthetic-edges", "50", "--device", "cpu",

@@ -26,9 +26,14 @@ Modes:
   trainer built from the same argv resumes from the run's final
   checkpoint, and its state and one step from it are held to the trainer
   the CLI ran; then ``cli.main`` again with ``--resume``.
+- ``partition``: ``partition_node_permutation`` of ``in.npz``'s graph with
+  ``in.json``'s shards and rows, the ranks in its ``numpy_ranks`` on the
+  NumPy route (``RELGAT_NO_NATIVE``); writes the permutation, the cut and
+  whether this rank loaded the native library.
 """
 
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -196,6 +201,23 @@ def _cli(rank, world, work, port):
     dist.destroy_process_group()
 
 
+def _partition(rank, world, work):
+    from relgat_projector_tpu_torch.data import native
+    from relgat_projector_tpu_torch.data.partition import (
+        partition_node_permutation,
+    )
+
+    cfg = json.loads((work / "in.json").read_text())
+    if rank in cfg["numpy_ranks"]:
+        os.environ["RELGAT_NO_NATIVE"] = "1"
+    z = np.load(work / "in.npz")
+    perm, stats = partition_node_permutation(
+        z["src"], z["dst"], cfg["num_nodes"], cfg["shards"], cfg["rows"])
+    np.savez(work / f"out_{rank}.npz", perm=perm,
+             cut_after=stats["edge_cut_after"],
+             native=native.load_native() is not None)
+
+
 def main():
     mode, rank, world, port = sys.argv[1], *map(int, sys.argv[2:5])
     work = Path(sys.argv[5])
@@ -206,8 +228,8 @@ def main():
                            backend="gloo", timeout_s=120)
     assert is_primary() == (rank == 0)
     try:
-        {"propagate": _propagate, "trainer": _trainer}[mode](
-            rank, world, work)
+        {"propagate": _propagate, "trainer": _trainer,
+         "partition": _partition}[mode](rank, world, work)
     finally:
         dist.destroy_process_group()
 
