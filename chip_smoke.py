@@ -19,12 +19,17 @@ Phases, in order; any failure exits non-zero:
               run in float64 on the same inputs (for the bf16 variants the
               same bf16 values, widened exactly).
    parity_wide - the same for every kernel at (H, F) = (12, 300) (the
-              library's default), (4, 512), (2, 1024), (3, 301), (16, 128),
-              (3, 128) and (1, 128) (odd head counts: the bf16 pair
-              kernels' unpaired last head), on a 4,000-node graph whose
-              rows have exactly 0, 1,
+              library's default), (4, 512), (2, 1024), (3, 301), (16, 200)
+              (the reference's doc-scale tile), (12, 256) (the large
+              preset), (16, 128), (3, 128) and (1, 128) (odd head counts:
+              the bf16 pair kernels' unpaired last head), on a 4,000-node
+              graph whose rows have exactly 0, 1,
               2 and 3 in- and out-edges, self-loops, a repeated triple and
-              a row of 1,000 in-edges that the forward splits.
+              a row of 1,000 in-edges that the forward splits. Past F = 128
+              the forward and src pass also in both designs (the ring
+              kernel and the one-warp-a-head template, ops.cuda.with_design)
+              against the float64 plain version, and the dispatch the same
+              bits twice.
    agree    - one training forward and backward of a small model through
               the kernels and through the plain path on the card, with the
               same weights, negatives and dropout draws: loss and every
@@ -57,6 +62,8 @@ Phases, in order; any failure exits non-zero:
               one GAT layer) on the same graph, embeddings and batches, 4
               steps in fp32 and 4 in bf16: each kernel of the variant
               launched layers x steps times.
+   train_doc_width - the same at the reference's doc-scale tile (16 heads
+              x 200, one GAT layer).
    remat    - TRAIN with remat on and off, 3 steps each in fp32 and in the
               bf16 mode, TRAIN's dropout and an attention dropout of 0.2:
               the parameters equal (bit for bit expected, 1e-6 at most),
@@ -100,8 +107,11 @@ Phases, in order; any failure exits non-zero:
               on the same representations, ids equal wherever the float64
               scores are not tied within 1e-6.
 6. kernels  - each kernel, fp32 and bf16 variant, held to its plain version
-              and timed with CUDA events at the train phase's shapes and at
-              the default widths (launches from train_default_width), the
+              and timed with CUDA events at the train phase's shapes, at
+              the default widths and at the doc-scale tile (launches from
+              train_default_width and train_doc_width; there the forward and
+              src pass also name the design the dispatch took and time both
+              designs, ring_ms and lanes_ms), the
               bf16 forward and src pass giving the same bits twice, beside
               its bound on this card (bf16 rows counted at 2 bytes) and, for
               relgat_bwd_rel, one torch.einsum on the same inputs; then each
@@ -323,16 +333,22 @@ TRAIN = dict(num_nodes=100_000, num_edges=1_000_000, num_rel=40, in_dim=1152,
 ZIPF = dict(warmup_steps=3, timed_steps=5, heavy_rows=16, random_rows=1_024)
 # Head widths past the TRAIN model's 128: the library's default (config.py,
 # 12 heads x 300), the widest the kernels take (1024), one not a multiple of
-# 4, and TRAIN's own width on the same graph for the bf16 pair kernels,
-# also at odd head counts (3 and 1), whose last head the pair kernels run
-# unpaired: head tensor parallelism makes such tiles.
-WIDE_SHAPES = ((12, 300), (4, 512), (2, 1024), (3, 301), (16, 128),
-               (3, 128), (1, 128))
+# 4, the reference's doc-scale tile (16 x 200) and the large preset's
+# 12 x 256, and TRAIN's own width on the same graph for the bf16 pair
+# kernels, also at odd head counts (3 and 1), whose last head the pair
+# kernels run unpaired: head tensor parallelism makes such tiles. Past 128
+# features both designs of the forward and src pass (the ring kernel and
+# the one-warp-a-head template) are held, whichever the width takes.
+WIDE_SHAPES = ((12, 300), (4, 512), (2, 1024), (3, 301), (16, 200),
+               (12, 256), (16, 128), (3, 128), (1, 128))
 WIDE = dict(num_nodes=4_000, num_edges=40_000, num_rel=40, hub_degree=1_000)
 # The library's default widths on TRAIN's graph: 12 heads x 300, one GAT
 # layer (config.py), the rest of the TRAIN model as it is.
 DEFAULT_WIDTH = dict(heads=12, feat=300, layers=1, warmup_steps=1,
                      timed_steps=3)
+# The reference's doc-scale tile (SURVEY.md: out_dim 200) with TRAIN's 16
+# heads, one GAT layer, on the same graph.
+DOC_WIDTH = dict(heads=16, feat=200, layers=1, warmup_steps=1, timed_steps=3)
 TRAINER = dict(nodes=20_000, triplets=25_000, num_rel=40, in_dim=1152,
                nn_pool=256, heads=16, feat=128, layers=2, batch=128,
                num_neg=32, every=100, train_ratio=0.9, bare_steps=100,
@@ -642,18 +658,65 @@ def phase_parity_wide(card, out_lines):
                                     c["num_rel"], SEED + heads)
         errs = run_kernel_pair(inputs, seed=424242, rate=rate,
                                exact=KERNEL_SOURCES, bf16=bf16)
+        designs = (design_errors(inputs, bf16, seed=424242, rate=rate)
+                   if feat > 128 else {})
         torch.cuda.synchronize()
         w = max(e["max_rel_err"] for outs in errs.values()
                 for e in outs.values())
+        w = max([w] + [e for d in designs.values() for e in d["max_rel_err"]
+                       .values()])
         worst = max(worst, w)
         emit({"phase": "parity_wide", "variant": "bf16" if bf16 else "fp32",
               "heads": heads, "feat": feat, "attn_dropout": rate,
-              "max_rel_err": w, "errors": errs, "card": card}, out_lines)
+              "max_rel_err": w, "errors": errs, "designs": designs,
+              "card": card}, out_lines)
+        check(all(d["same_bits_twice"] for d in designs.values()),
+              f"parity_wide {heads} x {feat}: a kernel gave other bits in a "
+              f"second call: {designs}")
         del inputs
     check(worst <= REL_TOL,
           f"kernel parity at wide heads: max relative error {worst} > "
           f"{REL_TOL}")
     return worst
+
+
+def design_errors(inputs, bf16, *, seed, rate):
+    """At F > 128, the forward and src pass of a variant: the dispatch
+    twice (the same bits), and each design forced (``ops.cuda.with_design``)
+    against the float64 plain version, max|a-b| / max|b| over the
+    outputs."""
+    h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
+    csr = inputs["csr"]
+    kw = dict(seed=seed, rate=rate, negative_slope=0.2, eps=1e-16)
+    fwd, bwd_src, _ = VARIANTS[bf16]
+    rh, rg = (h.to(torch.bfloat16), g.to(torch.bfloat16)) if bf16 else (h, g)
+    heads, _, feat = attn.shape
+    n = h.shape[0]
+    out, m, l, b = KERNELS[fwd](rh, attn, bias, csr, **kw)
+    s_dot = ((out - b[:, None]) * g).view(n, heads, feat).sum(-1)
+    calls = {fwd: (rh, attn, bias, csr),
+             bwd_src: (rh, rg, attn, m, l, s_dot, g.sum(1), csr)}
+    res = {}
+    for name, args in calls.items():
+        first = KERNELS[name](*args, **kw)
+        second = KERNELS[name](*args, **kw)
+        want = PLAIN[name](*(a.double() if isinstance(a, torch.Tensor)
+                             and a.is_floating_point() else a
+                             for a in args), **kw)
+        errs = {}
+        for design in kern.DESIGNS:
+            got = kern.with_design(KERNELS[name], design, *args, **kw)
+            # the forward's out and l (m is -inf on rows without in-edges;
+            # run_kernel_pair holds the bias sum)
+            pairs = ([(got[0], want[0]), (got[2], want[2])] if name == fwd
+                     else zip(got, want))
+            errs[design] = max(rel_err(a, b) for a, b in pairs)
+        res[name] = {"design": kern.design_of(KERNELS[name], heads, feat),
+                     "max_rel_err": errs,
+                     "same_bits_twice": all(torch.equal(a, b) for a, b in
+                                            zip(first, second))}
+        del first, second, want
+    return res
 
 
 def agree_grads(device, **model):
@@ -1127,12 +1190,13 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
     return counts, {"step_ms": step_s * 1e3, "peak": peak}
 
 
-def phase_train_default(card, out_lines, graph, node_emb, batches):
+def phase_train_default(card, out_lines, graph, node_emb, batches,
+                        d=DEFAULT_WIDTH, phase="train_default_width"):
     """The library's default widths (``DEFAULT_WIDTH``: 12 heads x 300, one
-    GAT layer) on the train phase's graph, embeddings and batches, in fp32
-    and in the bf16 mode: a few steps each, every kernel of the variant
-    launched layers x steps times. Returns each variant's launch counts."""
-    d = DEFAULT_WIDTH
+    GAT layer; or ``d``, as phase ``phase``) on the train phase's graph,
+    embeddings and batches, in fp32 and in the bf16 mode: a few steps each,
+    every kernel of the variant launched layers x steps times. Returns each
+    variant's launch counts."""
     steps = d["warmup_steps"] + d["timed_steps"]
     model = dict(gat_heads=d["heads"], gat_out_dim=d["feat"],
                  gat_num_layers=d["layers"])
@@ -1143,7 +1207,7 @@ def phase_train_default(card, out_lines, graph, node_emb, batches):
         _, _, state, metrics, step_s, c, first = train_steps(
             node_emb, graph, batches[:steps], d["warmup_steps"], **model,
             **mode)
-        emit({"phase": "train_default_width", "card": card,
+        emit({"phase": phase, "card": card,
               "variant": "bf16" if bf16 else "fp32", **model,
               "nodes": TRAIN["num_nodes"], "edges": TRAIN["num_edges"],
               "steps": steps, "timed_steps": d["timed_steps"],
@@ -1155,7 +1219,7 @@ def phase_train_default(card, out_lines, graph, node_emb, batches):
               "grad_norm": float(metrics["grad_norm"]), "launches": c},
              out_lines)
         check_train(metrics, c, expected_launches(bf16, d["layers"] * steps),
-                    f"train_default_width ({'bf16' if bf16 else 'fp32'})")
+                    f"{phase} ({'bf16' if bf16 else 'fp32'})")
         counts.update({k: c[k] for k in VARIANTS[bf16]})
         del state, metrics
     return counts
@@ -1591,6 +1655,57 @@ def bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), by
 
 
+def variant_calls(inputs, bf16, kw):
+    """A variant's three kernels on ``inputs``: ``calls[name](f)`` calls
+    ``f`` (the kernel, its plain version, or one design of it) on that
+    kernel's inputs, the src pass's and relgat_bwd_rel's made from the
+    forward's outputs and the src pass's W and B. Also returns those
+    tensors by name."""
+    csr = inputs["csr"]
+    h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
+    heads, _, feat = attn.shape
+    fwd, bwd_src, bwd_rel = VARIANTS[bf16]
+    rh, rg = (h.to(torch.bfloat16), g.to(torch.bfloat16)) if bf16 else (h, g)
+    out, m, l, b = KERNELS[fwd](rh, attn, bias, csr, **kw)
+    s_dot = ((out - b[:, None]) * g).view(-1, heads, feat).sum(-1)
+    gsum = g.sum(1)
+    _, w, bsum = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
+    calls = {
+        fwd: lambda f: f(rh, attn, bias, csr, **kw),
+        bwd_src: lambda f: f(rh, rg, attn, m, l, s_dot, gsum, csr, **kw),
+        bwd_rel: lambda f: f(rh, w, bsum),
+    }
+    return calls, dict(rh=rh, rg=rg, out=out, m=m, l=l, b=b, s_dot=s_dot,
+                       gsum=gsum, w=w, bsum=bsum)
+
+
+def design_times(calls, names, heads, feat, reps=10):
+    """Past 128 features, for each of ``names`` (a variant's forward and src
+    pass at ``heads`` x ``feat``, ``calls`` as ``variant_calls`` gives
+    them): the design its dispatch takes (``ops.cuda.design_of``) and each
+    design's time, forced (``ops.cuda.with_design``), with CUDA events in
+    this run: ``ring_ms``, the ring kernel, and ``lanes_ms``, the
+    one-warp-a-head template."""
+    res = {}
+    for name in names:
+        res[name] = {"design": kern.design_of(KERNELS[name], heads, feat)}
+        for design in kern.DESIGNS:
+            res[name][f"{design}_ms"] = cuda_ms(
+                lambda: calls[name](lambda *a, **k: kern.with_design(
+                    KERNELS[name], design, *a, **k)), reps=reps, warmup=2)
+    return res
+
+
+def row_gather_floor(row):
+    """A row's row-gather floor, its ``row_gather_bytes`` over the card's
+    memory rate, for the kernel phase's own line (the kernels line keeps
+    the bytes only); {} where the row has none."""
+    if "row_gather_bytes" not in row:
+        return {}
+    return {"row_gather_floor_ms":
+            row["row_gather_bytes"] / PEAK_BYTES_PER_S * 1e3}
+
+
 def kernel_rows(inputs, bf16, counts, card, out_lines):
     """The kernels line's rows of one variant on ``TRAIN``'s graph at the
     widths of ``inputs``, and its ``bwd_pair`` line. The bf16 forward and
@@ -1598,31 +1713,23 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
     csr = inputs["csr"]
     n = inputs["h"].shape[0]
     kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
-    h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
+    h, attn = inputs["h"], inputs["attn"]
     heads, num_rel, feat = attn.shape
     fwd, bwd_src, bwd_rel = VARIANTS[bf16]
-    rh, rg = (h.to(torch.bfloat16), g.to(torch.bfloat16)) if bf16 else (h, g)
-    out, m, l, b = KERNELS[fwd](rh, attn, bias, csr, **kw)
-    s_dot = ((out - b[:, None]) * g).view(n, heads, feat).sum(-1)
-    gsum = g.sum(1)
-    _, w, bsum = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
+    calls, v = variant_calls(inputs, bf16, kw)
+    rh, w = v["rh"], v["w"]
     same_bits = None
     if bf16:
-        again = KERNELS[fwd](rh, attn, bias, csr, **kw)
-        same_bits = all(torch.equal(x, y) for x, y in
-                        zip((out, m, l, b), again))
-        first = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
-        second = KERNELS[bwd_src](rh, rg, attn, m, l, s_dot, gsum, csr, **kw)
+        again = calls[fwd](KERNELS[fwd])
+        same_bits = all(torch.equal(v[x], y) for x, y in
+                        zip(("out", "m", "l", "b"), again))
+        first = calls[bwd_src](KERNELS[bwd_src])
+        second = calls[bwd_src](KERNELS[bwd_src])
         same_bits = same_bits and all(torch.equal(x, y)
                                       for x, y in zip(first, second))
         del again, first, second
         check(same_bits, f"{fwd} or {bwd_src} gave other bits in a second "
                          f"call at {heads} x {feat}")
-    calls = {
-        fwd: lambda f: f(rh, attn, bias, csr, **kw),
-        bwd_src: lambda f: f(rh, rg, attn, m, l, s_dot, gsum, csr, **kw),
-        bwd_rel: lambda f: f(rh, w, bsum),
-    }
     # One PyTorch call computing the same function, timed as a yardstick
     # only: dattn of relgat_bwd_rel is W^T h per head. The other kernels'
     # functions have no such call, nor has relgat_bwd_rel_bf16's (fp32 W
@@ -1635,12 +1742,15 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
                            exact=EXACT_AT_TRAIN_SHAPES, bf16=bf16,
                            skip=(bwd_src,))
     torch.cuda.empty_cache()
-    errs[bwd_src] = src_rows_errors(bwd_src, (rh, rg, attn, m, l, s_dot, gsum),
-                                    csr, kw)
+    errs[bwd_src] = src_rows_errors(
+        bwd_src, (rh, v["rg"], attn, v["m"], v["l"], v["s_dot"], v["gsum"]),
+        csr, kw)
     torch.cuda.synchronize()
     row_bytes = rh.element_size()
     bnd = bounds(n, csr.num_edges, heads, feat, num_rel,
                  row_bytes=row_bytes)
+    designs = (design_times(calls, (fwd, bwd_src), heads, feat)
+               if feat > 128 else {})
     rows = []
     for name, kind in zip(VARIANTS[bf16], VARIANTS[False]):
         source, replaces = KERNEL_SOURCES[name]
@@ -1670,7 +1780,10 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
             # what the design reads besides: one H*F row per edge (h[src]
             # in the forward, g[dst] in relgat_bwd_src)
             row["row_gather_bytes"] = row_bytes * csr.num_edges * heads * feat
-        emit({"phase": "kernel", **row, "errors": errs[name]}, out_lines)
+        if name in designs:
+            row.update(designs[name])
+        emit({"phase": "kernel", **row, **row_gather_floor(row),
+              "errors": errs[name]}, out_lines)
         rows.append(row)
         torch.cuda.synchronize()
     pair_ms = sum(r["ms"] for r in rows if r["name"] != fwd)
@@ -1711,18 +1824,22 @@ def src_rows_errors(name, args, csr, kw):
     return errs
 
 
-def phase_kernels(graph, counts, default_counts, card, out_lines):
+def phase_kernels(graph, counts, default_counts, doc_counts, card,
+                  out_lines):
     """The kernels line's rows on ``TRAIN``'s graph at its widths (launches
-    from phases train and train_bf16) and at the library's default widths
-    (launches from phase train_default_width), and the yardsticks."""
-    t, d = TRAIN, DEFAULT_WIDTH
+    from phases train and train_bf16), at the library's default widths
+    (launches from phase train_default_width) and at the doc-scale tile
+    (launches from phase train_doc_width), and the yardsticks."""
+    t = TRAIN
     torch.cuda.empty_cache()
     csr = graph.csr
     n = graph.num_nodes
     rows = []
     widths = [(t["heads"], t["feat"], counts)]
-    if default_counts is not None:
-        widths.append((d["heads"], d["feat"], default_counts))
+    for d, launches in ((DEFAULT_WIDTH, default_counts),
+                        (DOC_WIDTH, doc_counts)):
+        if launches is not None:
+            widths.append((d["heads"], d["feat"], launches))
     for heads, feat, launches in widths:
         inputs = make_kernel_inputs(csr, n, heads, feat, t["num_rel"],
                                     SEED + 7)
@@ -3161,9 +3278,8 @@ def shard_kernel_rows(card, out_lines, cases, launches, launches_of):
                     row["same_bits_twice"] = same
                     row["row_gather_bytes"] = (row_bytes * csr.num_edges
                                                * hf)
-                    row["row_gather_floor_ms"] = (row["row_gather_bytes"]
-                                                  / PEAK_BYTES_PER_S * 1e3)
-                emit({"phase": "kernel", **row}, out_lines)
+                emit({"phase": "kernel", **row, **row_gather_floor(row)},
+                     out_lines)
                 out_rows.append(row)
             del res, back, rel, calls, library
             torch.cuda.empty_cache()
@@ -3360,7 +3476,7 @@ def main(argv=None) -> int:
                             num_rel=TRAIN["num_rel"], csr=True, device=DEVICE)
         # No main path runs here, so no launches were counted.
         kernels = phase_kernels(graph, {k: None for k in KERNELS}, None,
-                                card, out_lines)
+                                None, card, out_lines)
     else:
         worst = phase_parity(card, out_lines)
         worst = max(worst, phase_parity_wide(card, out_lines))
@@ -3376,6 +3492,9 @@ def main(argv=None) -> int:
             card, out_lines, args.out, graph, node_emb, batches, first_loss)
         default_counts = phase_train_default(card, out_lines, graph,
                                              node_emb, batches)
+        doc_counts = phase_train_default(card, out_lines, graph, node_emb,
+                                         batches, DOC_WIDTH,
+                                         "train_doc_width")
         t0 = time.perf_counter()
         phase_remat(card, out_lines, graph, node_emb, batches)
         phase_param_bf16(card, out_lines, graph, node_emb, batches,
@@ -3389,8 +3508,8 @@ def main(argv=None) -> int:
         del node_emb, batches
         launches = {k: counts[k] for k in VARIANTS[False]}
         launches.update({k: counts_bf16[k] for k in VARIANTS[True]})
-        kernels = phase_kernels(graph, launches, default_counts, card,
-                                out_lines)
+        kernels = phase_kernels(graph, launches, default_counts, doc_counts,
+                                card, out_lines)
         del graph
         kernels.append(phase_zipf(card, step_ms, out_lines))
         serve.update(phase_trainer(card, out_lines, args.out))

@@ -63,8 +63,23 @@
 // each warp's contiguous piece, not the bytes in flight (32 warps x 512
 // bytes = 16 KB an SM), set the rate; PERF.md section 6 records the designs
 // measured against this one. relgat_bwd_rel_bf16 is bounded by its FMA
-// loop, not its bytes, as in fp32. Wider heads: F / 32 features a lane in
-// registers, up to F = 1024 (relgat_common.cuh kMaxFeatPerLane).
+// loop, not its bytes, as in fp32.
+//
+// Wider heads (F > 128, up to 1024), fp32 or bf16 rows:
+// relgat_bwd_src_ring_kernel gives a block a source row and a group of up to
+// kRingBwdGroupHeads heads. A producer warp copies the group's slice of
+// g[dst] of each out-edge into a ring of shared-memory stages with one bulk
+// copy (cp.async.bulk) on the stage's mbarrier, as the forward's ring does;
+// one consumer warp a head keeps h[s] and the dh sum in registers with
+// every lane busy, loads the per-edge values of 32 out-edges at a time
+// into a table of its own in shared memory, and folds de (head 0 also
+// gsum) into its slab as relgat_bwd_src_kernel does: dh, W and B are
+// written once, without atomics. On the card it is faster than the
+// one-warp-a-head template at most widths (6.40 against 8.59 ms fp32, 4.81
+// against 6.87 bf16 at 12 x 300; 6.41 against 6.66 fp32 at 16 x 200) and
+// slower at some (fp32 past 520 features, bf16 at 496-512), so the
+// dispatch takes it where it measured faster (ops/cuda/fused.py
+// RING_RANGES).
 #include "relgat_common.cuh"
 
 namespace relgat {
@@ -362,6 +377,184 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   }
 }
 
+// What a ring consumer warp needs of one out-edge besides its rows, for its
+// head: a per-warp table of 32 in shared memory.
+struct alignas(16) RingEntry {
+  float m_safe;     // m[d], -inf read as 0
+  float inv_denom;  // 1 / max(l[d], eps)
+  float s;          // S[d]
+  float keep;       // dropout keep / (1 - rate), or 1
+  int dst;
+  int rel;
+  float gsum;  // gsum[d], for the head-0 warp only
+  float pad;
+};
+
+// Heads wider than 128 features, fp32 or bf16 rows. Block (src row s, group
+// of up to kRingBwdGroupHeads heads): warps 0 .. G-1 are the group's heads, one
+// each, and warp G the producer, which streams the group's slice of g[dst]
+// of each out-edge, in src-CSR order, through `stages` ring stages of
+// `stage_elems` values with one bulk copy an edge. A head's warp keeps h[s]
+// and the dh sum in registers, all lanes busy (the VW layout of
+// relgat_common.cuh); its lanes load the
+// per-edge values of 32 out-edges at a time (dst, relation, m, 1 / l, S,
+// the dropout keep, and gsum for head 0) into the warp's RingEntry table.
+// Per edge it loads its attn row, waits for the stage, reads its F values
+// of g[dst] and releases the stage, then computes alpha and de as
+// relgat_bwd_src_kernel does and folds de (and, head 0, gsum[dst]) into its
+// slab in shared memory. dh, W and B are written once, as there.
+template <int NK, int VW, typename T>
+__global__ void __launch_bounds__(32 * (kRingBwdGroupHeads + 1),
+                                  ring_bwd_warps<NK>() / (kRingBwdGroupHeads + 1))
+relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
+                           const T* __restrict__ g,          // [N, H*F]
+                           const float* __restrict__ attn,   // [H, R, F]
+                           const float* __restrict__ m,      // [N, H]
+                           const float* __restrict__ l,      // [N, H]
+                           const float* __restrict__ s_dot,  // [N, H]
+                           const float* __restrict__ gsum,   // [N]
+                           const int* __restrict__ src_ptr,  // [N + 1]
+                           const int* __restrict__ dst,      // [E]
+                           const int* __restrict__ etype,    // [E]
+                           const int* __restrict__ eid,      // [E]
+                           float* __restrict__ dh,           // [N, H*F]
+                           float* __restrict__ w_out,        // [N, H, R]
+                           float* __restrict__ b_out,        // [N, R]
+                           int head_groups, int group_heads, int heads,
+                           int feat, int num_rel, int stages, int stage_elems,
+                           float slope, float eps, int use_dropout,
+                           uint32_t seed, uint32_t thr, float keep_prob) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  T* ring = reinterpret_cast<T*>(ring_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_elems);
+  uint64_t* empty = full + stages;
+  // a table of 32 out-edges a consumer warp, then one slab of R floats a
+  // head of the group and the B slab
+  RingEntry* tables = reinterpret_cast<RingEntry*>(empty + stages);
+  float* slabs = reinterpret_cast<float*>(tables + group_heads * 32);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int s = blockIdx.x / head_groups;
+  const int h0 = (blockIdx.x % head_groups) * group_heads;
+  const int gh = min(group_heads, heads - h0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], gh);
+    }
+    mbar_fence_init();
+  }
+  for (int i = threadIdx.x; i < (group_heads + 1) * num_rel; i += blockDim.x)
+    slabs[i] = 0.f;
+  __syncthreads();
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  const T* g_group = g + static_cast<int64_t>(h0) * feat;
+  const int p_begin = src_ptr[s];
+  const int p_end = src_ptr[s + 1];
+
+  if (warp == group_heads) {  // the producer
+    int st = 0;
+    uint32_t ph = 0;
+    for (int p0 = p_begin; p0 < p_end; p0 += 32) {
+      const int cnt = min(32, p_end - p0);
+      const int my_dst = lane < cnt ? dst[p0 + lane] : 0;
+      for (int j = 0; j < cnt; ++j) {
+        const int d = __shfl_sync(kFullMask, my_dst, j);
+        mbar_wait(&empty[st], ph ^ 1);  // the first round passes at once
+        ring_load(ring + st * stage_elems, &full[st], g_group + d * hf,
+                  gh * feat, lane);
+        if (++st == stages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  if (warp >= gh) return;
+
+  const int head = h0 + warp;
+  float* slab = slabs + warp * num_rel;
+  float* bslab = head == 0 ? slabs + group_heads * num_rel : nullptr;
+  const int64_t row = s * hf + static_cast<int64_t>(head) * feat;
+  const float* attn_head = attn + static_cast<int64_t>(head) * num_rel * feat;
+  float hv[NK];
+  float acc[NK];
+  lane_row<NK, VW>(h + row, feat, lane, hv);
+#pragma unroll
+  for (int k = 0; k < NK; ++k) acc[k] = 0.f;
+  RingEntry* table = tables + warp * 32;
+  int st = 0;
+  uint32_t ph = 0;
+  for (int p0 = p_begin; p0 < p_end; p0 += 32) {
+    const int cnt = min(32, p_end - p0);
+    __syncwarp();  // the last batch's table reads are done
+    if (lane < cnt) {  // lane j: out-edge p0 + j
+      const int p = p0 + lane;
+      RingEntry e;
+      e.dst = dst[p];
+      e.rel = etype[p];
+      const int64_t di = static_cast<int64_t>(e.dst) * heads + head;
+      const float mv = m[di];
+      e.m_safe = mv == -INFINITY ? 0.f : mv;  // m_safe of fused.py
+      e.inv_denom = 1.f / fmaxf(l[di], eps);
+      e.s = s_dot[di];
+      e.keep = use_dropout
+                   ? dropout_keep(eid[p], head, seed, thr) / keep_prob
+                   : 1.f;
+      e.gsum = bslab != nullptr ? gsum[e.dst] : 0.f;
+      e.pad = 0.f;
+      table[lane] = e;
+    }
+    __syncwarp();
+    for (int j = 0; j < cnt; ++j) {
+      const RingEntry e = table[j];
+      const int d = e.dst;
+      const int rel = e.rel;
+      float av[NK];
+      lane_row<NK, VW>(attn_head + static_cast<int64_t>(rel) * feat, feat,
+                       lane, av);
+      const T* grow = ring + st * stage_elems +
+                      ring_shift(g_group + d * hf) + warp * feat;
+      mbar_wait(&full[st], ph);
+      float gv[NK];
+      lane_row<NK, VW>(grow, feat, lane, gv);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+      if (++st == stages) {
+        st = 0;
+        ph ^= 1;
+      }
+      float eraw = 0.f;
+      float dalpha = 0.f;
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
+        eraw += hv[k] * av[k];
+        dalpha += hv[k] * gv[k];
+      }
+      warp_sum2(eraw, dalpha, lane);
+      const float alpha = expf(leaky_relu(eraw, slope) - e.m_safe) * e.inv_denom;
+      const float de =
+          alpha * (dalpha * e.keep - e.s) * (eraw >= 0.f ? 1.f : slope);
+      const float aw = alpha * e.keep;
+#pragma unroll
+      for (int k = 0; k < NK; ++k) acc[k] += aw * gv[k] + de * av[k];
+      if (lane == 0) {
+        slab[rel] += de;
+        if (bslab != nullptr) bslab[rel] += e.gsum;
+      }
+    }
+  }
+
+  lane_store<NK, VW>(dh + row, feat, lane, acc);
+  __syncwarp();
+  float* wrow = w_out + (static_cast<int64_t>(s) * heads + head) * num_rel;
+  for (int r = lane; r < num_rel; r += 32) {
+    wrow[r] = slab[r];
+    if (bslab != nullptr) b_out[static_cast<int64_t>(s) * num_rel + r] = bslab[r];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dattn = W^T h per head and dbias = sum_s B[s], over node rows.
 
@@ -593,6 +786,44 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The ring kernel, NK features a lane in the VW layout, in blocks of up to
+// kRingBwdGroupHeads heads (the groups balanced, as in the forward).
+template <int NK, int VW, typename T>
+cudaError_t launch_bwd_ring(const T* h, const T* g, const float* attn,
+                            const float* m, const float* l,
+                            const float* s_dot, const float* gsum,
+                            const int* src_ptr, const int* dst,
+                            const int* etype, const int* eid, float* dh,
+                            float* w_out, float* b_out, int num_nodes,
+                            int heads, int feat, int num_rel, float slope,
+                            float eps, int use_dropout, int seed,
+                            unsigned int thr, float keep_prob,
+                            cudaStream_t st) {
+  using namespace relgat;
+  constexpr int kG = kRingBwdGroupHeads;
+  const int groups = (heads + kG - 1) / kG;
+  const int gh = (heads + groups - 1) / groups;
+  const int elems = ring_stage_elems(gh * feat, sizeof(T));
+  const int stage_bytes = elems * static_cast<int>(sizeof(T));
+  const int fit = kRingBytes / stage_bytes;
+  const int stages = fit < 2 ? 2 : (fit > kRingMaxStages ? kRingMaxStages : fit);
+  const size_t smem =
+      static_cast<size_t>(stages) * (stage_bytes + 2 * sizeof(uint64_t)) +
+      static_cast<size_t>(gh) * 32 * sizeof(RingEntry) +
+      static_cast<size_t>(gh + 1) * num_rel * sizeof(float);
+  auto kernel = relgat_bwd_src_ring_kernel<NK, VW, T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<num_nodes * groups, 32 * (gh + 1), smem, st>>>(
+      h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype, eid, dh, w_out,
+      b_out, groups, gh, heads, feat, num_rel, stages, elems, slope, eps,
+      use_dropout, static_cast<uint32_t>(seed), thr, keep_prob);
+  return cudaGetLastError();
+}
+
+// design: kDesignLanes or kDesignRing (relgat_common.cuh), at F > 128.
 template <typename T>
 int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
                    const float* l, const float* s_dot, const float* gsum,
@@ -600,7 +831,8 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
                    const int* eid, float* dh, float* w_out, float* b_out,
                    int num_nodes, int heads, int feat, int num_rel,
                    float slope, float eps, int use_dropout, int seed,
-                   unsigned int thr, float keep_prob, void* stream) {
+                   unsigned int thr, float keep_prob, int design,
+                   void* stream) {
   using namespace relgat;
   const int wpb = heads < kMaxWarpsPerBlock ? heads : kMaxWarpsPerBlock;
   const size_t smem = static_cast<size_t>(wpb) * 32 * sizeof(EdgeEntry) +
@@ -619,6 +851,11 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
       h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype, eid, dh, w_out,    \
       b_out, heads, feat, num_rel, slope, eps, use_dropout,                  \
       static_cast<uint32_t>(seed), thr, keep_prob)
+#define RELGAT_BWD_RING(NK, VW)                                              \
+  static_cast<int>(launch_bwd_ring<NK, VW>(                                  \
+      h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype, eid, dh, w_out,    \
+      b_out, num_nodes, heads, feat, num_rel, slope, eps, use_dropout, seed, \
+      thr, keep_prob, st))
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   // The pair kernel: two heads a warp, up to 16 heads a block; a table of
   // 2 x 16 edges a warp, one slab a head and one more.
@@ -636,13 +873,30 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
         src_ptr, dst, etype, eid, dh, w_out, b_out, heads, feat, num_rel,
         slope, eps, use_dropout, static_cast<uint32_t>(seed), thr,
         keep_prob);
+  } else if (feat > 32 * kMaxFeatPerLane) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (feat > 128 && design == kDesignRing) {
+    // two values a read where every head's piece of a row is 2-value aligned
+    const bool pairs = feat % 2 == 0 && aligned(h, 2 * sizeof(T)) &&
+                       aligned(g, 2 * sizeof(T)) && aligned(attn, 8) &&
+                       aligned(dh, 8);
+    if (pairs) {
+      return feat <= 256   ? RELGAT_BWD_RING(8, 2)
+             : feat <= 320 ? RELGAT_BWD_RING(10, 2)
+             : feat <= 512 ? RELGAT_BWD_RING(16, 2)
+                           : RELGAT_BWD_RING(32, 2);
+    }
+    return feat <= 256   ? RELGAT_BWD_RING(8, 1)
+           : feat <= 320 ? RELGAT_BWD_RING(10, 1)
+           : feat <= 512 ? RELGAT_BWD_RING(16, 1)
+                         : RELGAT_BWD_RING(32, 1);
   } else if (vec4 && feat <= 128) {
     RELGAT_BWD_LAUNCH(4, 1);
   } else if (vec4 && feat <= 256) {
     RELGAT_BWD_LAUNCH(4, 2);
   } else if (vec4 && feat <= 512) {
     RELGAT_BWD_LAUNCH(4, 4);
-  } else if (vec4 && feat <= 1024) {
+  } else if (vec4) {
     RELGAT_BWD_LAUNCH(4, 8);
   } else if (feat <= 32) {
     RELGAT_BWD_LAUNCH(1, 1);
@@ -654,11 +908,10 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
     RELGAT_BWD_LAUNCH(1, 8);
   } else if (feat <= 512) {
     RELGAT_BWD_LAUNCH(1, 16);
-  } else if (feat <= 32 * kMaxFeatPerLane) {
-    RELGAT_BWD_LAUNCH(1, 32);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    RELGAT_BWD_LAUNCH(1, 32);
   }
+#undef RELGAT_BWD_RING
 #undef RELGAT_BWD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
@@ -773,11 +1026,11 @@ extern "C" int relgat_bwd_src(const float* h, const float* g,
                               int num_nodes, int heads, int feat, int num_rel,
                               float slope, float eps, int use_dropout,
                               int seed, unsigned int thr, float keep_prob,
-                              void* stream) {
+                              int design, void* stream) {
   return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype,
                         eid, dh, w_out, b_out, num_nodes, heads, feat,
                         num_rel, slope, eps, use_dropout, seed, thr,
-                        keep_prob, stream);
+                        keep_prob, design, stream);
 }
 
 // The same with h and g in bf16 (kernel_precision="default").
@@ -787,11 +1040,11 @@ extern "C" int relgat_bwd_src_bf16(
     const int* src_ptr, const int* dst, const int* etype, const int* eid,
     float* dh, float* w_out, float* b_out, int num_nodes, int heads,
     int feat, int num_rel, float slope, float eps, int use_dropout, int seed,
-    unsigned int thr, float keep_prob, void* stream) {
+    unsigned int thr, float keep_prob, int design, void* stream) {
   return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype,
                         eid, dh, w_out, b_out, num_nodes, heads, feat,
                         num_rel, slope, eps, use_dropout, seed, thr,
-                        keep_prob, stream);
+                        keep_prob, design, stream);
 }
 
 extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,

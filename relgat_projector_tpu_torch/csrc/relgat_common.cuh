@@ -14,14 +14,11 @@ namespace relgat {
 
 // Features per lane are a template parameter so the per-warp row (F values,
 // lane-strided) lives in registers. 32 covers F <= 1024 (ops/cuda/fused.py
-// MAX_FEAT); the wrappers reject wider heads. Above 4 a lane (F > 128, or
-// F > 512 with 16-byte loads) the kernels drop their occupancy targets and
-// take the registers they need: at 32 a lane the backward holds 4 x 32
-// floats of rows and sums, 159-173 registers without spills (ptxas), one
-// block of 8 warps an SM. Shared memory would hold the sums at a higher
-// occupancy, but every
-// edge reads and writes all of them, so it would trade a register file
-// read for a shared-memory round trip per feature and edge.
+// MAX_FEAT); the wrappers reject wider heads. Past F = 128 the ring kernels
+// below take the forward and src pass at the widths where the card
+// measured them faster than the one-warp-a-head template (ops/cuda/fused.py
+// design_of). In both designs the sums stay in registers, since every edge
+// reads and writes all of them.
 constexpr int kMaxFeatPerLane = 32;
 constexpr int kMaxWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -113,6 +110,201 @@ __device__ __forceinline__ void widen8(uint4 x, float (&v)[8]) {
 
 __device__ __forceinline__ float leaky_relu(float x, float slope) {
   return x >= 0.f ? x : slope * x;
+}
+
+// ---------------------------------------------------------------------------
+// The wide-head ring (relgat_fwd_ring_kernel, relgat_bwd_src_ring_kernel):
+// one producer warp streams each edge's row slice into a ring of
+// shared-memory stages with 1-D bulk copies (the TMA's cp.async.bulk), each
+// stage with a "full" mbarrier (the copy's bytes arrive on it) and an
+// "empty" one (each consumer warp arrives when it has read the stage).
+
+// Features a lane holds at F > 128 are NK = 8, 10, 16 or 32 (F <= 256,
+// 320, 512, 1024): with VW = 1, feature lane + 32 k; with VW = 2 (F even,
+// rows 2-value aligned), features 2 (lane + 32 k) and the next, one 8-byte
+// (fp32) or 4-byte (bf16) read, k < NK / 2. A ring block takes a group of up
+// to kRingFwdGroupHeads (kRingBwdGroupHeads) heads, one consumer warp each
+// (an item's or a source row's groups adjacent in the grid, so a row's
+// slices are requested together): small blocks keep several rows in flight
+// on an SM, each block's latency (its edge indices, its first bulk copy)
+// overlapping the others'. On the card four heads a block were faster
+// than two or eight; a block of all 12 heads, the first design, was slower
+// than the template in the bf16 src pass at 12 x 300 (7.50 against 6.79 ms).
+constexpr int kRingFwdGroupHeads = 4;
+constexpr int kRingBwdGroupHeads = 4;
+// Warps an SM each kernel's launch bounds ask for, by NK: they cap the
+// registers at 65,536 / (32 x warps), at what each needs without spills.
+template <int NK>
+constexpr int ring_fwd_warps() {
+  return NK <= 10 ? 35 : (NK <= 16 ? 25 : 10);
+}
+template <int NK>
+constexpr int ring_bwd_warps() {
+  return NK <= 10 ? 25 : (NK <= 16 ? 20 : 10);
+}
+
+// Which design a launch takes at F > 128, the `design` argument of the C
+// entry points: the one-warp-a-head template or the ring kernel. The rule
+// that picks one by width is ops/cuda/fused.py design_of; measurement code
+// forces either (with_design) to time each beside the other.
+constexpr int kDesignLanes = 1;
+constexpr int kDesignRing = 2;
+// The ring's bytes a block aims at: 2 to kRingMaxStages stages of this.
+constexpr int kRingBytes = 48 * 1024;
+constexpr int kRingMaxStages = 8;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the bulk copies.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spins until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// Where value 0 of a row slice starting at `row` sits in its stage: the
+// slice keeps its offset within a 16-byte block, so that its aligned middle
+// lands 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ int ring_shift(const T* row) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(row) & 15) / sizeof(T));
+}
+
+// Values of T a stage holds for a slice of `len`: the slice, its shift and
+// a whole number of 16-byte blocks.
+__host__ __device__ constexpr int ring_stage_elems(int len, int size) {
+  return (len * size + 16 + 15) / 16 * (16 / size);
+}
+
+// Called by all 32 lanes of the producer warp: the slice of `len` values at
+// `row` into `stage` (16-byte aligned), value i at stage[ring_shift(row) +
+// i]. Its 16-byte-aligned middle goes as one bulk copy that completes on
+// `full`; the < 16 bytes before and after it (rows of F = 301, or a bf16
+// slice not starting on 16 bytes) are copied by lanes 1-30 with plain loads
+// and stores, which the __syncwarp orders before lane 0's arrival (a
+// release) on `full`, the stage's one expected arrival.
+template <typename T>
+__device__ __forceinline__ void ring_load(T* stage, uint64_t* full,
+                                          const T* __restrict__ row, int len,
+                                          int lane) {
+  constexpr uintptr_t kSz = sizeof(T);
+  const uintptr_t b0 = reinterpret_cast<uintptr_t>(row);
+  const uintptr_t b1 = b0 + static_cast<uintptr_t>(len) * kSz;
+  uintptr_t a0 = (b0 + 15) & ~static_cast<uintptr_t>(15);
+  uintptr_t a1 = b1 & ~static_cast<uintptr_t>(15);
+  if (a1 < a0) a0 = a1 = b1;  // inside one 16-byte block: no middle
+  T* dst = stage + ring_shift(row);
+  const int nh = static_cast<int>((a0 - b0) / kSz);
+  const int nt = static_cast<int>((b1 - a1) / kSz);
+  const int i = lane - 1;
+  if (i >= 0 && i < nh) {
+    dst[i] = row[i];
+  } else if (i >= nh && i < nh + nt) {
+    const int k = static_cast<int>((a1 - b0) / kSz) + i - nh;
+    dst[k] = row[k];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    if (a1 > a0) {
+      const uint32_t bytes = static_cast<uint32_t>(a1 - a0);
+      mbar_arrive_tx(full, bytes);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst + nh)),
+          "l"(reinterpret_cast<const void*>(a0)), "r"(bytes),
+          "r"(smem_u32(full))
+          : "memory");
+    } else {
+      mbar_arrive(full);
+    }
+  }
+}
+
+// A lane's NK values of an F-wide piece of a row of T (fp32, or bf16
+// widened) in shared memory or device memory, in the VW layout above (zeros
+// past F).
+template <int NK, int VW, typename T>
+__device__ __forceinline__ void lane_row(const T* p, int feat, int lane,
+                                         float (&v)[NK]) {
+  static_assert(VW == 1 || (VW == 2 && NK % 2 == 0), "1 or 2 values a read");
+  if constexpr (VW == 1) {
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const int f = lane + 32 * k;
+      v[k] = f < feat ? to_float(p[f]) : 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NK / 2; ++k) {
+      const int f = 2 * (lane + 32 * k);
+      if constexpr (std::is_same_v<T, float>) {
+        const float2 x = f < feat ? *reinterpret_cast<const float2*>(p + f)
+                                  : make_float2(0.f, 0.f);
+        v[2 * k] = x.x;
+        v[2 * k + 1] = x.y;
+      } else {
+        const uint32_t x =
+            f < feat ? *reinterpret_cast<const uint32_t*>(p + f) : 0u;
+        v[2 * k] = bf16_lo(x);
+        v[2 * k + 1] = bf16_hi(x);
+      }
+    }
+  }
+}
+
+template <int NK, int VW>
+__device__ __forceinline__ void lane_store(float* p, int feat, int lane,
+                                           const float (&v)[NK]) {
+  if constexpr (VW == 1) {
+#pragma unroll
+    for (int k = 0; k < NK; ++k) {
+      const int f = lane + 32 * k;
+      if (f < feat) p[f] = v[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < NK / 2; ++k) {
+      const int f = 2 * (lane + 32 * k);
+      if (f < feat)
+        *reinterpret_cast<float2*>(p + f) = make_float2(v[2 * k], v[2 * k + 1]);
+    }
+  }
 }
 
 // fmix32 of (seed, canonical edge id, head), bit for bit the hash of

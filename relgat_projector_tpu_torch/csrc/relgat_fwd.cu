@@ -56,9 +56,31 @@
 // an edge's row is one contiguous 512-byte piece and a block of 8 warps
 // reads the whole 4 KB row: on this card the size of each warp's contiguous
 // piece, not the bytes in flight (48 warps x 512 bytes = 24 KB an SM), set
-// the rate. Other widths run relgat_fwd_kernel on bf16 rows. Wider heads
-// (F > 128, up to 1024) take F / 32 features a lane in registers. PERF.md
-// section 6 records the designs measured against this one.
+// the rate. Other widths run relgat_fwd_kernel on bf16 rows.
+//
+// Wider heads (F > 128, up to 1024; the library's default 12 x 300, the
+// reference's doc-scale 16 x 200), fp32 or bf16 rows: relgat_fwd_kernel
+// holds a head in a bucket of 8, 16 or 32 features a lane (F <= 256, 512,
+// 1024), so at F = 300 a warp's load of a head's row keeps 19 of 32 lanes
+// busy and its accumulators cap the warps in flight. relgat_fwd_ring_kernel
+// gives a block an item and a group of up to kRingFwdGroupHeads heads: a
+// producer warp copies each edge's slice of h[src] (the group's heads,
+// contiguous in the row, 4.8 KB fp32 / 2.4 KB bf16 at four heads of 300)
+// into a ring of shared-memory stages with one bulk copy (cp.async.bulk,
+// the TMA's 1-D copy) that completes on the stage's mbarrier, the < 16
+// bytes a misaligned slice starts or ends with copied by the producer's
+// lanes; one consumer warp a head reads its F features from the stage with
+// every lane busy (two values a read where F is even) and releases the
+// stage on a second mbarrier. Its attn row for the next edge is loaded
+// while it finishes this one, and its sums are rescaled only where the
+// running max grows. The split rows, the merge, the dropout hash, the fp32
+// statistics and the absence of atomics are relgat_fwd_kernel's. On the
+// card the ring is faster where F fills little of the template's bucket
+// (5.78 against 6.97 ms fp32, 3.61 against 5.12 bf16 at 12 x 300, TRAIN's
+// graph) and slower where it fills most of it (200, 256, 512) or past 512
+// features, so the dispatch takes it at the widths where it measured
+// faster (ops/cuda/fused.py RING_RANGES: fp32 257-448, bf16 257-368).
+// PERF.md section 6 records the designs measured against this one.
 #include "relgat_common.cuh"
 
 namespace relgat {
@@ -302,6 +324,157 @@ relgat_fwd_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   }
 }
 
+// Heads wider than 128 features, fp32 or bf16 rows. Block (item, group of
+// up to kRingFwdGroupHeads heads): warps 0 .. G-1 are the group's heads, one
+// each, and warp G the producer. The producer streams each edge's slice of
+// h[src] (the group's heads, contiguous in the row) through `stages` ring
+// stages of `stage_elems` values with one bulk copy an edge; each head's
+// warp reads its F features from the stage, all lanes busy (the VW layout
+// of relgat_common.cuh), and runs relgat_fwd_kernel's online softmax over
+// the item's edges in order, rescaling its sums only where the running max
+// grows (elsewhere the scale is exactly 1). Outputs as relgat_fwd_kernel's.
+template <int NK, int VW, typename T>
+__global__ void __launch_bounds__(32 * (kRingFwdGroupHeads + 1),
+                                  ring_fwd_warps<NK>() / (kRingFwdGroupHeads + 1))
+relgat_fwd_ring_kernel(const T* __restrict__ h,             // [N, H*F]
+                       const float* __restrict__ attn,      // [H, R, F]
+                       const float* __restrict__ rel_bias,  // [R]
+                       const int4* __restrict__ items,
+                       const int* __restrict__ src,
+                       const int* __restrict__ etype,
+                       const int* __restrict__ eid,
+                       float* __restrict__ out, float* __restrict__ m_out,
+                       float* __restrict__ l_out,
+                       float* __restrict__ bias_out,
+                       float* __restrict__ part_acc,
+                       float2* __restrict__ part_ml,
+                       double* __restrict__ part_bias, int head_groups,
+                       int group_heads, int heads, int feat, int num_rel,
+                       int stages, int stage_elems, float slope, float eps,
+                       int use_dropout, uint32_t seed, uint32_t thr,
+                       float keep_prob) {
+  extern __shared__ __align__(128) unsigned char ring_smem[];
+  __shared__ __align__(16) int2 table[kItemEdges];  // (src, etype)
+  __shared__ int ids[kItemEdges];                   // canonical edge ids
+  T* ring = reinterpret_cast<T*>(ring_smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_elems);
+  uint64_t* empty = full + stages;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int4 item = items[blockIdx.x / head_groups];
+  const int d = item.x;
+  const int e0 = item.y;
+  const int cnt = item.z - item.y;
+  const int slot = item.w;
+  const int h0 = (blockIdx.x % head_groups) * group_heads;
+  const int gh = min(group_heads, heads - h0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], gh);
+    }
+    mbar_fence_init();
+  }
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    table[i] = make_int2(src[e0 + i], etype[e0 + i]);
+    if (use_dropout) ids[i] = eid[e0 + i];
+  }
+  __syncthreads();
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  const T* h_group = h + static_cast<int64_t>(h0) * feat;
+
+  if (warp == group_heads) {  // the producer
+    int st = 0;
+    uint32_t ph = 0;
+    for (int j = 0; j < cnt; ++j) {
+      mbar_wait(&empty[st], ph ^ 1);  // the first round passes at once
+      ring_load(ring + st * stage_elems, &full[st], h_group + table[j].x * hf,
+                gh * feat, lane);
+      if (++st == stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    return;
+  }
+  if (warp >= gh) return;
+
+  const int head = h0 + warp;
+  const float* a_head = attn + static_cast<int64_t>(head) * num_rel * feat;
+  float acc[NK];
+#pragma unroll
+  for (int k = 0; k < NK; ++k) acc[k] = 0.f;
+  float m = -INFINITY;
+  float l = 0.f;
+  double bsum = 0.0;  // fp64, off the chain: see relgat_fwd_kernel
+  int st = 0;
+  uint32_t ph = 0;
+  // av holds the attn row of the edge at hand; once its dot product is
+  // taken it is loaded with the next edge's, whose L2 latency then passes
+  // during the rest of this edge's work
+  float av[NK];
+  if (cnt > 0)
+    lane_row<NK, VW>(a_head + static_cast<int64_t>(table[0].y) * feat, feat,
+                     lane, av);
+  for (int j = 0; j < cnt; ++j) {
+    const int2 t = table[j];
+    bsum += rel_bias[t.y];
+    const T* row = ring + st * stage_elems +
+                   ring_shift(h_group + t.x * hf) + warp * feat;
+    mbar_wait(&full[st], ph);
+    float hv[NK];
+    lane_row<NK, VW>(row, feat, lane, hv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (++st == stages) {
+      st = 0;
+      ph ^= 1;
+    }
+    float dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < NK; ++k) dot += hv[k] * av[k];
+    if (j + 1 < cnt)
+      lane_row<NK, VW>(a_head + static_cast<int64_t>(table[j + 1].y) * feat,
+                       feat, lane, av);
+    const float ev = leaky_relu(warp_sum(dot), slope);
+    if (ev > m) {  // the same on every lane
+      const float scale = expf(m - ev);  // 0 on the first edge (m = -inf)
+      l *= scale;
+#pragma unroll
+      for (int k = 0; k < NK; ++k) acc[k] *= scale;
+      m = ev;
+    }
+    const float p = expf(ev - m);
+    l += p;
+    const float pk =
+        use_dropout ? p * dropout_keep(ids[j], head, seed, thr) / keep_prob : p;
+#pragma unroll
+    for (int k = 0; k < NK; ++k) acc[k] += pk * hv[k];
+  }
+
+  float* dst_row;
+  if (slot < 0) {
+    const float denom = fmaxf(l, eps);
+    const float bias = static_cast<float>(bsum);
+#pragma unroll
+    for (int k = 0; k < NK; ++k) acc[k] = acc[k] / denom + bias;
+    dst_row = out + d * hf + static_cast<int64_t>(head) * feat;
+    if (lane == 0) {
+      m_out[static_cast<int64_t>(d) * heads + head] = m;
+      l_out[static_cast<int64_t>(d) * heads + head] = l;
+      if (head == 0) bias_out[d] = bias;
+    }
+  } else {
+    const int64_t ps = static_cast<int64_t>(slot) * heads + head;
+    dst_row = part_acc + ps * feat;
+    if (lane == 0) {
+      part_ml[ps] = make_float2(m, l);
+      if (head == 0) part_bias[slot] = bsum;
+    }
+  }
+  lane_store<NK, VW>(dst_row, feat, lane, acc);
+}
+
 // Block (split row, head): the row's slots [c0, c1) hold its chunks in
 // order. Warp w sums the w-th contiguous run of them in order, and warp 0
 // adds the warps' sums in warp order, so the result has one fixed order.
@@ -398,94 +571,180 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The arguments every forward kernel takes after its rows.
+struct FwdArgs {
+  const float* attn;
+  const float* rel_bias;
+  const int4* items;
+  const int* src;
+  const int* etype;
+  const int* eid;
+  const int* merge;
+  float* out;
+  float* m_out;
+  float* l_out;
+  float* bias_out;
+  float* part_acc;
+  float2* part_ml;
+  double* part_bias;
+  int num_items;
+  int num_split;
+  int heads;
+  int feat;
+  int num_rel;
+  float slope;
+  float eps;
+  int use_dropout;
+  uint32_t seed;
+  uint32_t thr;
+  float keep_prob;
+  cudaStream_t st;
+};
+
+template <int VEC, int NV>
+cudaError_t launch_merge(const FwdArgs& a) {
+  if (a.num_split > 0) {
+    relgat::relgat_fwd_merge_kernel<VEC, NV>
+        <<<a.num_split * a.heads, 32 * relgat::kMergeWarps, 0, a.st>>>(
+            a.merge, a.part_acc, a.part_ml, a.part_bias, a.out, a.m_out,
+            a.l_out, a.bias_out, a.heads, a.feat, a.eps);
+  }
+  return cudaGetLastError();
+}
+
+// The one-warp-a-head template, VEC * NV features a lane, and the merge.
+template <int VEC, int NV, typename T>
+cudaError_t launch_lanes(const T* h, const FwdArgs& a) {
+  using namespace relgat;
+  const int wpb = a.heads < kFwdWarps ? a.heads : kFwdWarps;
+  const int groups = (a.heads + wpb - 1) / wpb;
+  if (a.num_items > 0) {
+    relgat_fwd_kernel<VEC, NV, T><<<a.num_items * groups, 32 * wpb, 0, a.st>>>(
+        h, a.attn, a.rel_bias, a.items, a.src, a.etype, a.eid, a.out, a.m_out,
+        a.l_out, a.bias_out, a.part_acc, a.part_ml, a.part_bias, groups,
+        a.heads, a.feat, a.num_rel, a.slope, a.eps, a.use_dropout, a.seed,
+        a.thr, a.keep_prob);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_merge<VEC, NV>(a);
+}
+
+// The ring kernel, NK features a lane in the VW layout, in blocks of up to
+// kRingFwdGroupHeads heads (the groups balanced: 12 heads are three groups of
+// 4, 5 heads two of 3 and 2), then the merge (VEC * NV features a lane).
+template <int NK, int VW, int VEC, int NV, typename T>
+cudaError_t launch_ring(const T* h, const FwdArgs& a) {
+  using namespace relgat;
+  constexpr int kG = kRingFwdGroupHeads;
+  const int groups = (a.heads + kG - 1) / kG;
+  const int gh = (a.heads + groups - 1) / groups;
+  const int elems = ring_stage_elems(gh * a.feat, sizeof(T));
+  const int stage_bytes = elems * static_cast<int>(sizeof(T));
+  const int fit = kRingBytes / stage_bytes;
+  const int stages = fit < 2 ? 2 : (fit > kRingMaxStages ? kRingMaxStages : fit);
+  const size_t smem = static_cast<size_t>(stages) *
+                      (stage_bytes + 2 * sizeof(uint64_t));
+  if (a.num_items > 0) {
+    auto kernel = relgat_fwd_ring_kernel<NK, VW, T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<a.num_items * groups, 32 * (gh + 1), smem, a.st>>>(
+        h, a.attn, a.rel_bias, a.items, a.src, a.etype, a.eid, a.out, a.m_out,
+        a.l_out, a.bias_out, a.part_acc, a.part_ml, a.part_bias, groups, gh,
+        a.heads, a.feat, a.num_rel, stages, elems, a.slope, a.eps,
+        a.use_dropout, a.seed, a.thr, a.keep_prob);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return launch_merge<VEC, NV>(a);
+}
+
 // items [I, 4] and merge [S, 3] are data/csr.py's work plan; part_acc,
 // part_ml and part_bias have a slot for each chunk of a split row.
+// design: kDesignLanes or kDesignRing (relgat_common.cuh), at F > 128.
 template <typename T>
 int launch_fwd(const T* h, const float* attn, const float* rel_bias,
                const int* items, const int* src, const int* etype,
-               const int* eid, const int* merge, float* out, float* m_out, float* l_out,
-               float* bias_out, float* part_acc, float* part_ml,
+               const int* eid, const int* merge, float* out, float* m_out,
+               float* l_out, float* bias_out, float* part_acc, float* part_ml,
                double* part_bias, int num_items, int num_split,
                int item_edges, int heads, int feat, int num_rel, float slope,
                float eps, int use_dropout, int seed, unsigned int thr,
-               float keep_prob, void* stream) {
+               float keep_prob, int design, void* stream) {
   using namespace relgat;
   if (item_edges > kItemEdges || !aligned(items, 16) || heads < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int wpb = heads < kFwdWarps ? heads : kFwdWarps;
-  const int groups = (heads + wpb - 1) / wpb;
-  const dim3 block(32 * wpb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FwdArgs a{attn, rel_bias, reinterpret_cast<const int4*>(items), src,
+                  etype, eid, merge, out, m_out, l_out, bias_out, part_acc,
+                  reinterpret_cast<float2*>(part_ml), part_bias, num_items,
+                  num_split, heads, feat, num_rel, slope, eps, use_dropout,
+                  static_cast<uint32_t>(seed), thr, keep_prob,
+                  static_cast<cudaStream_t>(stream)};
   // 4 values a vector: 16 bytes of an fp32 row, 8 of a bf16 one
   const bool vec4 = feat % 4 == 0 && aligned(h, 4 * sizeof(T)) &&
                     aligned(attn, 16) && aligned(out, 16) &&
                     aligned(part_acc, 16);
-  const int4* it = reinterpret_cast<const int4*>(items);
-  float2* ml = reinterpret_cast<float2*>(part_ml);
-#define RELGAT_FWD_LAUNCH(VEC, NV)                                            \
-  do {                                                                        \
-    if (num_items > 0) {                                                      \
-      relgat_fwd_kernel<VEC, NV, T><<<num_items * groups, block, 0, st>>>(    \
-          h, attn, rel_bias, it, src, etype, eid, out, m_out, l_out,          \
-          bias_out, part_acc, ml, part_bias, groups, heads, feat, num_rel,    \
-          slope, eps, use_dropout, static_cast<uint32_t>(seed), thr,          \
-          keep_prob);                                                         \
-      const cudaError_t err = cudaGetLastError();                             \
-      if (err != cudaSuccess) return static_cast<int>(err);                   \
-    }                                                                         \
-    if (num_split > 0) {                                                      \
-      relgat_fwd_merge_kernel<VEC, NV>                                        \
-          <<<num_split * heads, 32 * kMergeWarps, 0, st>>>(                   \
-              merge, part_acc, ml, part_bias, out, m_out, l_out, bias_out,    \
-              heads, feat, eps);                                              \
-    }                                                                         \
-  } while (0)
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
+  cudaError_t err;
   if (kBf16 && vec4 && feat % 8 == 0 && feat <= 128 && aligned(h, 16)) {
     if (num_items > 0) {
       // two heads a warp: up to 16 heads a block
       const int pairs = (heads + 1) / 2;
       const int wpb2 = pairs < kFwdWarps ? pairs : kFwdWarps;
       const int groups2 = (pairs + wpb2 - 1) / wpb2;
-      relgat_fwd_pair_kernel<<<num_items * groups2, 32 * wpb2, 0, st>>>(
-          reinterpret_cast<const __nv_bfloat16*>(h), attn, rel_bias, it, src,
-          etype, eid, out, m_out, l_out, bias_out, part_acc, ml, part_bias,
-          groups2, heads, feat, num_rel, slope, eps, use_dropout,
-          static_cast<uint32_t>(seed), thr, keep_prob);
-      const cudaError_t err = cudaGetLastError();
+      relgat_fwd_pair_kernel<<<num_items * groups2, 32 * wpb2, 0, a.st>>>(
+          reinterpret_cast<const __nv_bfloat16*>(h), attn, rel_bias, a.items,
+          src, etype, eid, out, m_out, l_out, bias_out, part_acc, a.part_ml,
+          part_bias, groups2, heads, feat, num_rel, slope, eps, use_dropout,
+          a.seed, thr, keep_prob);
+      err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    if (num_split > 0) {
-      relgat_fwd_merge_kernel<4, 1>
-          <<<num_split * heads, 32 * kMergeWarps, 0, st>>>(
-              merge, part_acc, ml, part_bias, out, m_out, l_out, bias_out,
-              heads, feat, eps);
-    }
+    err = launch_merge<4, 1>(a);
+  } else if (feat > 32 * kMaxFeatPerLane) {
+    err = cudaErrorInvalidValue;
+  } else if (feat > 128 && design == kDesignRing) {
+    // two values a read where every head's piece of a row is 2-value aligned
+    const bool pairs = feat % 2 == 0 && aligned(h, 2 * sizeof(T)) &&
+                       aligned(attn, 8) && aligned(out, 8) &&
+                       aligned(part_acc, 8);
+    if (vec4 && feat <= 256) err = launch_ring<8, 2, 4, 2>(h, a);
+    else if (vec4 && feat <= 320) err = launch_ring<10, 2, 4, 4>(h, a);
+    else if (vec4 && feat <= 512) err = launch_ring<16, 2, 4, 4>(h, a);
+    else if (vec4) err = launch_ring<32, 2, 4, 8>(h, a);
+    else if (pairs && feat <= 256) err = launch_ring<8, 2, 1, 8>(h, a);
+    else if (pairs && feat <= 320) err = launch_ring<10, 2, 1, 16>(h, a);
+    else if (pairs && feat <= 512) err = launch_ring<16, 2, 1, 16>(h, a);
+    else if (pairs) err = launch_ring<32, 2, 1, 32>(h, a);
+    else if (feat <= 256) err = launch_ring<8, 1, 1, 8>(h, a);
+    else if (feat <= 320) err = launch_ring<10, 1, 1, 16>(h, a);
+    else if (feat <= 512) err = launch_ring<16, 1, 1, 16>(h, a);
+    else err = launch_ring<32, 1, 1, 32>(h, a);
   } else if (vec4 && feat <= 128) {
-    RELGAT_FWD_LAUNCH(4, 1);
+    err = launch_lanes<4, 1>(h, a);
   } else if (vec4 && feat <= 256) {
-    RELGAT_FWD_LAUNCH(4, 2);
+    err = launch_lanes<4, 2>(h, a);
   } else if (vec4 && feat <= 512) {
-    RELGAT_FWD_LAUNCH(4, 4);
-  } else if (vec4 && feat <= 1024) {
-    RELGAT_FWD_LAUNCH(4, 8);
+    err = launch_lanes<4, 4>(h, a);
+  } else if (vec4) {
+    err = launch_lanes<4, 8>(h, a);
   } else if (feat <= 32) {
-    RELGAT_FWD_LAUNCH(1, 1);
+    err = launch_lanes<1, 1>(h, a);
   } else if (feat <= 64) {
-    RELGAT_FWD_LAUNCH(1, 2);
+    err = launch_lanes<1, 2>(h, a);
   } else if (feat <= 128) {
-    RELGAT_FWD_LAUNCH(1, 4);
+    err = launch_lanes<1, 4>(h, a);
   } else if (feat <= 256) {
-    RELGAT_FWD_LAUNCH(1, 8);
+    err = launch_lanes<1, 8>(h, a);
   } else if (feat <= 512) {
-    RELGAT_FWD_LAUNCH(1, 16);
-  } else if (feat <= 32 * kMaxFeatPerLane) {
-    RELGAT_FWD_LAUNCH(1, 32);
+    err = launch_lanes<1, 16>(h, a);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_lanes<1, 32>(h, a);
   }
-#undef RELGAT_FWD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -499,11 +758,13 @@ extern "C" int relgat_fwd(const float* h, const float* attn,
                           int num_split,
                           int item_edges, int heads, int feat, int num_rel,
                           float slope, float eps, int use_dropout, int seed,
-                          unsigned int thr, float keep_prob, void* stream) {
+                          unsigned int thr, float keep_prob,
+                          int design, void* stream) {
   return launch_fwd(h, attn, rel_bias, items, src, etype, eid, merge, out,
                     m_out, l_out, bias_out, part_acc, part_ml, part_bias,
                     num_items, num_split, item_edges, heads, feat, num_rel,
-                    slope, eps, use_dropout, seed, thr, keep_prob, stream);
+                    slope, eps, use_dropout, seed, thr, keep_prob,
+                    design, stream);
 }
 
 // The same with h in bf16 (kernel_precision="default").
@@ -518,9 +779,10 @@ extern "C" int relgat_fwd_bf16(const __nv_bfloat16* h, const float* attn,
                                int heads, int feat, int num_rel, float slope,
                                float eps, int use_dropout, int seed,
                                unsigned int thr, float keep_prob,
-                               void* stream) {
+                               int design, void* stream) {
   return launch_fwd(h, attn, rel_bias, items, src, etype, eid, merge, out,
                     m_out, l_out, bias_out, part_acc, part_ml, part_bias,
                     num_items, num_split, item_edges, heads, feat, num_rel,
-                    slope, eps, use_dropout, seed, thr, keep_prob, stream);
+                    slope, eps, use_dropout, seed, thr, keep_prob,
+                    design, stream);
 }

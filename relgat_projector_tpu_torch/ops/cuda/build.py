@@ -35,8 +35,8 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); each returns cudaGetLastError.
 # A bf16 variant takes the same arguments, its h (and g) pointing at bf16.
-_FWD = [_P] * 15 + [_I] * 6 + [_F, _F, _I, _I, _U, _F, _P]
-_BWD_SRC = [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _P]
+_FWD = [_P] * 15 + [_I] * 6 + [_F, _F, _I, _I, _U, _F, _I, _P]
+_BWD_SRC = [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _I, _P]
 _BWD_REL = [_P] * 7 + [_I] * 5 + [_P]
 SIGNATURES = {
     "relgat_fwd": ("relgat_fwd", _FWD),

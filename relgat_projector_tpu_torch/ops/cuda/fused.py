@@ -16,6 +16,12 @@ Port of ``relgat_projector_tpu/ops/pallas/fused.py``:
   kernel sums dattn and dbias across its sequential grid, which this card
   does not have).
 
+Past 128 features a head the forward and src pass take one of two designs
+by width and head count (``design_of``): the ring kernels (a producer warp
+streams each edge's row slice into shared memory with bulk copies, a
+consumer warp a head) or the one-warp-a-head template; ``with_design``
+forces either, for timing them side by side.
+
 Each has a bf16 variant (``relgat_fwd_bf16``, ``relgat_bwd_src_bf16``,
 ``relgat_bwd_rel_bf16``) for ``kernel_precision="default"``, the TPU
 kernels' bf16 streams: it reads ``h`` (and ``g``) as bfloat16 rows and does
@@ -245,9 +251,10 @@ def relgat_fwd_bf16_plain(
 
 def _launch_fwd(
     wrapper, h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope,
-    eps,
+    eps, design=None,
 ):
-    """Launch ``wrapper``'s kernel and count the launch."""
+    """Launch ``wrapper``'s kernel and count the launch (a ``design``
+    forced: see ``with_design``, counted nowhere)."""
     name = wrapper.__name__
     _, heads, num_rel, f = check_shapes(name, h, attn, csr)
     if csr.fwd_item_edges > FWD_ITEM_EDGES:
@@ -272,10 +279,12 @@ def _launch_fwd(
         l.data_ptr(), bias.data_ptr(), part_acc.data_ptr(),
         part_ml.data_ptr(), part_bias.data_ptr(), csr.fwd_num_items,
         csr.fwd_num_split, csr.fwd_item_edges, heads, f, num_rel,
-        float(negative_slope), float(eps), use, s, thr, keep, _stream(),
+        float(negative_slope), float(eps), use, s, thr, keep,
+        DESIGNS[design or design_of(wrapper, heads, f)], _stream(),
     )
     _raise_on(rc, name)
-    wrapper.launches += 1
+    if design is None:
+        wrapper.launches += 1
     return out, m, l, bias
 
 
@@ -365,11 +374,12 @@ def relgat_bwd_src_bf16_plain(
 
 def _launch_bwd_src(
     wrapper, h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
-    negative_slope, eps,
+    negative_slope, eps, design=None,
 ):
     """Launch ``wrapper``'s kernel and count the launch; a layout without
     source rows (an empty halo buffer) launches nothing and counts
-    nothing."""
+    nothing (a ``design`` forced: see ``with_design``, counted
+    nowhere)."""
     name = wrapper.__name__
     n, heads, num_rel, f = check_shapes(name, h, attn, csr)
     nd = csr.num_nodes
@@ -396,10 +406,12 @@ def _launch_bwd_src(
         csr.by_src_etype.data_ptr(), csr.by_src_eid.data_ptr(),
         dh.data_ptr(), w.data_ptr(), b.data_ptr(),
         n, heads, f, num_rel, float(negative_slope), float(eps),
-        use, s, thr, keep, _stream(),
+        use, s, thr, keep,
+        DESIGNS[design or design_of(wrapper, heads, f)], _stream(),
     )
     _raise_on(rc, name)
-    wrapper.launches += 1
+    if design is None:
+        wrapper.launches += 1
     return dh, w, b
 
 
@@ -494,6 +506,58 @@ def relgat_bwd_rel_bf16(h, w, b):
 
 relgat_bwd_rel.launches = 0
 relgat_bwd_rel_bf16.launches = 0
+
+
+# csrc/relgat_common.cuh kDesignLanes, kDesignRing
+DESIGNS = {"lanes": 1, "ring": 2}
+
+
+# Where each forward or src pass takes the ring kernel: ranges of
+# (fewest features, most features, fewest heads) a head. They follow the
+# card: on an H100 80GB HBM3 (700 W; wide_heads.py, PERF.md section 6) the
+# ring was faster than the one-warp-a-head template across each range, at
+# each measured width and at both ends; outside them the template was
+# faster, or was not timed, and keeps the call. With fewer than 4 heads
+# (a part-empty ring block) the fp32 passes and the wider bf16 src pass
+# were slower or even.
+RING_RANGES = {
+    "relgat_fwd": ((129, 152, 4), (257, 448, 4)),
+    "relgat_bwd_src": ((129, 216, 4), (248, 520, 4)),
+    "relgat_fwd_bf16": ((257, 368, 1),),
+    "relgat_bwd_src_bf16": ((129, 320, 1), (321, 480, 4), (513, 1024, 1)),
+}
+
+
+def design_of(wrapper, heads: int, feat: int) -> str:
+    """The design a forward or src-pass wrapper launches at ``heads`` heads
+    of ``feat`` features: ``"ring"``, the ring kernel, inside one of its
+    ``RING_RANGES``, else ``"lanes"``, the one-warp-a-head template (also
+    at every F <= 128, where the pair kernels and the template take the
+    call)."""
+    return ("ring" if any(lo <= feat <= hi and heads >= fewest for
+                          lo, hi, fewest in RING_RANGES[wrapper.__name__])
+            else "lanes")
+
+
+def with_design(wrapper, design, *args, **kw):
+    """``wrapper`` (a forward or src-pass wrapper, fp32 or bf16) on CUDA
+    tensors through one design at heads wider than 128 features, whichever
+    ``design_of`` would take: ``"ring"``, the ring kernel, or ``"lanes"``,
+    the one-warp-a-head template. For timing each design and holding it to
+    the plain version; its launches count nowhere. The arguments after
+    ``design`` are ``wrapper``'s."""
+    launch = {relgat_fwd: _launch_fwd, relgat_fwd_bf16: _launch_fwd,
+              relgat_bwd_src: _launch_bwd_src,
+              relgat_bwd_src_bf16: _launch_bwd_src}[wrapper]
+    bf16_rows = {relgat_fwd_bf16: 1, relgat_bwd_src_bf16: 2}.get(wrapper, 0)
+    if not _on_card(wrapper.__name__, args[-1], *args[:-1],
+                    bf16_rows=bf16_rows):
+        raise ValueError(f"{wrapper.__name__}: a design is chosen on the "
+                         "card only")
+    if design not in DESIGNS:
+        raise ValueError(f"{wrapper.__name__}: no design {design!r}")
+    return launch(wrapper, *args, design=design, **kw)
+
 
 FP32_KERNELS = (relgat_fwd, relgat_bwd_src, relgat_bwd_rel)
 BF16_KERNELS = (relgat_fwd_bf16, relgat_bwd_src_bf16, relgat_bwd_rel_bf16)

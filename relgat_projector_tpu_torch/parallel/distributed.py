@@ -42,8 +42,9 @@ def initialize_distributed(
 ) -> int:
     """Join the process group; returns this process's rank.
 
-    ``coordinator_address`` is ``host:port`` (or a ``tcp://`` URL) of rank
-    0's rendezvous. One process (``num_processes`` None or 1) needs no group
+    ``coordinator_address`` is ``host:port`` of rank 0's rendezvous, or an
+    init URL (``tcp://host:port``, ``file://`` of a path no earlier group
+    used). One process (``num_processes`` None or 1) needs no group
     and gets rank 0. ``backend`` defaults to the one of ``device``."""
     if dist.is_initialized():
         rank, world = dist.get_rank(), dist.get_world_size()

@@ -1,9 +1,9 @@
 """The port on a grid of processes: gloo on the CPU, one process a rank,
 mirroring ``tests/test_distributed.py`` and ``tests/test_halo.py``.
 
-Each test starts its ranks as ``tests/torch_dist_worker.py`` processes on a
-free port (they import torch and the port only), waits for them with a
-time limit, and compares what they wrote:
+Each test starts its ranks as ``tests/torch_dist_worker.py`` processes that
+meet through a file store (they import torch and the port only), waits for
+them with a time limit, and compares what they wrote:
 
 - the halo propagate, forward and backward, gathered from 2 and 4 ranks,
   against JAX's ``halo_propagate`` on the 8-virtual-device mesh (``graph``
@@ -29,9 +29,9 @@ time limit, and compares what they wrote:
 
 import json
 import os
-import socket
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax
@@ -63,21 +63,22 @@ FWD = dict(rtol=1e-4, atol=1e-5)
 GRAD = dict(rtol=1e-3, atol=1e-5)
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def _run_ranks(mode, world, work):
+    """``world`` worker ranks of ``mode`` on ``work``; their outputs.
+
+    The ranks meet through a file store in ``work``, not a TCP store on a
+    port picked from the ephemeral range: another suite's process that
+    picks a free port and binds it a few seconds later (the JAX package's
+    ``tests/test_distributed.py`` hands such a port to its coordinator)
+    must not find it taken by these ranks' store. Each rank runs one
+    thread."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    port = _free_port()
+    init = (Path(tempfile.mkdtemp(prefix="rendezvous-", dir=work))
+            / "store").as_uri()
     procs = [
         subprocess.Popen(
             [sys.executable, str(WORKER), mode, str(r), str(world),
-             str(port), str(work)],
+             init, str(work)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
         )

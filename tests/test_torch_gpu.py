@@ -69,7 +69,8 @@ def _case(heads, feat, num_rel=7, n=400, e=3000, seed=0):
     "heads,feat,num_rel",
     [(1, 8, 7), (3, 40, 7), (16, 128, 7), (9, 200, 7), (4, 32, 1),
      (16, 128, 300), (12, 300, 7), (4, 512, 7), (2, 1024, 7), (3, 301, 7),
-     (3, 128, 7), (1, 128, 7)],
+     (3, 128, 7), (1, 128, 7), (16, 200, 7), (12, 256, 7), (20, 136, 7),
+     (9, 520, 7)],
 )
 @pytest.mark.parametrize("rate", (0.0, 0.3))
 def test_kernels_match_plain(card, heads, feat, num_rel, rate):
@@ -104,7 +105,8 @@ def test_kernels_match_plain(card, heads, feat, num_rel, rate):
     "heads,feat,num_rel",
     [(1, 8, 7), (3, 40, 7), (16, 128, 7), (9, 200, 7), (2, 6, 3),
      (2, 12, 3), (16, 128, 300), (12, 300, 7), (4, 512, 7), (2, 1024, 7),
-     (3, 301, 7), (3, 128, 7), (1, 128, 7)],
+     (3, 301, 7), (3, 128, 7), (1, 128, 7), (16, 200, 7), (12, 256, 7),
+     (20, 136, 7), (9, 520, 7)],
 )
 @pytest.mark.parametrize("rate", (0.0, 0.3))
 def test_bf16_kernels_match_plain(card, heads, feat, num_rel, rate):
@@ -113,8 +115,9 @@ def test_bf16_kernels_match_plain(card, heads, feat, num_rel, rate):
     8-byte staging in relgat_bwd_rel; F = 8, 40 and 128 (at most 16 heads)
     the pair kernels, two heads a warp (1 and 3 heads leave a warp's
     second half idle: an unpaired last head, as head tensor parallelism's
-    tiles of 3 heads have at F = 128); the other widths the vector
-    paths."""
+    tiles of 3 heads have at F = 128); F = 136, 200, 300, 301 and 520 the
+    ring kernels in the forward or src pass, by width
+    (``csrc/relgat_common.cuh``); the other widths the vector paths."""
     g, h, gr, attn, bias = _case(heads, feat, num_rel=num_rel)
     h16, g16 = h.to(torch.bfloat16), gr.to(torch.bfloat16)
     csr = g.csr
@@ -385,6 +388,57 @@ def test_forward_is_deterministic(card):
     second = kern.relgat_fwd(h, attn, bias, g.csr, **kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("heads,feat",
+                         [(12, 300), (3, 301), (16, 200), (2, 1024)])
+@pytest.mark.parametrize("bf16", (False, True))
+def test_wide_heads_both_designs(card, heads, feat, bf16):
+    """At F > 128 the forward and src pass each run the ring kernel or the
+    one-warp-a-head template, by width. On a graph with a split row (1,000
+    in-edges) and dropout, the dispatch gives the same bits twice; each
+    design, forced, is within the bar of the float64 plain version; forced
+    launches count nowhere."""
+    g, h, attn, bias = _hub_case(1_000, heads=heads, feat=feat, n=600,
+                                 e=6_000)
+    csr = g.csr
+    assert csr.fwd_num_split == 1
+    gr = torch.randn_like(h)
+    rows_h, rows_g = ((h.to(torch.bfloat16), gr.to(torch.bfloat16)) if bf16
+                      else (h, gr))
+    fwd, bwd_src = ((kern.relgat_fwd_bf16, kern.relgat_bwd_src_bf16) if bf16
+                    else (kern.relgat_fwd, kern.relgat_bwd_src))
+    fwd_plain, src_plain = (
+        (kern.relgat_fwd_bf16_plain, kern.relgat_bwd_src_bf16_plain) if bf16
+        else (kern.relgat_fwd_plain, kern.relgat_bwd_src_plain))
+    kw = dict(seed=-987654321, rate=0.3, negative_slope=0.2, eps=1e-16)
+    before = kern.launch_counts()
+    out = [fwd(rows_h, attn, bias, csr, **kw) for _ in range(2)]
+    forced = {d: kern.with_design(fwd, d, rows_h, attn, bias, csr, **kw)
+              for d in kern.DESIGNS}
+    want = _exact(fwd_plain, rows_h, attn, bias, csr, **kw)
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    for got in forced.values():
+        assert _rel(got[0], want[0]) <= REL_TOL
+        assert _rel(got[2], want[2]) <= REL_TOL
+    _, m, l, b = out[0]
+    n = h.shape[0]
+    s_dot = ((out[0][0] - b[:, None]) * gr).view(n, heads, feat).sum(-1)
+    args = (rows_h, rows_g, attn, m, l, s_dot, gr.sum(1), csr)
+    src = [bwd_src(*args, **kw) for _ in range(2)]
+    forced = {d: kern.with_design(bwd_src, d, *args, **kw)
+              for d in kern.DESIGNS}
+    want = _exact(src_plain, *args, **kw)
+    for a, b in zip(*src):
+        assert torch.equal(a, b)
+    for got in forced.values():
+        for a, b in zip(got, want):
+            assert _rel(a, b) <= REL_TOL
+    torch.cuda.synchronize()
+    after = kern.launch_counts()
+    assert after[fwd.__name__] == before[fwd.__name__] + 2
+    assert after[bwd_src.__name__] == before[bwd_src.__name__] + 2
 
 
 def test_split_path_never_falls_back(card):

@@ -1,8 +1,10 @@
-"""Heads wider than 256 features: the port's propagate and GAT layer at the
-library's default width (12 heads x 300, ``config.py``) and at 301 (not a
-multiple of 4), against the JAX package's XLA path and its Pallas kernels
-in interpret mode, on the same numpy-seeded inputs; and the kernels' shape
-gate, which now takes up to 1024 features a head.
+"""Heads wider than 128 features: the port's propagate and GAT layer at the
+library's default width (12 heads x 300, ``config.py``), at 301 (not a
+multiple of 4), at the reference's doc-scale tile (16 heads x 200,
+``SURVEY.md``) and at the ``large`` preset's 12 x 256, against the JAX
+package's XLA path and its Pallas kernels in interpret mode, on the same
+numpy-seeded inputs; and the kernels' shape gate, which takes up to 1024
+features a head.
 
 Tolerances are the parity chain's (``ROADMAP.md``): propagate forward rtol
 1e-4 / atol 1e-5, gradients rtol 1e-3 / atol 1e-5 (the bars
@@ -33,8 +35,8 @@ from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 LAYER_TOL = dict(rtol=1e-4, atol=1e-4)
-HEADS = 12
-WIDTHS = (300, 301)
+WIDTHS = (300, 301, 200, 256)
+HEADS = {200: 16}  # heads at each width: 12 unless named here
 DROPOUT_KEY = 5
 N, E, R = 90, 500, 5
 
@@ -54,9 +56,10 @@ def _propagate_inputs(feat):
     src, dst, et = _graph()
     g = build_graph(src, dst, et, N, num_rel=R, csr=True, device="cpu")
     rng = np.random.default_rng(feat)
-    shape = (g.num_nodes, HEADS, feat)
+    heads = HEADS.get(feat, 12)
+    shape = (g.num_nodes, heads, feat)
     h = (rng.standard_normal(shape) * 0.1).astype(np.float32)
-    attn = (rng.standard_normal((HEADS, R, feat)) * 0.05).astype(np.float32)
+    attn = (rng.standard_normal((heads, R, feat)) * 0.05).astype(np.float32)
     bias = (rng.standard_normal(R) * 0.1).astype(np.float32)
     wsum = rng.standard_normal(shape).astype(np.float32)
     return g, h, attn, bias, wsum
@@ -121,16 +124,17 @@ def test_wide_propagate_matches_jax(feat, port, ref, rate):
 @pytest.mark.parametrize("feat", WIDTHS)
 @pytest.mark.parametrize("use_pallas", (False, True))
 def test_wide_gat_layer_matches_jax(feat, use_pallas):
-    """One GAT layer (projection, propagate) at 12 heads x ``feat`` on
+    """One GAT layer (projection, propagate) at ``HEADS`` x ``feat`` on
     weights from the JAX initialiser, against the JAX layer on the same
     path (real rows: the XLA path gives the padded rows a bias)."""
     src, dst, et = _graph()
+    heads = HEADS.get(feat, 12)
     in_dim = 24
     rng = np.random.default_rng(feat + 1)
     emb = rng.standard_normal((N, in_dim)).astype(np.float32)
     jg = jax_build_graph(src, dst, et, N, blocked=use_pallas, block_nodes=16,
                          chunk_edges=64)
-    jparams = init_relgat_layer(jax.random.PRNGKey(3), in_dim, feat, R, HEADS)
+    jparams = init_relgat_layer(jax.random.PRNGKey(3), in_dim, feat, R, heads)
     want = np.asarray(jax_layer(
         jparams, jnp.asarray(pad_node_embeddings(emb, jg.num_nodes)), jg,
         use_pallas=use_pallas))
@@ -139,7 +143,7 @@ def test_wide_gat_layer_matches_jax(feat, use_pallas):
     got = apply_relgat_layer(
         params, torch.from_numpy(pad_node_embeddings(emb, g.num_nodes)), g,
         use_pallas=use_pallas).numpy()
-    assert got.shape == (g.num_nodes, HEADS * feat)
+    assert got.shape == (g.num_nodes, heads * feat)
     np.testing.assert_allclose(got[:N], want[:N], **LAYER_TOL)
 
 
@@ -162,3 +166,21 @@ def test_shape_gate_names_the_feature_limit(feat):
     h, attn, csr = _gate_inputs(feat)
     with pytest.raises(ValueError, match="limit of 1024.*registers"):
         kern.check_shapes("relgat_fwd", h, attn, csr)
+
+
+@pytest.mark.parametrize("heads,feat,designs", [
+    (16, 128, "LLLL"), (20, 136, "RRLR"), (18, 168, "LRLR"),
+    (16, 200, "LRLR"), (13, 232, "LLLR"), (12, 256, "LRLR"),
+    (12, 300, "RRRR"), (3, 301, "LLRR"), (8, 384, "RRLR"),
+    (3, 448, "LLLL"), (4, 512, "LRLL"), (6, 520, "LRLR"),
+    (2, 1024, "LLLR"),
+])
+def test_wide_heads_take_the_design_of_their_width(heads, feat, designs):
+    """Past 128 features the forward and src pass, fp32 and bf16 (in that
+    order in ``designs``), take the ring kernel (R) where the card measured
+    it faster than the one-warp-a-head template (L), by width and head
+    count, and the template elsewhere."""
+    wrappers = (kern.relgat_fwd, kern.relgat_bwd_src, kern.relgat_fwd_bf16,
+                kern.relgat_bwd_src_bf16)
+    got = "".join(kern.design_of(w, heads, feat)[0].upper() for w in wrappers)
+    assert got == designs

@@ -1,9 +1,11 @@
 """One rank of the port's multi-process tests (``tests/test_torch_distributed.py``).
 
-Run as ``python tests/torch_dist_worker.py MODE RANK WORLD PORT WORKDIR``
+Run as ``python tests/torch_dist_worker.py MODE RANK WORLD INIT WORKDIR``
 with the repo on ``PYTHONPATH``; it imports torch and the port only. It
-joins a gloo process group on ``127.0.0.1:PORT``, reads its inputs from
-``WORKDIR`` and writes ``WORKDIR/out_RANK.npz`` (``.json`` for ``cli``).
+joins a gloo process group whose ranks meet at ``INIT``, an init URL
+(``file://`` of a path no earlier group used, as the tests pass, or
+``tcp://host:port``), reads its inputs from ``WORKDIR`` and writes
+``WORKDIR/out_RANK.npz`` (``.json`` for ``cli``).
 
 Modes:
 
@@ -144,7 +146,7 @@ def _trainer(rank, world, work):
              **leaves)
 
 
-def _cli(rank, world, work, port):
+def _cli(rank, world, work, init):
     from relgat_projector_tpu_torch import cli
     from relgat_projector_tpu_torch.train.checkpoint import RelGATStorage
     from relgat_projector_tpu_torch.train.trainer import RelGATTrainer
@@ -152,7 +154,7 @@ def _cli(rank, world, work, port):
 
     argv = json.loads((work / "argv.json").read_text()) + [
         "--distributed", "--num-processes", str(world), "--process-id",
-        str(rank), "--coordinator-address", f"127.0.0.1:{port}",
+        str(rank), "--coordinator-address", init,
     ]
     writes, trainers = [], []
     save, train = RelGATStorage.save_checkpoint, RelGATTrainer.train
@@ -219,13 +221,13 @@ def _partition(rank, world, work):
 
 
 def main():
-    mode, rank, world, port = sys.argv[1], *map(int, sys.argv[2:5])
+    mode, rank, world, init = (sys.argv[1], int(sys.argv[2]),
+                               int(sys.argv[3]), sys.argv[4])
     work = Path(sys.argv[5])
     torch.set_num_threads(1)
     if mode == "cli":
-        return _cli(rank, world, work, port)
-    initialize_distributed(f"127.0.0.1:{port}", world, rank,
-                           backend="gloo", timeout_s=120)
+        return _cli(rank, world, work, init)
+    initialize_distributed(init, world, rank, backend="gloo", timeout_s=120)
     assert is_primary() == (rank == 0)
     try:
         {"propagate": _propagate, "trainer": _trainer,
