@@ -112,8 +112,12 @@ Phases, in order; any failure exits non-zero:
               train_default_width and train_doc_width; there the forward and
               src pass also name the design the dispatch took and time both
               designs, ring_ms and lanes_ms), the
-              bf16 forward and src pass giving the same bits twice, beside
-              its bound on this card (bf16 rows counted at 2 bytes) and, for
+              bf16 forward, src pass and relation reduction giving the same
+              bits twice (the bf16 relation reduction at every width also
+              naming its design and timing both, mma_ms and tile_ms, each
+              held to float64 at 1e-5), beside its bound on this card (bf16
+              rows counted at 2 bytes; the bf16 relation reduction's three
+              bf16 products at the dense bf16 rate) and, for fp32
               relgat_bwd_rel, one torch.einsum on the same inputs; then each
               variant's backward pair against the bound of the whole TPU
               backward kernel's function, and the rates of a plain copy, a
@@ -322,6 +326,9 @@ from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 # sheet, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+# H100 SXM: the tensor cores' dense bf16 rate (NVIDIA's data sheet, at the
+# 700 W limit), for relgat_bwd_rel_bf16's three bf16 products.
+PEAK_BF16_TENSOR_FLOP_PER_S = 989e12
 REL_TOL = 1e-5
 SEED = 0
 DEVICE = "cuda"
@@ -1616,7 +1623,10 @@ def bounds(n, e, heads, feat, num_rel, row_bytes=4, n_dst=None,
     ``dropout`` the forward also reads each edge's canonical id.
     ``bwd_pair`` is the whole function of the TPU backward kernel that the
     two backward kernels share: h, g, attn, the statistics and the src-CSR
-    in, dh, dattn and dbias out."""
+    in, dh, dattn and dbias out. With bf16 rows ``relgat_bwd_rel`` counts
+    dattn = W^T h as the three bf16 products of its tensor-core design (W
+    split exactly into three bf16 pieces) at the dense bf16 rate, a third
+    element of its tuple (the others: ``PEAK_FP32_FLOP_PER_S``)."""
     nd = n if n_dst is None else n_dst
     hf = heads * feat
     w = 4  # bytes of fp32 and int32
@@ -1637,8 +1647,11 @@ def bounds(n, e, heads, feat, num_rel, row_bytes=4, n_dst=None,
             de_flops + e,
         ),
         "relgat_bwd_rel": (
-            rows + w * (n * heads * num_rel + n * num_rel + attn + num_rel),
-            2 * n * heads * num_rel * feat + n * num_rel,
+            (rows + w * (n * heads * num_rel + n * num_rel + attn + num_rel),
+             3 * 2 * n * heads * num_rel * feat + n * num_rel,
+             PEAK_BF16_TENSOR_FLOP_PER_S) if row_bytes == 2 else
+            (rows + w * (n * heads * num_rel + n * num_rel + attn + num_rel),
+             2 * n * heads * num_rel * feat + n * num_rel)
         ),
         "bwd_pair": (
             rows + grows + w * (n * hf + 2 * attn + stats + num_rel),
@@ -1647,10 +1660,10 @@ def bounds(n, e, heads, feat, num_rel, row_bytes=4, n_dst=None,
     }
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flop_rate=PEAK_FP32_FLOP_PER_S):
     """(least ms on this card, what bounds it)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by
 
@@ -1680,16 +1693,17 @@ def variant_calls(inputs, bf16, kw):
 
 
 def design_times(calls, names, heads, feat, reps=10):
-    """Past 128 features, for each of ``names`` (a variant's forward and src
-    pass at ``heads`` x ``feat``, ``calls`` as ``variant_calls`` gives
-    them): the design its dispatch takes (``ops.cuda.design_of``) and each
-    design's time, forced (``ops.cuda.with_design``), with CUDA events in
-    this run: ``ring_ms``, the ring kernel, and ``lanes_ms``, the
-    one-warp-a-head template."""
+    """For each of ``names`` (a variant's forward and src pass past 128
+    features, or relgat_bwd_rel_bf16, at ``heads`` x ``feat``; ``calls`` as
+    ``variant_calls`` gives them): the design its dispatch takes
+    (``ops.cuda.design_of``) and each design's time, forced
+    (``ops.cuda.with_design``), with CUDA events in this run: ``ring_ms``,
+    the ring kernel, and ``lanes_ms``, the one-warp-a-head template; or
+    ``mma_ms``, the tensor cores, and ``tile_ms``, the SIMT tile kernel."""
     res = {}
     for name in names:
         res[name] = {"design": kern.design_of(KERNELS[name], heads, feat)}
-        for design in kern.DESIGNS:
+        for design in kern.designs_of(KERNELS[name]):
             res[name][f"{design}_ms"] = cuda_ms(
                 lambda: calls[name](lambda *a, **k: kern.with_design(
                     KERNELS[name], design, *a, **k)), reps=reps, warmup=2)
@@ -1708,8 +1722,10 @@ def row_gather_floor(row):
 
 def kernel_rows(inputs, bf16, counts, card, out_lines):
     """The kernels line's rows of one variant on ``TRAIN``'s graph at the
-    widths of ``inputs``, and its ``bwd_pair`` line. The bf16 forward and
-    src pass must also give the same bits over two calls."""
+    widths of ``inputs``, and its ``bwd_pair`` line. The bf16 forward, src
+    pass and relation reduction must also give the same bits over two
+    calls, and the bf16 relation reduction's rows carry both designs'
+    times and errors against float64 (each within ``REL_TOL``)."""
     csr = inputs["csr"]
     n = inputs["h"].shape[0]
     kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
@@ -1730,6 +1746,12 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
         del again, first, second
         check(same_bits, f"{fwd} or {bwd_src} gave other bits in a second "
                          f"call at {heads} x {feat}")
+        first = calls[bwd_rel](KERNELS[bwd_rel])
+        second = calls[bwd_rel](KERNELS[bwd_rel])
+        rel_same_bits = all(torch.equal(x, y) for x, y in zip(first, second))
+        del first, second
+        check(rel_same_bits, f"{bwd_rel} gave other bits in a second call "
+                             f"at {heads} x {feat}")
     # One PyTorch call computing the same function, timed as a yardstick
     # only: dattn of relgat_bwd_rel is W^T h per head. The other kernels'
     # functions have no such call, nor has relgat_bwd_rel_bf16's (fp32 W
@@ -1751,6 +1773,19 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
                  row_bytes=row_bytes)
     designs = (design_times(calls, (fwd, bwd_src), heads, feat)
                if feat > 128 else {})
+    by_design = {}
+    if bf16:
+        # relgat_bwd_rel_bf16 in each design, forced, against float64
+        designs.update(design_times(calls, (bwd_rel,), heads, feat))
+        want = PLAIN[bwd_rel](rh.double(), w.double(), v["bsum"].double())
+        for design in kern.designs_of(KERNELS[bwd_rel]):
+            got = kern.with_design(KERNELS[bwd_rel], design, rh, w, v["bsum"])
+            by_design[design] = max(rel_err(a, b) for a, b in zip(got, want))
+        del want, got
+        torch.cuda.empty_cache()
+        check(max(by_design.values()) <= REL_TOL,
+              f"{bwd_rel} at {heads} x {feat}: a design is off its float64 "
+              f"plain version: {by_design}")
     rows = []
     for name, kind in zip(VARIANTS[bf16], VARIANTS[False]):
         source, replaces = KERNEL_SOURCES[name]
@@ -1758,8 +1793,8 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
         plain_ms = cuda_ms(lambda: calls[name](PLAIN[name]), reps=2)
         lib_ms = (cuda_ms(library[name], reps=10, warmup=2)
                   if name in library else None)
-        nbytes, flops = bnd[kind]
-        best, by = bound_ms(nbytes, flops)
+        nbytes, flops = bnd[kind][:2]
+        best, by = bound_ms(*bnd[kind])
         worst = max(errs[name].values(), key=lambda x: x["max_rel_err"])
         row = {
             "name": name, "graph": "uniform", "heads": heads, "feat": feat,
@@ -1774,8 +1809,11 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
                           if name == bwd_src else "float32"),
             "bytes": nbytes, "flops": flops, "card": card,
         }
-        if same_bits is not None and name != bwd_rel:
-            row["same_bits_twice"] = same_bits
+        if same_bits is not None:
+            row["same_bits_twice"] = (rel_same_bits if name == bwd_rel
+                                      else same_bits)
+        if name == bwd_rel and by_design:
+            row["max_rel_err_by_design"] = by_design
         if name in ROW_GATHERS:
             # what the design reads besides: one H*F row per edge (h[src]
             # in the forward, g[dst] in relgat_bwd_src)

@@ -31,7 +31,8 @@
 //       takes a tile of kRelTileRows rows of one head, stages W and h through
 //       shared memory with cp.async (kRelStages buffers), accumulates an
 //       [R, F] partial in registers and writes it; a second kernel sums the
-//       partials in tile order.
+//       partials in tile order (relgat_bwd_rel_mma_kernel, for bf16 h, does
+//       the same on the tensor cores over longer runs of rows).
 //
 // What bounds them: relgat_bwd_src gathers one F-wide row of g per (edge,
 // head) (E * H*F * 4 bytes, 8.2 GB at 1M edges and H*F = 2048), far more
@@ -62,8 +63,11 @@
 // bytes each tensor must move once is 0.58 ms). On this card the size of
 // each warp's contiguous piece, not the bytes in flight (32 warps x 512
 // bytes = 16 KB an SM), set the rate; PERF.md section 6 records the designs
-// measured against this one. relgat_bwd_rel_bf16 is bounded by its FMA
-// loop, not its bytes, as in fp32.
+// measured against this one. relgat_bwd_rel_bf16 runs the fp32 tile
+// kernel's FMA loop on bf16 h (kRelDesignTile), which that loop bounds, or
+// dattn = W^T h on the tensor cores as three exact bf16 products
+// (kRelDesignMma, relgat_bwd_rel_mma_kernel below), which the bytes bound;
+// ops/cuda/fused.py design_of picks one by width, as measured.
 //
 // Wider heads (F > 128, up to 1024), fp32 or bf16 rows:
 // relgat_bwd_src_ring_kernel gives a block a source row and a group of up to
@@ -80,6 +84,9 @@
 // slower at some (fp32 past 520 features, bf16 at 496-512), so the
 // dispatch takes it where it measured faster (ops/cuda/fused.py
 // RING_RANGES).
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include "relgat_common.cuh"
 
 namespace relgat {
@@ -757,13 +764,14 @@ relgat_bwd_rel_tile_kernel(const TH* __restrict__ h,  // [N, H*F]
 }
 
 // Sums the partials of every tile in tile order: dattn [H, R, F] is the
-// flat sum of part_attn [T, H*R*F], dbias [R] that of part_bias [T, R].
+// flat sum of part_attn [T, H*R*F], dbias [R] that of part_bias
+// [bias_parts, R] (T of them in the tile design).
 __global__ void __launch_bounds__(256)
 relgat_bwd_rel_reduce_kernel(const float* __restrict__ part_attn,
                              const float* __restrict__ part_bias,
                              float* __restrict__ dattn,
                              float* __restrict__ dbias, int num_tiles,
-                             int64_t total, int num_rel) {
+                             int64_t total, int num_rel, int bias_parts) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < total) {
     float a = 0.f;
@@ -773,9 +781,539 @@ relgat_bwd_rel_reduce_kernel(const float* __restrict__ part_attn,
   }
   if (i < num_rel) {
     float s = 0.f;
-    for (int t = 0; t < num_tiles; ++t) s += part_bias[t * num_rel + i];
+    for (int t = 0; t < bias_parts; ++t) s += part_bias[t * num_rel + i];
     dbias[i] = s;
   }
+}
+
+// ---------------------------------------------------------------------------
+// relgat_bwd_rel_bf16 on the tensor cores (kRelDesignMma).
+//
+// The TPU kernel computes this sum as a matrix-unit dot with
+// precision=HIGHEST (fused.py `_bwd_src_kernel`, the `onehot_r.T @ deps`
+// dot): several bf16 passes. Here, per head, dattn = W^T h is a GEMM with
+// M = relations, N = features and K = node rows, and h is already bf16.
+// Each fp32 W value is split exactly into three bf16 pieces by truncation,
+//   hi = trunc(W), mid = trunc(W - hi), lo = W - hi - mid,
+// (3 x 8 significand bits hold fp32's 24; truncation never rounds up to
+// inf at |W| near FLT_MAX; exact for |W| >= 2^-110 and for 0), and
+// mma.sync m16n8k16 bf16 x bf16 -> fp32 runs lo x h, mid x h and hi x h.
+// Each product piece x h is exact in fp32 (8 x 8 significand bits), so
+// only the sums round. The tensor cores truncate as they add, so the three
+// products of each 16 rows go into a fresh sum, which FADD adds to the
+// warp's fp32 sum with round-to-nearest, as the SIMT kernel adds. This is
+// not TF32. A non-finite W keeps hi = W (NaN as a quiet NaN) and mid = lo
+// = 0, so inf and NaN spread as in the plain version (inf - inf would turn
+// an inf W into NaN).
+//
+// What bounds it: the bytes of h (bf16) and W (fp32), read once: 0.68 GB
+// at 100k rows, H x F = 16 x 128, R = 40, 0.20 ms at 3.35 TB/s; the three
+// products are 49 GFLOP, 0.05 ms at the dense bf16 rate. So a block
+// streams h and W rows through kMmaStages shared-memory buffers, 64 rows a
+// stage, over a run of node rows, and leaves one partial [R, F] a run,
+// which relgat_bwd_rel_reduce_kernel sums in run order. The launcher picks
+// the number of runs that fills whole waves of blocks on this card best
+// (rel_mma_runs, from the SM count and the kernel's occupancy; 33 runs of
+// 3,072 rows at 16 x 128: 10.8 MB of partials, the tile design's 64 MB).
+// The blocks of a run are adjacent in the grid, head fastest, so a run's h
+// and W rows are read together.
+//
+// A block: one head, a tile of 16 x MT relations (MT m-tiles, up to 4) and
+// of up to 128 features (wider heads: feature tiles, balanced, whose blocks
+// are adjacent too, so W comes from L2 after the first; the TMA kernel's
+// tiles reach 248 features at F <= 384, two warps along them); warp (mt,
+// kw) takes m-tile mt and rows 32 kw .. 32 kw + 31 of each stage,
+// splitting its own W values in registers (the A fragments) and reading h
+// with ldmatrix.trans (the B fragments). The two warps of an m-tile add
+// their sums in a fixed order at the end. The first blocks of a run also sum B
+// (dbias) over slices of the run's rows while their first stages land,
+// coalesced and in a fixed order. No atomics: the same bits every call.
+//
+// Two ways to stage: where the rows allow 2-D boxes (every model width),
+// relgat_bwd_rel_mma_tma_kernel has one thread copy each stage with the
+// TMA on mbarriers, with no block barrier a stage; elsewhere (F = 301,
+// R = 7) relgat_bwd_rel_mma_kernel's threads copy it with cp.async between
+// two block barriers. On an H100 80GB HBM3 at 700 W the TMA staging was
+// the faster at 16 x 128, 12 x 300 and 16 x 200 (PERF.md section 6).
+// Measured and dropped, each slower at those widths: 8 n-tiles a warp with
+// up to 4 warps along the features (more warps an SM), 32-row stages with
+// one warp an m-tile, and 4 or 5 stages.
+
+constexpr int kRelDesignTile = 1;  // relgat_bwd_rel_tile_kernel (SIMT)
+constexpr int kRelDesignMma = 2;   // relgat_bwd_rel_mma_kernel
+
+constexpr int kMmaKSteps = 2;  // k16 steps a warp takes of each stage
+constexpr int kMmaKWarps = 2;  // warps of an m-tile along a stage's rows
+constexpr int kMmaStageRows = 16 * kMmaKSteps * kMmaKWarps;  // 64
+constexpr int kMmaStages = 3;
+constexpr int kMmaMaxMTiles = 4;   // 16 to 64 relations a block
+constexpr int kMmaNTiles = 16;     // n-tiles of 8 features a block, at most
+constexpr int kMmaMaxThreads = 32 * kMmaKWarps * kMmaMaxMTiles;  // 256
+// The TMA kernel's blocks also have up to kMmaMaxNWarps warps along the
+// features, a warp up to kMmaNTiles n-tiles, a block up to
+// kMmaMaxTmaNTiles (its box: at most 256 columns).
+constexpr int kMmaMaxNWarps = 2;
+constexpr int kMmaMaxTmaNTiles = 31;
+constexpr int kMmaWideNTiles = 48;
+constexpr int kMmaMaxTmaThreads = kMmaMaxThreads * kMmaMaxNWarps;  // 512
+// Partials of dbias a run: its first kMmaBiasSlices blocks (or all, if
+// fewer) each sum B over a slice of the run's rows.
+constexpr int kMmaBiasSlices = 16;
+
+// Floats of a staged W row of 16 x mt relations: 16 mt + 4, so that the
+// lanes' loads of an A fragment (rows 2t, columns g) fall in 32 banks.
+__host__ __device__ constexpr int mma_w_stride(int mt) { return 16 * mt + 4; }
+
+// bf16 values of a staged h row of `cols` features: a multiple of 64 and
+// 8 more, so that the 8 rows one ldmatrix reads start 16 bytes apart
+// modulo 128 bytes (distinct banks).
+__host__ __device__ constexpr int mma_h_stride(int cols) {
+  return (cols + 63) / 64 * 64 + 8;
+}
+
+__host__ __device__ constexpr int mma_stage_bytes(int mt, int cols) {
+  return kMmaStageRows * (mma_h_stride(cols) * 2 + mma_w_stride(mt) * 4);
+}
+
+// The three bf16 pieces of x (each in the upper half of a word).
+__device__ __forceinline__ void split_bf16x3(float x, uint32_t& hi,
+                                             uint32_t& mid, uint32_t& lo) {
+  const uint32_t u = __float_as_uint(x);
+  if (fabsf(x) < INFINITY) {
+    hi = u & 0xffff0000u;
+    const float r = x - __uint_as_float(hi);  // exact (Sterbenz)
+    mid = __float_as_uint(r) & 0xffff0000u;
+    lo = __float_as_uint(r - __uint_as_float(mid)) & 0xffff0000u;
+  } else {
+    hi = x != x ? 0x7fc00000u : u;
+    mid = 0u;
+    lo = 0u;
+  }
+}
+
+// Two pieces into one bf16x2 register: a (the lower k) in the low half.
+__device__ __forceinline__ uint32_t pack_hi16(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x7632);
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Grid: runs of `run` rows (a multiple of kMmaStageRows; a run past the
+// last row writes zeros) x rel_tiles x col_tiles x heads blocks, head
+// fastest. A block: mtiles x kMmaKWarps warps; warp (mt, kw) takes
+// relations r0 + 16 mt .. + 15 and rows 32 kw .. 32 kw + 31 of each stage,
+// over the block's tile_ntiles n-tiles (8 features each). The first
+// min(per_run, kMmaBiasSlices) blocks of a run also sum B over a slice of
+// its rows into part_bias[run * slices + slice].
+struct MmaBlock {
+  int head, ct, rt, tile, slice, per_run;
+};
+
+__device__ __forceinline__ MmaBlock mma_block(int heads, int rel_tiles,
+                                              int col_tiles) {
+  MmaBlock k;
+  k.per_run = heads * rel_tiles * col_tiles;
+  k.slice = blockIdx.x % k.per_run;
+  int id = blockIdx.x;
+  k.head = id % heads;
+  id /= heads;
+  k.ct = id % col_tiles;
+  id /= col_tiles;
+  k.rt = id % rel_tiles;
+  k.tile = id / rel_tiles;
+  return k;
+}
+
+// dbias over this block's slice of the run's rows n0 .. n1 - 1: column c
+// summed over rows b0 + gb, b0 + gb + groups, ... by thread (gb, c), then
+// the groups in order (red: smem for groups x R floats). Every thread of
+// the block calls it.
+__device__ __forceinline__ void mma_bias_slice(
+    const float* __restrict__ b, float* __restrict__ part_bias, float* red,
+    const MmaBlock& k, int n0, int n1, int run, int num_rel) {
+  const int nthreads = blockDim.x;
+  const int slices = k.per_run < kMmaBiasSlices ? k.per_run : kMmaBiasSlices;
+  if (k.slice >= slices) return;  // the same for every thread of the block
+  const int sub = (run + slices - 1) / slices;
+  const int b0 = min(n0 + k.slice * sub, n1);
+  const int b1 = min(b0 + sub, n1);
+  const int span = num_rel < nthreads ? num_rel : nthreads;
+  const int groups = num_rel < nthreads ? nthreads / num_rel : 1;
+  const int gb = threadIdx.x / span;
+  if (gb < groups) {
+    for (int c = threadIdx.x % span; c < num_rel; c += span) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int n = b0 + gb; n < b1; n += groups)
+        s += b[static_cast<int64_t>(n) * num_rel + c];
+      red[gb * num_rel + c] = s;
+    }
+  }
+  __syncthreads();
+  float* pb = part_bias +
+              (static_cast<int64_t>(k.tile) * slices + k.slice) * num_rel;
+  for (int c = threadIdx.x; c < num_rel; c += nthreads) {
+    float s = 0.f;
+    for (int q = 0; q < groups; ++q) s += red[q * num_rel + c];
+    pb[c] = s;
+  }
+}
+
+// One warp's share of a staged stage: hrow is its lane's row (32 kw + lane)
+// of h at the block's first feature, wr the stage's row 32 kw of W at
+// relation 16 mt + g. A fragments [k-step][piece: lo, mid, hi][register]:
+// register q holds relations g (q even) or g + 8 (q odd) at rows 2t,
+// 2t + 1 (+ 8 for q >= 2) of the k-step. Two n-tiles at a time, each over
+// both k-steps: one ldmatrix a tile gives its B fragments for the 32 rows
+// (rows 0-7, 8-15: k-step 0; 16-23, 24-31: k-step 1). The three products
+// of a (tile, k-step) run into a fresh sum (the tensor cores truncate as
+// they add; four such chains in flight), which FADD adds to acc. An odd
+// last tile's partner reads staged columns past the tile and is never
+// written.
+__device__ __forceinline__ void mma_stage(const __nv_bfloat16* hrow,
+                                          const float* wr, int ws_stride,
+                                          int t, int nt,
+                                          float (&acc)[kMmaNTiles][4]) {
+  uint32_t a[kMmaKSteps][3][4];
+#pragma unroll
+  for (int ks = 0; ks < kMmaKSteps; ++ks) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 16 * ks + 2 * t + 8 * (q >> 1);
+      const int m = 8 * (q & 1);
+      uint32_t h0, m0, l0, h1, m1, l1;
+      split_bf16x3(wr[k * ws_stride + m], h0, m0, l0);
+      split_bf16x3(wr[(k + 1) * ws_stride + m], h1, m1, l1);
+      a[ks][0][q] = pack_hi16(l0, l1);
+      a[ks][1][q] = pack_hi16(m0, m1);
+      a[ks][2][q] = pack_hi16(h0, h1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMmaNTiles; j += 2) {
+    if (j < nt) {
+      uint32_t b0[4], b1[4];
+      ldmatrix_x4_trans(b0, hrow + 8 * j);
+      ldmatrix_x4_trans(b1, hrow + 8 * (j + 1));
+      float d0[kMmaKSteps][4], d1[kMmaKSteps][4];
+#pragma unroll
+      for (int ks = 0; ks < kMmaKSteps; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d0[ks][q] = d1[ks][q] = 0.f;
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int ks = 0; ks < kMmaKSteps; ++ks) {
+          mma_bf16(d0[ks], a[ks][p], b0[2 * ks], b0[2 * ks + 1]);
+          mma_bf16(d1[ks], a[ks][p], b1[2 * ks], b1[2 * ks + 1]);
+        }
+#pragma unroll
+      for (int ks = 0; ks < kMmaKSteps; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[j][q] += d0[ks][q];
+          acc[j + 1][q] += d1[ks][q];
+        }
+    }
+  }
+}
+
+// The second warp (kw = 1) of each m-tile and n-tile range hands its sums
+// to the first (through red, shared memory the stages no longer use, at
+// `slot`), which adds them (first + second) and writes the block's
+// partial: its column c is feature f0 + c, written where 0 <= f0 + c < F.
+// Every thread of the block calls it.
+__device__ __forceinline__ void mma_write_partial(
+    float (&acc)[kMmaNTiles][4], float4* red, float* __restrict__ part_attn,
+    const MmaBlock& k, int heads, int feat, int num_rel, int r0, int f0,
+    int nt, int mt, int kw, int slot) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  red += slot * kMmaNTiles * 32 + lane;
+  if (kw == 1) {
+#pragma unroll
+    for (int j = 0; j < kMmaNTiles; ++j)
+      if (j < nt)
+        red[j * 32] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  }
+  __syncthreads();
+  if (kw != 0) return;
+  float* pa = part_attn + (static_cast<int64_t>(k.tile) * heads + k.head) *
+                              num_rel * feat;
+  const int ra = r0 + 16 * mt + g;
+#pragma unroll
+  for (int j = 0; j < kMmaNTiles; ++j) {
+    if (j >= nt) continue;
+    const float4 o = red[j * 32];
+    const float v[4] = {acc[j][0] + o.x, acc[j][1] + o.y, acc[j][2] + o.z,
+                        acc[j][3] + o.w};
+    const int f = f0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = ra + 8 * (q >> 1);
+      const int fq = f + (q & 1);
+      if (r < num_rel && fq >= 0 && fq < feat)
+        pa[static_cast<int64_t>(r) * feat + fq] = v[q];
+    }
+  }
+}
+
+// The mma design staged by the block's threads with cp.async, for any
+// width and alignment: VH and VW are the copy widths of h and of W rows
+// (as in the tile kernel). A stage is waited on with one block barrier and
+// released with another.
+template <int VH, int VW>
+__global__ void __launch_bounds__(kMmaMaxThreads, 2)
+relgat_bwd_rel_mma_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
+                          const float* __restrict__ w,  // [N, H, R]
+                          const float* __restrict__ b,  // [N, R]
+                          float* __restrict__ part_attn,  // [T, H, R, F]
+                          float* __restrict__ part_bias,  // [T * slices, R]
+                          int num_nodes, int heads, int feat, int num_rel,
+                          int run, int mtiles, int rel_tiles, int col_tiles,
+                          int tile_ntiles) {
+  extern __shared__ __align__(128) unsigned char rel_smem[];
+  const int nthreads = blockDim.x;
+  const MmaBlock blk = mma_block(heads, rel_tiles, col_tiles);
+  const int head = blk.head;
+  const int cols = 8 * tile_ntiles;  // the staged width, zeros past F
+  const int hstride = mma_h_stride(cols);
+  const int ws_stride = mma_w_stride(mtiles);
+  const int rel_cols = 16 * mtiles;
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(rel_smem);
+  float* ws = reinterpret_cast<float*>(
+      rel_smem + kMmaStages * kMmaStageRows * hstride * 2);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int mt = warp % mtiles;
+  const int kw = warp / mtiles;
+  const int n0 = blk.tile * run;
+  const int n1 = min(n0 + run, num_nodes);
+  const int r0 = blk.rt * rel_cols;
+  const int f0 = blk.ct * cols;
+  const int nt = min(tile_ntiles, (feat - f0 + 7) / 8);  // n-tiles in F
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  const __nv_bfloat16* h_head = h + static_cast<int64_t>(head) * feat + f0;
+
+  // Rows nb .. nb + 63 into buffer buf; rows past the run, features past F
+  // and relations past R read as zeros (rows must: 0 x anything finite).
+  // Copy i of a stage is (row i / copies, column i % copies); a thread's
+  // copies step by nthreads, so their rows and columns step by the
+  // quotient and remainder of nthreads, without a division each.
+  const int hcopies = cols / VH;
+  const int wcopies = rel_cols / VW;
+  const int hdk = nthreads / hcopies, hdc = nthreads % hcopies;
+  const int wdk = nthreads / wcopies, wdc = nthreads % wcopies;
+  const int hk0 = threadIdx.x / hcopies, hc0 = threadIdx.x % hcopies;
+  const int wk0 = threadIdx.x / wcopies, wc0 = threadIdx.x % wcopies;
+  auto stage = [&](int buf, int nb) {
+    __nv_bfloat16* hb = hs + buf * kMmaStageRows * hstride;
+    float* wb = ws + buf * kMmaStageRows * ws_stride;
+    for (int k = hk0, c = hc0; k < kMmaStageRows;) {
+      const int n = nb + k;
+      const bool ok = n < n1 && f0 + VH * c < feat;
+      cp_async<VH>(hb + k * hstride + VH * c,
+                   ok ? h_head + n * hf + VH * c : h, ok);
+      k += hdk;
+      c += hdc;
+      if (c >= hcopies) {
+        c -= hcopies;
+        ++k;
+      }
+    }
+    for (int k = wk0, c = wc0; k < kMmaStageRows;) {
+      const int n = nb + k;
+      const bool ok = n < n1 && r0 + VW * c < num_rel;
+      const int64_t wi =
+          (static_cast<int64_t>(n) * heads + head) * num_rel + r0 + VW * c;
+      cp_async<VW>(wb + k * ws_stride + VW * c, ok ? w + wi : w, ok);
+      k += wdk;
+      c += wdc;
+      if (c >= wcopies) {
+        c -= wcopies;
+        ++k;
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int steps = n1 > n0 ? (n1 - n0 + kMmaStageRows - 1) / kMmaStageRows
+                            : 0;
+#pragma unroll
+  for (int q = 0; q < kMmaStages - 1; ++q) {
+    if (q < steps) stage(q, n0 + q * kMmaStageRows);
+    else cp_async_commit();
+  }
+  // dbias while the first stages land
+  mma_bias_slice(b, part_bias,
+                 reinterpret_cast<float*>(
+                     rel_smem + kMmaStages * mma_stage_bytes(mtiles, cols)),
+                 blk, n0, n1, run, num_rel);
+
+  float acc[kMmaNTiles][4];
+#pragma unroll
+  for (int j = 0; j < kMmaNTiles; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  for (int st = 0; st < steps; ++st) {
+    const int buf = st % kMmaStages;
+    const int next = st + kMmaStages - 1;
+    if (next < steps) stage(next % kMmaStages, n0 + next * kMmaStageRows);
+    else cp_async_commit();
+    cp_async_wait<kMmaStages - 1>();
+    __syncthreads();
+    const int row = buf * kMmaStageRows + 32 * kw;
+    mma_stage(hs + (row + lane) * hstride,
+              ws + row * ws_stride + 16 * mt + g, ws_stride, t, nt, acc);
+    __syncthreads();  // a later stage's copies overwrite this buffer
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  mma_write_partial(acc, reinterpret_cast<float4*>(rel_smem), part_attn, blk,
+                    heads, feat, num_rel, r0, f0, nt, mt, kw, mt);
+}
+
+// The mma design staged by the tensor memory accelerator, where h's and
+// W's rows are 16-byte multiples (H*F a multiple of 8, H*R of 4): lane 0
+// of warp 0 copies each stage as two 2-D boxes (64 rows of h's hstride
+// features from the head's first feature of the tile, 64 rows of W's
+// ws_stride relations; columns past the head read its neighbour's values,
+// which land in outputs never written, and rows past N read as zeros) on
+// the stage's "full" mbarrier, and each warp arrives on its "empty" one
+// when it has read it. No block barrier a stage: a warp waits only for the
+// stage it needs, and warp 0 for the buffer it refills. A run is a
+// multiple of 64 rows, so only the last stage of the last run is short.
+// A box starts on 16 bytes: where a head's first feature does not (F = 300,
+// odd heads), the box starts `shift` features before it, and staged column
+// c is feature c - shift of the tile (the columns before 0 are the previous
+// head's, never written).
+__global__ void __launch_bounds__(kMmaMaxTmaThreads, 1)
+relgat_bwd_rel_mma_tma_kernel(const __grid_constant__ CUtensorMap hmap,
+                              const __grid_constant__ CUtensorMap wmap,
+                              const float* __restrict__ b,  // [N, R]
+                              float* __restrict__ part_attn,
+                              float* __restrict__ part_bias,
+                              int num_nodes, int heads, int feat,
+                              int num_rel, int run, int mtiles,
+                              int rel_tiles, int col_tiles, int tile_ntiles,
+                              int warp_ntiles, int hstride, int ws_stride) {
+  extern __shared__ __align__(128) unsigned char rel_smem[];
+  const MmaBlock blk = mma_block(heads, rel_tiles, col_tiles);
+  const int cols = 8 * tile_ntiles;
+  const int rel_cols = 16 * mtiles;
+  const int hbytes = kMmaStageRows * hstride * 2;  // a multiple of 128
+  const int wbytes = kMmaStageRows * ws_stride * 4;
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(rel_smem);
+  float* ws = reinterpret_cast<float*>(rel_smem + kMmaStages * hbytes);
+  unsigned char* after = rel_smem + kMmaStages * (hbytes + wbytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(after);
+  uint64_t* empty = full + kMmaStages;
+  float* red_bias = reinterpret_cast<float*>(empty + kMmaStages);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int mt = warp % mtiles;
+  const int kw = (warp / mtiles) % kMmaKWarps;
+  const int wn = warp / (mtiles * kMmaKWarps);  // n-tiles j0 .. j0 + nt - 1
+  const int j0 = wn * warp_ntiles;
+  const int n0 = blk.tile * run;
+  const int n1 = min(n0 + run, num_nodes);
+  const int r0 = blk.rt * rel_cols;
+  const int shift = (blk.head * feat) & 7;
+  const int f0 = blk.ct * cols - shift;  // the feature of staged column 0
+  const int nt = max(0, min(warp_ntiles,
+                            min(tile_ntiles, (feat - f0 + 7) / 8) - j0));
+  const int hx = blk.head * feat + f0;  // the boxes' first columns
+  const int wx = blk.head * num_rel + r0;
+  const int steps = n1 > n0 ? (n1 - n0 + kMmaStageRows - 1) / kMmaStageRows
+                            : 0;
+  const bool producer = threadIdx.x == 0;
+
+  if (producer) {
+    for (int s = 0; s < kMmaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], warps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto load = [&](int st) {  // stage st into buffer st % kMmaStages
+    const int buf = st % kMmaStages;
+    const int y = n0 + st * kMmaStageRows;
+    mbar_arrive_tx(&full[buf], hbytes + wbytes);
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+            smem_u32(reinterpret_cast<unsigned char*>(hs) + buf * hbytes)),
+        "l"(reinterpret_cast<uint64_t>(&hmap)), "r"(hx), "r"(y),
+        "r"(smem_u32(&full[buf]))
+        : "memory");
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+            smem_u32(reinterpret_cast<unsigned char*>(ws) + buf * wbytes)),
+        "l"(reinterpret_cast<uint64_t>(&wmap)), "r"(wx), "r"(y),
+        "r"(smem_u32(&full[buf]))
+        : "memory");
+  };
+  if (producer) {
+    for (int st = 0; st < kMmaStages - 1 && st < steps; ++st) load(st);
+  }
+  // dbias while the first stages land
+  mma_bias_slice(b, part_bias, red_bias, blk, n0, n1, run, num_rel);
+
+  float acc[kMmaNTiles][4];
+#pragma unroll
+  for (int j = 0; j < kMmaNTiles; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  for (int st = 0; st < steps; ++st) {
+    const int next = st + kMmaStages - 1;
+    if (producer && next < steps) {
+      // the buffer's previous stage, next - kMmaStages, read by every warp
+      if (next >= kMmaStages)
+        mbar_wait(&empty[next % kMmaStages],
+                  (next / kMmaStages - 1) & 1);
+      load(next);
+    }
+    __syncwarp();
+    const int buf = st % kMmaStages;
+    mbar_wait(&full[buf], (st / kMmaStages) & 1);
+    const int row = buf * kMmaStageRows + 32 * kw;
+    mma_stage(hs + (row + lane) * hstride + 8 * j0,
+              ws + row * ws_stride + 16 * mt + g, ws_stride, t, nt, acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[buf]);
+  }
+  __syncthreads();  // every stage landed and read: the buffers are free
+  mma_write_partial(acc, reinterpret_cast<float4*>(rel_smem), part_attn, blk,
+                    heads, feat, num_rel, r0, f0 + 8 * j0, nt, mt, kw,
+                    wn * mtiles + mt);
 }
 
 }  // namespace relgat
@@ -958,16 +1496,286 @@ void launch_rel_tiles_rm(int vh, bool vw, dim3 grid, cudaStream_t st,
   }
 }
 
+// The mma design's grid over one run of rows (see the kernel): m-tiles a
+// block (16 relations each), relation tiles, feature tiles of up to
+// kMmaNTiles n-tiles (balanced) and n-tiles a feature tile.
+struct RelMmaShape {
+  int mtiles, rel_tiles, col_tiles, tile_ntiles;
+  int nwarps = 1, warp_ntiles = 0;  // warps along the features, n-tiles each
+  int threads() const { return 32 * relgat::kMmaKWarps * mtiles * nwarps; }
+};
+
+// pad: features staged before a head's first (the TMA kernel's shift).
+RelMmaShape rel_mma_shape(int feat, int num_rel, int pad) {
+  using namespace relgat;
+  RelMmaShape s;
+  const int need = (num_rel + 15) / 16;
+  s.mtiles = need < kMmaMaxMTiles ? need : kMmaMaxMTiles;
+  s.rel_tiles = (num_rel + 16 * s.mtiles - 1) / (16 * s.mtiles);
+  const int ntiles_all = (feat + pad + 7) / 8;
+  s.col_tiles = (ntiles_all + kMmaNTiles - 1) / kMmaNTiles;
+  s.tile_ntiles = (ntiles_all + s.col_tiles - 1) / s.col_tiles;
+  return s;
+}
+
+// The TMA kernel's: where a head has at most kMmaWideNTiles n-tiles
+// (F <= 384; the staged features start up to 7 before a head's first),
+// feature tiles of up to kMmaMaxTmaNTiles n-tiles (balanced) over
+// kMmaMaxNWarps warps of an even number of n-tiles each, so that a block
+// stages and splits W once for up to 248 features; wider heads keep tiles
+// of kMmaNTiles, one warp each. On an H100 80GB HBM3 at 700 W the wide
+// tiles were faster at 12 x 300, 16 x 200 and 8 x 384 and slower at
+// 4 x 512 and 2 x 1024 (PERF.md section 6).
+RelMmaShape rel_mma_tma_shape(int feat, int num_rel) {
+  using namespace relgat;
+  RelMmaShape s = rel_mma_shape(feat, num_rel, feat % 8 ? 7 : 0);
+  const int ntiles_all = (feat + (feat % 8 ? 7 : 0) + 7) / 8;
+  const int most = ntiles_all <= kMmaWideNTiles ? kMmaMaxTmaNTiles
+                                                : kMmaNTiles;
+  s.col_tiles = (ntiles_all + most - 1) / most;
+  s.tile_ntiles = (ntiles_all + s.col_tiles - 1) / s.col_tiles;
+  s.nwarps = (s.tile_ntiles + kMmaNTiles - 1) / kMmaNTiles;
+  s.warp_ntiles = 2 * ((s.tile_ntiles + 2 * s.nwarps - 1) / (2 * s.nwarps));
+  if (s.warp_ntiles > kMmaNTiles) s.warp_ntiles = kMmaNTiles;
+  return s;
+}
+
+// Runs of rows for `blocks` blocks a run when `slots` blocks fit the card
+// at once: for each count of waves from 2 to 8, the most runs that fit
+// (at most max_runs), costed as waves x rows a run (whole stages); the
+// cheapest, and of equal costs the fewest runs.
+int rel_mma_runs(int num_nodes, int blocks, int slots, int max_runs) {
+  using namespace relgat;
+  int best_runs = 1;
+  int64_t best_cost = -1;
+  for (int waves = 2; waves <= 8; ++waves) {
+    int runs = static_cast<int>(static_cast<int64_t>(waves) * slots / blocks);
+    runs = runs < 1 ? 1 : (runs > max_runs ? max_runs : runs);
+    const int per = (num_nodes + runs - 1) / runs;
+    const int64_t rows = (per + kMmaStageRows - 1) / kMmaStageRows;
+    const int64_t used =
+        (static_cast<int64_t>(runs) * blocks + slots - 1) / slots;
+    const int64_t cost = used * rows;
+    if (best_cost < 0 || cost < best_cost ||
+        (cost == best_cost && runs < best_runs)) {
+      best_cost = cost;
+      best_runs = runs;
+    }
+  }
+  return best_runs;
+}
+
+// The rows a run: the node rows spread over `runs`, whole stages.
+int rel_mma_run_rows(int num_nodes, int runs) {
+  using namespace relgat;
+  const int per = (num_nodes + runs - 1) / runs;
+  return (per + kMmaStageRows - 1) / kMmaStageRows * kMmaStageRows;
+}
+
+// Runs for `kernel` at `threads` threads and `smem` bytes a block, from the
+// card's SM count and the kernel's occupancy (rel_mma_runs).
+template <typename K>
+cudaError_t rel_mma_plan(K kernel, int threads, int smem, int num_nodes,
+                         int blocks_per_run, int max_runs, int* runs) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *runs = rel_mma_runs(num_nodes, blocks_per_run, per_sm * sms, max_runs);
+  if (static_cast<int64_t>(*runs) * blocks_per_run > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int VH, int VW>
+cudaError_t launch_rel_mma_v(const __nv_bfloat16* h, const float* w,
+                             const float* b, float* part_attn,
+                             float* part_bias, int num_nodes, int heads,
+                             int feat, int num_rel, int max_runs,
+                             int* runs_out, int* blocks_out,
+                             cudaStream_t st) {
+  using namespace relgat;
+  const RelMmaShape s = rel_mma_shape(feat, num_rel, 0);
+  // the stages, then the dbias groups' sums
+  const int smem = kMmaStages * mma_stage_bytes(s.mtiles, 8 * s.tile_ntiles) +
+                   4 * (num_rel > kMmaMaxThreads ? num_rel : kMmaMaxThreads);
+  auto kernel = relgat_bwd_rel_mma_kernel<VH, VW>;
+  const int blocks_per_run = heads * s.rel_tiles * s.col_tiles;
+  int runs = 0;
+  cudaError_t err = rel_mma_plan(kernel, s.threads(), smem, num_nodes,
+                                 blocks_per_run, max_runs, &runs);
+  if (err != cudaSuccess) return err;
+  kernel<<<runs * blocks_per_run, s.threads(), smem, st>>>(
+      h, w, b, part_attn, part_bias, num_nodes, heads, feat, num_rel,
+      rel_mma_run_rows(num_nodes, runs), s.mtiles, s.rel_tiles, s.col_tiles,
+      s.tile_ntiles);
+  *runs_out = runs;
+  *blocks_out = blocks_per_run;
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda).
+cudaError_t encode_tiled_fn(PFN_cuTensorMapEncodeTiled_v12000* fn) {
+  static PFN_cuTensorMapEncodeTiled_v12000 cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A 2-D map of a [rows, cols] row-major tensor in boxes of box_rows x
+// box_cols, zeros outside it.
+cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                      int elem_bytes, const void* base, int64_t rows,
+                      int64_t cols, int box_rows, int box_cols) {
+  PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  const cudaError_t err = encode_tiled_fn(&fn);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides,
+                        box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The mma design staged by the TMA (relgat_bwd_rel_mma_tma_kernel). Its
+// staged h rows are hstride = 8 x an odd number of features wide (the tile
+// and more), so that the 8 rows one ldmatrix reads start on 8 distinct
+// 16-byte banks; W rows mma_w_stride relations, as the cp.async kernel's.
+cudaError_t launch_rel_mma_tma(const __nv_bfloat16* h, const float* w,
+                               const float* b, float* part_attn,
+                               float* part_bias, int num_nodes, int heads,
+                               int feat, int num_rel, int max_runs,
+                               int* runs_out, int* blocks_out,
+                               cudaStream_t st) {
+  using namespace relgat;
+  const RelMmaShape s = rel_mma_tma_shape(feat, num_rel);
+  const int hstride = 8 * (s.tile_ntiles | 1);
+  // W boxes as wide as the relations a block takes (R = 40: 40 of 48; its
+  // A-fragment loads meet 2-way bank conflicts there, and read relations
+  // past R from the next row, never written out)
+  const int ws_stride = num_rel >= 16 * s.mtiles ? mma_w_stride(s.mtiles)
+                                                 : (num_rel + 3) / 4 * 4;
+  const int smem =
+      kMmaStages * kMmaStageRows * (hstride * 2 + ws_stride * 4) +
+      2 * kMmaStages * static_cast<int>(sizeof(uint64_t)) +
+      4 * (num_rel > kMmaMaxTmaThreads ? num_rel : kMmaMaxTmaThreads);
+  CUtensorMap hmap, wmap;
+  cudaError_t err =
+      encode_2d(&hmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, h, num_nodes,
+                static_cast<int64_t>(heads) * feat, kMmaStageRows, hstride);
+  if (err != cudaSuccess) return err;
+  err = encode_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w, num_nodes,
+                  static_cast<int64_t>(heads) * num_rel, kMmaStageRows,
+                  ws_stride);
+  if (err != cudaSuccess) return err;
+  const int blocks_per_run = heads * s.rel_tiles * s.col_tiles;
+  int runs = 0;
+  err = rel_mma_plan(relgat_bwd_rel_mma_tma_kernel, s.threads(), smem,
+                     num_nodes, blocks_per_run, max_runs, &runs);
+  if (err != cudaSuccess) return err;
+  relgat_bwd_rel_mma_tma_kernel<<<runs * blocks_per_run, s.threads(), smem,
+                                  st>>>(
+      hmap, wmap, b, part_attn, part_bias, num_nodes, heads, feat, num_rel,
+      rel_mma_run_rows(num_nodes, runs), s.mtiles, s.rel_tiles, s.col_tiles,
+      s.tile_ntiles, s.warp_ntiles, hstride, ws_stride);
+  *runs_out = runs;
+  *blocks_out = blocks_per_run;
+  return cudaGetLastError();
+}
+
+// The tensor-core design over at most max_runs runs of rows (it picks how
+// many, *runs_out, of *blocks_out blocks each). Staged by the TMA where a
+// box can start on 16 bytes and h's and W's rows are 16-byte multiples (H*F
+// a multiple of 8, R of 4, the bases 16-byte aligned: every model width);
+// else by the block's threads with cp.async:
+// 16-byte copies of h where F % 8 == 0, 8-byte where F % 4 == 0, else one
+// value; W as the tile kernel.
+int launch_rel_mma(const __nv_bfloat16* h, const float* w, const float* b,
+                   float* part_attn, float* part_bias, int num_nodes,
+                   int heads, int feat, int num_rel, int max_runs,
+                   int* runs_out, int* blocks_out, cudaStream_t st) {
+  if (static_cast<int64_t>(heads) * feat % 8 == 0 && aligned(h, 16) &&
+      num_rel % 4 == 0 && aligned(w, 16)) {
+    return static_cast<int>(launch_rel_mma_tma(h, w, b, part_attn, part_bias,
+                                               num_nodes, heads, feat,
+                                               num_rel, max_runs, runs_out,
+                                               blocks_out, st));
+  }
+  const int vh = feat % 8 == 0 && aligned(h, 16)  ? 8
+                 : feat % 4 == 0 && aligned(h, 8) ? 4
+                                                  : 1;
+  const bool vw = num_rel % 4 == 0 && aligned(w, 16);
+#define RELGAT_REL_MMA(VH, VW)                                               \
+  launch_rel_mma_v<VH, VW>(h, w, b, part_attn, part_bias, num_nodes, heads, \
+                           feat, num_rel, max_runs, runs_out, blocks_out, st)
+  const cudaError_t err = vh == 8 ? (vw ? RELGAT_REL_MMA(8, 4)
+                                        : RELGAT_REL_MMA(8, 1))
+                          : vh == 4 ? (vw ? RELGAT_REL_MMA(4, 4)
+                                          : RELGAT_REL_MMA(4, 1))
+                                    : RELGAT_REL_MMA(1, 1);
+#undef RELGAT_REL_MMA
+  return static_cast<int>(err);
+}
+
+// design: kRelDesignTile, or kRelDesignMma (bf16 h only). The tile design
+// takes num_tiles = ceil(N / kRelTileRows) runs of rows and as many dbias
+// partials. The mma design takes num_tiles as the most runs its buffers
+// hold (part_attn [num_tiles, H, R, F], part_bias [num_tiles *
+// kMmaBiasSlices, R]; at least one when N > 0) and uses as many as fill
+// the card's waves best (rel_mma_runs).
 template <typename TH>
 int launch_bwd_rel(const TH* h, const float* w, const float* b,
                    float* part_attn, float* part_bias, float* dattn,
                    float* dbias, int num_nodes, int heads, int feat,
-                   int num_rel, int num_tiles, void* stream) {
+                   int num_rel, int num_tiles, int design, void* stream) {
   using namespace relgat;
-  if (num_tiles != (num_nodes + kRelTileRows - 1) / kRelTileRows)
-    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_tiles > 0) {
+  int runs = num_tiles;
+  int bias_parts = num_tiles;
+  if (design == kRelDesignMma) {
+    if constexpr (sizeof(TH) != 2) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      if ((num_nodes > 0) != (num_tiles > 0) || num_tiles < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      if (num_tiles > 0) {
+        int per_run = 0;
+        const int err = launch_rel_mma(h, w, b, part_attn, part_bias,
+                                       num_nodes, heads, feat, num_rel,
+                                       num_tiles, &runs, &per_run, st);
+        if (err != 0) return err;
+        bias_parts = runs * (per_run < kMmaBiasSlices ? per_run
+                                                      : kMmaBiasSlices);
+      }
+    }
+  } else if (design != kRelDesignTile ||
+             num_tiles != (num_nodes + kRelTileRows - 1) / kRelTileRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (num_tiles > 0) {
     const int rm_need = (num_rel + kRelWarps - 1) / kRelWarps;
     const int rm = rm_need <= 1    ? 1
                    : rm_need <= 2  ? 2
@@ -1010,8 +1818,8 @@ int launch_bwd_rel(const TH* h, const float* w, const float* b,
   const int64_t threads = total > num_rel ? total : num_rel;
   relgat_bwd_rel_reduce_kernel<<<static_cast<unsigned>((threads + 255) / 256),
                                  256, 0, st>>>(part_attn, part_bias, dattn,
-                                               dbias, num_tiles, total,
-                                               num_rel);
+                                               dbias, runs, total, num_rel,
+                                               bias_parts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1053,16 +1861,19 @@ extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,
                               int heads, int feat, int num_rel, int num_tiles,
                               void* stream) {
   return launch_bwd_rel(h, w, b, part_attn, part_bias, dattn, dbias,
-                        num_nodes, heads, feat, num_rel, num_tiles, stream);
+                        num_nodes, heads, feat, num_rel, num_tiles,
+                        relgat::kRelDesignTile, stream);
 }
 
-// The same with h in bf16 (kernel_precision="default").
+// The same with h in bf16 (kernel_precision="default"), in either design:
+// kRelDesignTile (the SIMT tile kernel) or kRelDesignMma (tensor cores).
 extern "C" int relgat_bwd_rel_bf16(const __nv_bfloat16* h, const float* w,
                                    const float* b, float* part_attn,
                                    float* part_bias, float* dattn,
                                    float* dbias, int num_nodes, int heads,
                                    int feat, int num_rel, int num_tiles,
-                                   void* stream) {
+                                   int design, void* stream) {
   return launch_bwd_rel(h, w, b, part_attn, part_bias, dattn, dbias,
-                        num_nodes, heads, feat, num_rel, num_tiles, stream);
+                        num_nodes, heads, feat, num_rel, num_tiles, design,
+                        stream);
 }

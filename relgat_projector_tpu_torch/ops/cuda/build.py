@@ -34,17 +34,19 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); each returns cudaGetLastError.
-# A bf16 variant takes the same arguments, its h (and g) pointing at bf16.
+# A bf16 variant takes the same arguments, its h (and g) pointing at bf16;
+# relgat_bwd_rel_bf16 also its design.
 _FWD = [_P] * 15 + [_I] * 6 + [_F, _F, _I, _I, _U, _F, _I, _P]
 _BWD_SRC = [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _I, _P]
 _BWD_REL = [_P] * 7 + [_I] * 5 + [_P]
+_BWD_REL_BF16 = [_P] * 7 + [_I] * 6 + [_P]  # and the design
 SIGNATURES = {
     "relgat_fwd": ("relgat_fwd", _FWD),
     "relgat_fwd_bf16": ("relgat_fwd", _FWD),
     "relgat_bwd_src": ("relgat_bwd", _BWD_SRC),
     "relgat_bwd_src_bf16": ("relgat_bwd", _BWD_SRC),
     "relgat_bwd_rel": ("relgat_bwd", _BWD_REL),
-    "relgat_bwd_rel_bf16": ("relgat_bwd", _BWD_REL),
+    "relgat_bwd_rel_bf16": ("relgat_bwd", _BWD_REL_BF16),
 }
 
 _lock = threading.Lock()

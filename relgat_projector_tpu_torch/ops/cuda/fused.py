@@ -20,7 +20,11 @@ Past 128 features a head the forward and src pass take one of two designs
 by width and head count (``design_of``): the ring kernels (a producer warp
 streams each edge's row slice into shared memory with bulk copies, a
 consumer warp a head) or the one-warp-a-head template; ``with_design``
-forces either, for timing them side by side.
+forces either, for timing them side by side. ``relgat_bwd_rel_bf16`` has
+two designs too, chosen the same way: ``"mma"``, the tensor cores (each
+fp32 W split exactly into three bf16 pieces, ``split_bf16x3``, three
+bf16 products into fp32), or ``"tile"``, the SIMT kernel that
+``relgat_bwd_rel`` runs.
 
 Each has a bf16 variant (``relgat_fwd_bf16``, ``relgat_bwd_src_bf16``,
 ``relgat_bwd_rel_bf16``) for ``kernel_precision="default"``, the TPU
@@ -71,6 +75,13 @@ MAX_WARPS_PER_BLOCK = 8  # csrc/relgat_common.cuh kMaxWarpsPerBlock
 MAX_BWD_SMEM_BYTES = 48 * 1024  # csrc/relgat_bwd.cu kMaxBwdSmemBytes
 EDGE_TABLE_BYTES = 32 * 32  # csrc/relgat_bwd.cu 32 EdgeEntry a warp
 REL_TILE_ROWS = 512  # csrc/relgat_bwd.cu kRelTileRows
+# The mma design of relgat_bwd_rel_bf16 sums runs of at least
+# REL_MMA_MIN_ROWS node rows a block, each leaving one partial [H, R, F]
+# and up to REL_MMA_BIAS_SLICES partials of dbias (csrc/relgat_bwd.cu
+# kMmaBiasSlices); the kernel picks how many runs by the card's SM count
+# and its own occupancy.
+REL_MMA_MIN_ROWS = 512
+REL_MMA_BIAS_SLICES = 16
 
 
 def _atomic_sum(data, segment_ids, num_segments):
@@ -463,8 +474,45 @@ def relgat_bwd_rel_bf16_plain(h, w, b) -> Tuple[torch.Tensor, torch.Tensor]:
     return relgat_bwd_rel_plain(h.to(w.dtype), w, b)
 
 
-def _launch_bwd_rel(wrapper, h, w, b):
-    """Launch ``wrapper``'s kernels and count the launch."""
+def split_bf16x3(w: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The mma design's split of fp32 ``w`` into three bf16 pieces, as the
+    kernel makes it (``csrc/relgat_bwd.cu`` ``split_bf16x3``): ``hi`` is
+    ``w`` truncated to bf16 (its low 16 bits cleared), ``mid`` the
+    remainder ``w - hi`` truncated, ``lo = w - hi - mid``. Each subtraction
+    is exact, so ``hi + mid + lo == w`` for every finite ``w`` with
+    ``|w| >= 2**-110`` or 0, and truncation keeps ``|w|`` up to FLT_MAX
+    finite. A non-finite ``w`` gives ``hi = w`` (NaN as bf16's NaN) and
+    ``mid = lo = 0``. The kernel's products ``piece x h`` are exact in
+    fp32; this function lets the CPU tests hold the split to that."""
+    if w.dtype != torch.float32:
+        raise ValueError(f"split_bf16x3: W is {w.dtype}, not float32")
+    mask = torch.tensor(-65536, dtype=torch.int32)  # 0xffff0000
+
+    def trunc(x):
+        return (x.view(torch.int32) & mask).view(torch.float32)
+
+    finite = torch.isfinite(w)
+    hi = trunc(w)
+    r = torch.where(finite, w - hi, 0.0)
+    mid = trunc(r)
+    lo = trunc(r - mid)
+    hi = torch.where(torch.isnan(w), w, hi)  # truncation may make NaN inf
+    return tuple(x.to(torch.bfloat16) for x in (hi, mid, lo))
+
+
+def rel_tiles(design: str, n: int) -> int:
+    """Runs of node rows ``relgat_bwd_rel``'s kernels sum apart, one
+    partial ``[H, R, F]`` each, summed in run order after; 0 at ``n = 0``.
+    ``"tile"``: ``ceil(n / REL_TILE_ROWS)``. ``"mma"``: the most runs the
+    kernel may take, ``ceil(n / REL_MMA_MIN_ROWS)``; it takes as many of
+    them as fill whole waves of its blocks on the card best, two waves or
+    more (``csrc/relgat_bwd.cu`` ``rel_mma_runs``)."""
+    return -(-n // (REL_TILE_ROWS if design == "tile" else REL_MMA_MIN_ROWS))
+
+
+def _launch_bwd_rel(wrapper, h, w, b, design=None):
+    """Launch ``wrapper``'s kernels and count the launch (a ``design``
+    forced: see ``with_design``, counted nowhere)."""
     name = wrapper.__name__
     n, hf = h.shape
     _, heads, num_rel = w.shape
@@ -474,18 +522,23 @@ def _launch_bwd_rel(wrapper, h, w, b):
             f"{name}: h {tuple(h.shape)}, W {tuple(w.shape)} and "
             f"B {tuple(b.shape)} do not match"
         )
-    tiles = -(-n // REL_TILE_ROWS)
+    bf16 = wrapper is relgat_bwd_rel_bf16
+    chosen = (design or design_of(wrapper, heads, f)) if bf16 else "tile"
+    tiles = rel_tiles(chosen, n)
+    bias_parts = tiles * (REL_MMA_BIAS_SLICES if chosen == "mma" else 1)
     part_attn = _f32(h, (tiles, heads, num_rel, f))
-    part_bias = _f32(h, (tiles, num_rel))
+    part_bias = _f32(h, (bias_parts, num_rel))
     dattn = _f32(h, (heads, num_rel, f))
     dbias = _f32(h, (num_rel,))
-    rc = entry_point(name)(
-        h.data_ptr(), w.data_ptr(), b.data_ptr(), part_attn.data_ptr(),
-        part_bias.data_ptr(), dattn.data_ptr(), dbias.data_ptr(),
-        n, heads, f, num_rel, tiles, _stream(),
-    )
+    args = [h.data_ptr(), w.data_ptr(), b.data_ptr(), part_attn.data_ptr(),
+            part_bias.data_ptr(), dattn.data_ptr(), dbias.data_ptr(),
+            n, heads, f, num_rel, tiles]
+    if bf16:
+        args.append(REL_DESIGNS[chosen])
+    rc = entry_point(name)(*args, _stream())
     _raise_on(rc, name)
-    wrapper.launches += 1
+    if design is None:
+        wrapper.launches += 1
     return dattn, dbias
 
 
@@ -498,7 +551,9 @@ def relgat_bwd_rel(h, w, b):
 
 
 def relgat_bwd_rel_bf16(h, w, b):
-    """``relgat_bwd_rel`` reading ``h`` as bf16 rows; fp32 outputs."""
+    """``relgat_bwd_rel`` reading ``h`` as bf16 rows; fp32 outputs. On the
+    card the design of ``design_of``: the tensor cores (``"mma"``) or the
+    SIMT tile kernel (``"tile"``)."""
     if not _on_card("relgat_bwd_rel_bf16", None, h, w, b, bf16_rows=1):
         return relgat_bwd_rel_bf16_plain(h, w, b)
     return _launch_bwd_rel(relgat_bwd_rel_bf16, h, w, b)
@@ -508,8 +563,10 @@ relgat_bwd_rel.launches = 0
 relgat_bwd_rel_bf16.launches = 0
 
 
-# csrc/relgat_common.cuh kDesignLanes, kDesignRing
+# csrc/relgat_common.cuh kDesignLanes, kDesignRing: the forward and src pass
 DESIGNS = {"lanes": 1, "ring": 2}
+# csrc/relgat_bwd.cu kRelDesignTile, kRelDesignMma: relgat_bwd_rel_bf16
+REL_DESIGNS = {"tile": 1, "mma": 2}
 
 
 # Where each forward or src pass takes the ring kernel: ranges of
@@ -528,33 +585,64 @@ RING_RANGES = {
 }
 
 
+# Where relgat_bwd_rel_bf16 takes the tensor cores ("mma"): ranges of
+# (fewest features, most features, fewest heads) a head, at head widths
+# that are a multiple of MMA_FEAT_MULTIPLE. On an H100 80GB HBM3 (700 W;
+# rel_designs.py, PERF.md section 6, R = 40, two passes) the tensor cores
+# took 0.30-0.80 of the tile kernel's time at each such width timed with 2
+# to 20 heads, 32 to 1024 features; at 3 x 301 (h copied one value at a
+# time) 1.13 of it, and at 1 x 128 (0.05-0.09 ms) 0.70 in one pass and
+# 1.28 in the other. So other widths, one head, and widths under 32 (not
+# timed) keep the tile kernel.
+MMA_RANGES = ((32, 1024, 2),)
+MMA_FEAT_MULTIPLE = 4
+
+
+def _in_ranges(ranges, heads, feat) -> bool:
+    return any(lo <= feat <= hi and heads >= fewest
+               for lo, hi, fewest in ranges)
+
+
 def design_of(wrapper, heads: int, feat: int) -> str:
-    """The design a forward or src-pass wrapper launches at ``heads`` heads
-    of ``feat`` features: ``"ring"``, the ring kernel, inside one of its
-    ``RING_RANGES``, else ``"lanes"``, the one-warp-a-head template (also
-    at every F <= 128, where the pair kernels and the template take the
-    call)."""
-    return ("ring" if any(lo <= feat <= hi and heads >= fewest for
-                          lo, hi, fewest in RING_RANGES[wrapper.__name__])
+    """The design a wrapper launches at ``heads`` heads of ``feat``
+    features. A forward or src pass: ``"ring"``, the ring kernel, inside
+    one of its ``RING_RANGES``, else ``"lanes"``, the one-warp-a-head
+    template (also at every F <= 128, where the pair kernels and the
+    template take the call). ``relgat_bwd_rel_bf16``: ``"mma"``, the tensor
+    cores, inside ``MMA_RANGES`` at a multiple of ``MMA_FEAT_MULTIPLE``
+    features, else ``"tile"``."""
+    if wrapper is relgat_bwd_rel_bf16:
+        return ("mma" if feat % MMA_FEAT_MULTIPLE == 0
+                and _in_ranges(MMA_RANGES, heads, feat) else "tile")
+    return ("ring" if _in_ranges(RING_RANGES[wrapper.__name__], heads, feat)
             else "lanes")
 
 
+def designs_of(wrapper) -> Tuple[str, ...]:
+    """The designs ``with_design`` takes for ``wrapper``."""
+    return tuple(REL_DESIGNS if wrapper is relgat_bwd_rel_bf16 else DESIGNS)
+
+
 def with_design(wrapper, design, *args, **kw):
-    """``wrapper`` (a forward or src-pass wrapper, fp32 or bf16) on CUDA
-    tensors through one design at heads wider than 128 features, whichever
-    ``design_of`` would take: ``"ring"``, the ring kernel, or ``"lanes"``,
-    the one-warp-a-head template. For timing each design and holding it to
-    the plain version; its launches count nowhere. The arguments after
+    """``wrapper`` on CUDA tensors through one of its designs, whichever
+    ``design_of`` would take: a forward or src-pass wrapper (fp32 or bf16)
+    at heads wider than 128 features through ``"ring"``, the ring kernel,
+    or ``"lanes"``, the one-warp-a-head template; ``relgat_bwd_rel_bf16``
+    through ``"mma"`` or ``"tile"``. For timing each design and holding it
+    to the plain version; its launches count nowhere. The arguments after
     ``design`` are ``wrapper``'s."""
     launch = {relgat_fwd: _launch_fwd, relgat_fwd_bf16: _launch_fwd,
               relgat_bwd_src: _launch_bwd_src,
-              relgat_bwd_src_bf16: _launch_bwd_src}[wrapper]
-    bf16_rows = {relgat_fwd_bf16: 1, relgat_bwd_src_bf16: 2}.get(wrapper, 0)
-    if not _on_card(wrapper.__name__, args[-1], *args[:-1],
-                    bf16_rows=bf16_rows):
+              relgat_bwd_src_bf16: _launch_bwd_src,
+              relgat_bwd_rel_bf16: _launch_bwd_rel}[wrapper]
+    bf16_rows = {relgat_fwd_bf16: 1, relgat_bwd_src_bf16: 2,
+                 relgat_bwd_rel_bf16: 1}.get(wrapper, 0)
+    csr, tensors = ((None, args) if wrapper is relgat_bwd_rel_bf16
+                    else (args[-1], args[:-1]))
+    if not _on_card(wrapper.__name__, csr, *tensors, bf16_rows=bf16_rows):
         raise ValueError(f"{wrapper.__name__}: a design is chosen on the "
                          "card only")
-    if design not in DESIGNS:
+    if design not in designs_of(wrapper):
         raise ValueError(f"{wrapper.__name__}: no design {design!r}")
     return launch(wrapper, *args, design=design, **kw)
 

@@ -201,6 +201,86 @@ def test_bf16_cuda_tensors_never_fall_back(card):
     assert kern.launch_counts() == before
 
 
+def _rel_case(heads, feat, num_rel, n, seed=0):
+    """bf16 h, and W and B of the magnitudes the src pass leaves."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = (torch.randn((n, heads * feat), generator=gen, device="cuda")
+         * 0.5).to(torch.bfloat16)
+    w = torch.randn((n, heads, num_rel), generator=gen, device="cuda") * 0.01
+    b = torch.randn((n, num_rel), generator=gen, device="cuda")
+    return h, w, b
+
+
+@pytest.mark.parametrize("n", (0, 1, 511, 2_049, 25_008))
+@pytest.mark.parametrize(
+    "heads,feat,num_rel",
+    [(1, 8, 7), (3, 40, 7), (16, 128, 40), (16, 128, 300), (12, 300, 40),
+     (3, 301, 7), (16, 200, 40), (2, 1024, 7), (4, 32, 1)],
+)
+def test_bwd_rel_bf16_both_designs(card, heads, feat, num_rel, n):
+    """relgat_bwd_rel_bf16 in each design, forced: the tensor cores (three
+    exact bf16 products of W's split) and the SIMT tile kernel, within the
+    bar of the float64 plain version and the same bits twice, at F = 301
+    (one-value copies) and 300 (8-byte copies), R past one relation tile
+    (300), n of no rows, one row, rows not a multiple of a stage and a shard
+    layout's 25,008; forced launches count nowhere, the dispatch's once."""
+    h, w, b = _rel_case(heads, feat, num_rel, n, seed=heads + feat + n)
+    want = _exact(kern.relgat_bwd_rel_bf16_plain, h, w, b)
+    before = kern.launch_counts()
+    for design in kern.designs_of(kern.relgat_bwd_rel_bf16):
+        one = kern.with_design(kern.relgat_bwd_rel_bf16, design, h, w, b)
+        two = kern.with_design(kern.relgat_bwd_rel_bf16, design, h, w, b)
+        for a, c in zip(one, two):
+            assert torch.equal(a, c), design
+        for a, c in zip(one, want):
+            assert a.dtype == torch.float32 and a.shape == c.shape
+            assert _rel(a, c) <= REL_TOL, design
+    assert kern.launch_counts() == before
+    with pytest.raises(ValueError, match="no design"):
+        kern.with_design(kern.relgat_bwd_rel_bf16, "ring", h, w, b)
+    got = kern.relgat_bwd_rel_bf16(h, w, b)
+    design = kern.design_of(kern.relgat_bwd_rel_bf16, heads, feat)
+    for a, c in zip(got, kern.with_design(kern.relgat_bwd_rel_bf16, design,
+                                          h, w, b)):
+        assert torch.equal(a, c)
+    torch.cuda.synchronize()
+    after = kern.launch_counts()
+    assert after["relgat_bwd_rel_bf16"] == before["relgat_bwd_rel_bf16"] + 1
+
+
+@pytest.mark.parametrize("design", ("tile", "mma"))
+@pytest.mark.parametrize("kind", ("magnitudes", "nonfinite"))
+def test_bwd_rel_bf16_extreme_w(card, design, kind):
+    """W of magnitudes 1e-30 to 1e30 (random signs): within the bar of the
+    float64 plain version; W with inf, -inf and NaN entries (one NaN whose
+    payload lies in the low 16 bits, one inf against an h of 0): inf and
+    NaN in the same entries as the plain version, the finite rest within
+    the bar."""
+    h, w, b = _rel_case(3, 40, 7, 2_049, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    if kind == "magnitudes":
+        mag = 10.0 ** (torch.rand(w.shape, generator=gen, device="cuda") * 60
+                       - 30)
+        w = torch.sign(torch.randn(w.shape, generator=gen, device="cuda")) * mag
+    else:
+        w[5, 0, 1] = float("inf")
+        w[7, 1, 2] = float("-inf")
+        w[9, 2, 3] = float("nan")
+        w[11, 0, 1] = float("-inf")
+        w[13, 2, 4] = float("inf")
+        w[15, 1, 5] = torch.tensor(0x7F800001, dtype=torch.int32).view(
+            torch.float32)
+        h[13, 2 * 40 + 3] = 0.0
+    want = _exact(kern.relgat_bwd_rel_bf16_plain, h, w, b)[0]
+    got = kern.with_design(kern.relgat_bwd_rel_bf16, design, h, w, b)[0]
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got[torch.isinf(got)], want[torch.isinf(want)].float())
+    fin = torch.isfinite(want)
+    assert bool(fin.any())
+    assert _rel(got[fin], want[fin]) <= REL_TOL
+
+
 def _degree_case(heads, feat, num_rel=5, n=600, seed=0):
     """A graph whose rows have in- and out-degrees of 0, 1, 2 and 3, with
     self-loops, repeated (src, dst, relation) edges and one row of 700
