@@ -3,19 +3,27 @@
 The kernels of the checkout this file lies in (fp32 and bf16; forward, src
 pass and relation reduction; attention dropout 0 and 0.3) run on seeded
 inputs at ``chip_smoke.py``'s ``TRAIN`` shapes (100k nodes, 1M edges, a
-split hub row, 16 heads x 128, 40 relations) and their outputs are saved;
-``compare`` holds two such files to each other with ``torch.equal``. Python
-puts a script's own directory first on its path, so a copy of this file in
+hub row the forward splits, 40 relations; 16 heads x 128, and 12 x 300,
+where the ring kernels run) and a SHA-256 digest of each output's bytes is
+saved; ``compare`` holds two such files to each other. Python puts a
+script's own directory first on its path, so a copy of this file in
 another checkout's root runs that checkout's kernels:
 
     python3 chip_bits.py run A.pt
     cp chip_bits.py OTHER/ && python3 OTHER/chip_bits.py run B.pt
     python3 chip_bits.py compare A.pt B.pt   # exit 0: the same bits
 """
+import hashlib
 import sys
 
 import numpy as np
 import torch
+
+SHAPES = ((16, 128), (12, 300))
+
+
+def digest(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
 def run(out):
@@ -23,11 +31,19 @@ def run(out):
     from relgat_projector_tpu_torch.ops import cuda as kern
 
     rng = np.random.default_rng(0)
-    n, e, r, heads, feat = 100_000, 1_000_000, 40, 16, 128
+    n, e, r = 100_000, 1_000_000, 40
     src, dst, et = (rng.integers(0, n, e), rng.integers(0, n, e),
                     rng.integers(0, r, e))
     dst[:60_000] = 5  # a hub the forward splits
     g = build_graph(src, dst, et, n, num_rel=r, csr=True, device="cuda")
+    res = {}
+    for heads, feat in SHAPES:
+        res.update(shape_digests(kern, g, r, heads, feat))
+    torch.save(res, out)
+    print("saved", out, sorted(res))
+
+
+def shape_digests(kern, g, r, heads, feat):
     gen = torch.Generator(device="cuda").manual_seed(1)
     h = torch.randn((g.num_nodes, heads * feat), generator=gen, device="cuda")
     cot = torch.randn(h.shape, generator=gen, device="cuda")
@@ -48,18 +64,23 @@ def run(out):
             dh, w, bb = bsrc(rows, grows, attn, m, l, s_dot, cot.sum(1),
                              g.csr, **kw)
             da, db = brel(rows, w, bb)
-            key = f"{'bf16' if bf16 else 'fp32'}_{rate}"
-            res[key] = [x.cpu() for x in (o, m, l, b, dh, w, bb, da, db)]
-    torch.cuda.synchronize()
-    torch.save(res, out)
-    print("saved", out, sorted(res))
+            key = f"{heads}x{feat}_{'bf16' if bf16 else 'fp32'}_{rate}"
+            res[key] = [digest(x) for x in (o, m, l, b, dh, w, bb, da, db)]
+    return res
+
+
+OUTPUTS = ("out", "m", "l", "bias", "dh", "w", "b", "dattn", "dbias")
 
 
 def compare(a, b):
     x, y = torch.load(a), torch.load(b)
-    same = {k: all(torch.equal(p, q) for p, q in zip(x[k], y[k]))
-            for k in sorted(x)}
+    same = {k: x[k] == y.get(k) for k in sorted(x)}
     print("same bits:", same)
+    for k in sorted(x):
+        if not same[k]:
+            print("differ:", k, [o for o, p, q in
+                                 zip(OUTPUTS, x[k], y.get(k, [None] * 9))
+                                 if p != q])
     return 0 if all(same.values()) and sorted(x) == sorted(y) else 1
 
 

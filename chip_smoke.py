@@ -24,8 +24,9 @@ Phases, in order; any failure exits non-zero:
               preset), (16, 128), (3, 128) and (1, 128) (odd head counts:
               the bf16 pair kernels' unpaired last head), on a 4,000-node
               graph whose rows have exactly 0, 1,
-              2 and 3 in- and out-edges, self-loops, a repeated triple and
-              a row of 1,000 in-edges that the forward splits. Past F = 128
+              2 and 3 in- and out-edges, self-loops, a repeated triple, a
+              row of 1,000 in-edges that the forward splits and a row of
+              1,000 out-edges that the src pass splits. Past F = 128
               the forward and src pass also in both designs (the ring
               kernel and the one-warp-a-head template, ops.cuda.with_design)
               against the float64 plain version, and the dispatch the same
@@ -127,9 +128,16 @@ Phases, in order; any failure exits non-zero:
               p ~ 1/rank, bench.py's zipf class; the heaviest row has ~83k
               in-edges): 3 warm-up and 5 timed train steps, and relgat_fwd
               timed on that graph and held to its float64 plain version on
-              the in-edges of the 16 heaviest and 1,024 random rows; then,
-              a diagnostic without a bar, relgat_bwd_src_bf16 on that graph
-              with src and dst swapped (out-degree hubs).
+              the in-edges of the 16 heaviest and 1,024 random rows.
+   zipf_src - the same graph with src and dst swapped (out-degree hubs,
+              which the src pass's work plan splits): 3 warm-up and 5
+              timed train steps in fp32 and in the bf16 mode against the
+              uniform graph's ("train_zipf_src"), and relgat_bwd_src and
+              relgat_bwd_src_bf16 timed on that graph and held to their
+              float64 plain versions on the out-edges of the 16 heaviest
+              and 1,024 random source rows, those rows' dh, W and B equal
+              bit for bit to the same rows computed alone, and the same
+              bits twice.
 8. trainer  - the port's CLI (cli.main, in process) on the card with the
               production script's flags (preset small, 16 heads x 128, 2
               GAT layers, projection to the input with 2 layers, distmult,
@@ -235,7 +243,8 @@ seconds the remat, param_bf16, train_fp16, param_fp16 and edges_8m phases
 took, and a "serve" line
 (after phase 8) the serve phase's and the export CLI's times and launches.
 The profiles go through the package's utils.profiling.trace. The timing runs --kernels-only
-(phase 6 alone, launches null) and --zipf-only (phase 7 alone) end with
+(phase 6 alone, launches null) and --zipf-only (phase 7 alone, beside
+the uniform graph's steps) end with
 {"timing_only": true, "device": {...}} instead. With --out DIR the result
 lines, profiler traces of two train steps (a directory each) and the
 trainer's console logs are also written there (its checkpoints go to a
@@ -348,7 +357,8 @@ ZIPF = dict(warmup_steps=3, timed_steps=5, heavy_rows=16, random_rows=1_024)
 # the one-warp-a-head template) are held, whichever the width takes.
 WIDE_SHAPES = ((12, 300), (4, 512), (2, 1024), (3, 301), (16, 200),
                (12, 256), (16, 128), (3, 128), (1, 128))
-WIDE = dict(num_nodes=4_000, num_edges=40_000, num_rel=40, hub_degree=1_000)
+WIDE = dict(num_nodes=4_000, num_edges=40_000, num_rel=40, hub_degree=1_000,
+            out_hub_degree=1_000)
 # The library's default widths on TRAIN's graph: 12 heads x 300, one GAT
 # layer (config.py), the rest of the TRAIN model as it is.
 DEFAULT_WIDTH = dict(heads=12, feat=300, layers=1, warmup_steps=1,
@@ -621,7 +631,8 @@ def phase_parity(card, out_lines):
 def wide_graph(rng):
     """``WIDE``'s graph: uniform edges among rows 300.., and rows 200..299
     made by hand, so their degrees are exact: rows with 1, 2 and 3
-    in-edges, rows with 1, 2 and 3 out-edges, self-loops, a (src, dst,
+    in-edges, rows with 1, 2 and 3 out-edges, self-loops, one row of
+    ``out_hub_degree`` out-edges that the src pass splits, a (src, dst,
     relation) triple three times, and one row of ``hub_degree`` in-edges
     that the forward splits; rows 0..199 have no edges at all. Edge order
     shuffled."""
@@ -637,6 +648,8 @@ def wide_graph(rng):
             dst += list(rng.integers(300, n, k))
     src += list(range(260, 280))                   # self-loops
     dst += list(range(260, 280))
+    src += [295] * c["out_hub_degree"]             # an out-degree hub
+    dst += list(rng.integers(300, n, c["out_hub_degree"]))
     src += [280] * 4                               # a repeated triple
     dst += [281] * 4
     src += list(rng.integers(300, n, c["hub_degree"]))
@@ -657,7 +670,8 @@ def phase_parity_wide(card, out_lines):
     graph = build_graph(src, dst, et, c["num_nodes"], num_rel=c["num_rel"],
                         csr=True, device=DEVICE)
     csr = graph.csr
-    check(csr.fwd_num_split == 1, "the wide parity graph lacks a split row")
+    check(csr.fwd_num_split == 1 and csr.bwd_num_split == 1,
+          "the wide parity graph lacks a split row in either pass")
     worst = 0.0
     for (heads, feat), bf16, rate in itertools.product(
             WIDE_SHAPES, (False, True), (0.0, 0.3)):
@@ -1287,14 +1301,17 @@ def phase_remat(card, out_lines, graph, node_emb, batches):
 def layout_bytes(graph, heads, feat):
     """The bytes on the card that a graph's layout holds, from its arrays'
     shapes: the COO (3 x int64 an edge), the dst- and src-CSR (6 x int32 an
-    edge, 2 row pointers), the forward's work plan (4 x int32 an item, 3 x
-    int32 a split row) and the split rows' partials, which the forward
-    allocates (heads x (feat + 2) x fp32 and one fp64 a slot)."""
+    edge, 2 row pointers), the forward's and the src pass's work plans (4 x
+    int32 an item, 3 x int32 a split row) and the split rows' partials,
+    which the forward allocates (heads x (feat + 2) x fp32 and one fp64 a
+    slot) and the src pass (heads x (feat + R) + R fp32 a slot)."""
     c = graph.csr
     coo = 3 * 8 * graph.num_edges_padded
     csr = 6 * 4 * c.num_edges + 2 * 4 * (c.num_nodes + 1)
-    plan = 4 * 4 * c.fwd_num_items + 3 * 4 * c.fwd_num_split
-    parts = c.fwd_num_parts * (heads * (feat + 2) * 4 + 8)
+    plan = (4 * 4 * (c.fwd_num_items + c.bwd_num_items)
+            + 3 * 4 * (c.fwd_num_split + c.bwd_num_split))
+    parts = (c.fwd_num_parts * (heads * (feat + 2) * 4 + 8)
+             + c.bwd_num_parts * (heads * (feat + c.num_rel) + c.num_rel) * 4)
     return coo + csr + plan + parts
 
 
@@ -2017,8 +2034,7 @@ def phase_zipf(card, uniform_step_ms, out_lines):
         "card": card,
         "row_gather_bytes": 4 * csr.num_edges * t["heads"] * t["feat"],
     }
-    del got
-    zipf_src_hubs(src, dst, et, inputs, card, out_lines)
+    del got, inputs
     check(err_rel <= REL_TOL,
           f"relgat_fwd on the zipf graph: max relative error {err_rel}")
     check(same, "relgat_fwd gave other bits on the zipf graph's rows than "
@@ -2026,28 +2042,173 @@ def phase_zipf(card, uniform_step_ms, out_lines):
     return row
 
 
-def zipf_src_hubs(src, dst, et, inputs, card, out_lines):
-    """Diagnostic, no bar: relgat_bwd_src_bf16 on the zipf graph with src
-    and dst swapped, so that its hubs are out-degree hubs, which the src
-    pass walks one block per source row (``ROADMAP.md`` Queue 2)."""
-    t = TRAIN
-    sw = build_graph(dst, src, et, t["num_nodes"], num_rel=t["num_rel"],
-                     csr=True, device=DEVICE).csr
+def uniform_steps_ms():
+    """Step ms of ``TRAIN``'s model on its uniform graph, fp32 and bf16,
+    with ``ZIPF``'s warm-up and timed steps: the yardstick of the zipf
+    phases when they run alone (``--zipf-only``)."""
+    t, z = TRAIN, ZIPF
+    torch.cuda.empty_cache()
+    src, dst, et, emb, picks = train_inputs(np.random.default_rng(SEED))
+    graph = build_graph(src, dst, et, t["num_nodes"], num_rel=t["num_rel"],
+                        csr=True, device=DEVICE)
+    node_emb = torch.from_numpy(
+        pad_node_embeddings(emb, graph.num_nodes)).to(DEVICE)
+    batches = edge_batches(
+        src, et, dst, picks[:z["warmup_steps"] + z["timed_steps"]])
+    res = {}
+    for bf16 in (False, True):
+        step_s = train_steps(node_emb, graph, batches, z["warmup_steps"],
+                             **(BF16_MODE if bf16 else {}))[4]
+        res["bf16" if bf16 else "fp32"] = step_s * 1e3
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_zipf_src(card, uniform_ms, out_lines):
+    """The train step, fp32 and bf16, and the src pass on the zipf graph
+    with src and dst swapped, so that its hubs are out-degree hubs (up to
+    ~83k out-edges a row), which the src pass's work plan splits.
+    ``uniform_ms`` holds the uniform graph's step ms by variant ("fp32",
+    "bf16"). Returns the kernels line's rows of relgat_bwd_src and
+    relgat_bwd_src_bf16 on this graph ("zipf_src"): launches from these
+    train steps, errors against the float64 plain version on the
+    out-edges of the heaviest and some random source rows (a float64
+    [E, H, F] of the whole graph would not fit), those rows' dh, W and B
+    equal bit for bit to the same rows computed alone, and the same bits
+    twice. It reads the work plan's size only where the layout has one, so
+    it also times a package from before the plan."""
+    t, z = TRAIN, ZIPF
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 11)
+    dst, src, et = zipf_graph(rng)  # swapped: the hubs are sources
+    outdeg = np.bincount(src, minlength=t["num_nodes"])
+    graph = build_graph(src, dst, et, t["num_nodes"], num_rel=t["num_rel"],
+                        csr=True, device=DEVICE)
+    csr = graph.csr
+    plan = {k: getattr(csr, f"bwd_num_{k}", None)
+            for k in ("items", "split", "parts")}
+    print(f"zipf_src graph: max out-degree {int(outdeg.max())}, "
+          f"{plan['split']} source rows split into {plan['parts']} chunks",
+          flush=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    node_emb = torch.randn((graph.num_nodes, t["in_dim"]), generator=gen,
+                           device=DEVICE)
+    node_emb[t["num_nodes"]:] = 0.0  # padded rows, as pad_node_embeddings
+    steps = z["warmup_steps"] + z["timed_steps"]
+    batches = edge_batches(
+        src, et, dst, rng.integers(0, t["num_edges"], (steps, t["batch"])))
+    record = {"phase": "train_zipf_src", "card": card,
+              "nodes": t["num_nodes"], "edges": t["num_edges"],
+              "max_out_degree": int(outdeg.max()),
+              "rows_without_out_edges": int((outdeg == 0).sum()),
+              "split_rows": plan["split"], "work_items": plan["items"],
+              "partial_slots": plan["parts"], "steps": steps,
+              "timed_steps": z["timed_steps"]}
+    launches = {}
+    for bf16 in (False, True):
+        variant = "bf16" if bf16 else "fp32"
+        _, step, state, metrics, step_s, counts, _ = train_steps(
+            node_emb, graph, batches, z["warmup_steps"],
+            **(BF16_MODE if bf16 else {}))
+        record[variant] = {
+            "step_ms": step_s * 1e3,
+            "uniform_step_ms": uniform_ms[variant],
+            "step_vs_uniform": step_s * 1e3 / uniform_ms[variant],
+            "edge_messages_per_s": t["num_edges"] * t["layers"] / step_s,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "launches": counts}
+        check_train(metrics, counts,
+                    expected_launches(bf16, t["layers"] * steps),
+                    f"train_zipf_src {variant}")
+        launches[VARIANTS[bf16][1]] = counts[VARIANTS[bf16][1]]
+        del state, step
+        torch.cuda.empty_cache()
+    emit(record, out_lines)
+    del node_emb, batches
+    return zipf_src_rows(src, dst, et, csr, outdeg, launches, rng, card,
+                         out_lines)
+
+
+def zipf_src_rows(src, dst, et, csr, outdeg, launches, rng, card,
+                  out_lines):
+    """``phase_zipf_src``'s rows of the kernels line, each checked."""
+    t, z = TRAIN, ZIPF
+    n = csr.num_nodes
+    inputs = make_kernel_inputs(csr, n, t["heads"], t["feat"], t["num_rel"],
+                                SEED + 7)
     kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
-    h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
-    rh, rg = h.to(torch.bfloat16), g.to(torch.bfloat16)
-    out, m, l, b = KERNELS["relgat_fwd_bf16"](rh, attn, bias, sw, **kw)
-    n = h.shape[0]
-    s_dot = ((out - b[:, None]) * g).view(n, t["heads"], t["feat"]).sum(-1)
-    args = (rh, rg, attn, m, l, s_dot, g.sum(1), sw)
-    ms = cuda_ms(lambda: KERNELS["relgat_bwd_src_bf16"](*args, **kw), reps=5,
-                 warmup=1)
-    outdeg = np.bincount(dst, minlength=t["num_nodes"])
-    print(f"zipf src hubs: relgat_bwd_src_bf16 {ms:.3f} ms, max out-degree "
-          f"{int(outdeg.max())}", flush=True)
-    emit({"phase": "zipf_src_hubs", "card": card,
-          "kernel": "relgat_bwd_src_bf16", "ms": ms,
-          "max_out_degree": int(outdeg.max())}, out_lines)
+    by_degree = np.argsort(outdeg, kind="stable")
+    rows = np.concatenate([
+        by_degree[-z["heavy_rows"]:],
+        rng.choice(by_degree[:-z["heavy_rows"]], z["random_rows"],
+                   replace=False)])
+    keep = np.isin(src, rows)
+    sub = build_graph(src[keep], dst[keep], et[keep], t["num_nodes"],
+                      num_rel=t["num_rel"], csr=True, device=DEVICE).csr
+    rows_t = torch.from_numpy(rows).to(DEVICE)
+    out = []
+    for bf16 in (False, True):
+        name = VARIANTS[bf16][1]
+        src_pass, plain = KERNELS[name], PLAIN[name]
+        _, v = variant_calls(inputs, bf16, kw)
+        args = (v["rh"], v["rg"], inputs["attn"], v["m"], v["l"],
+                v["s_dot"], v["gsum"])
+        del v
+        first = src_pass(*args, csr, **kw)
+        same_twice = all(torch.equal(a, b) for a, b in
+                         zip(first, src_pass(*args, csr, **kw)))
+        alone = src_pass(*args, sub, **kw)
+        same_alone = all(torch.equal(a[rows_t], b[rows_t])
+                         for a, b in zip(alone, first))
+        del first
+        torch.cuda.empty_cache()
+        want = plain(*(a.double() for a in args), sub, **kw)
+        errs = {key: {"max_rel_err": rel_err(a[rows_t], b[rows_t]),
+                      "max_abs_err": abs_err(a[rows_t], b[rows_t])}
+                for key, a, b in zip(("dh", "w", "b"), alone, want)}
+        del alone, want
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: src_pass(*args, csr, **kw), reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda: plain(*args, csr, **kw), reps=2)
+        row_bytes = args[0].element_size()
+        nbytes, flops = bounds(n, csr.num_edges, t["heads"], t["feat"],
+                               t["num_rel"],
+                               row_bytes=row_bytes)["relgat_bwd_src"]
+        best, by = bound_ms(nbytes, flops)
+        source, replaces = KERNEL_SOURCES[name]
+        worst = max(e["max_rel_err"] for e in errs.values())
+        row = {
+            "name": name, "graph": "zipf_src", "heads": t["heads"],
+            "feat": t["feat"], "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "max_rel_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": best, "bound_by": by, "library_ms": None,
+            "reference": "float64", "parity_rows": int(rows.size),
+            "parity_edges": int(keep.sum()),
+            "max_out_degree": int(outdeg.max()),
+            "split_rows": getattr(csr, "bwd_num_split", None),
+            "same_bits_twice": same_twice,
+            "rows_alone_bit_identical": same_alone,
+            "bytes": nbytes, "flops": flops, "card": card,
+            "row_gather_bytes": (row_bytes * csr.num_edges * t["heads"]
+                                 * t["feat"]),
+        }
+        print(f"zipf_src: {name} {ms:.3f} ms, max rel err {worst:.3g}",
+              flush=True)
+        emit({"phase": "kernel", **row, **row_gather_floor(row),
+              "errors": errs}, out_lines)
+        out.append(row)
+        del args
+        torch.cuda.empty_cache()
+        check(worst <= REL_TOL,
+              f"{name} on the zipf_src graph: max relative error {worst}")
+        check(same_twice, f"{name} gave other bits in a second call on the "
+                          "zipf_src graph")
+        check(same_alone, f"{name} gave other bits on the zipf_src graph's "
+                          "rows than on the same rows alone")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3469,9 +3630,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the result lines and a trace")
     ap.add_argument("--zipf-only", action="store_true",
-                    help="build the kernels and run phase 7 alone; a copy of "
-                         "this file run from another checkout times that "
-                         "checkout's package on the zipf graph")
+                    help="build the kernels and run phase 7 alone (zipf "
+                         "and zipf_src, beside the uniform graph's steps); "
+                         "a copy of this file run from another checkout "
+                         "times that checkout's package on the zipf graphs")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build the kernels and time them at TRAIN's widths "
                          "on its graph (phase 6 alone, launches null); a "
@@ -3507,7 +3669,9 @@ def main(argv=None) -> int:
     emit({"phase": "build", "build_s": build_s, "card": card}, out_lines)
 
     if args.zipf_only:
-        kernels = [phase_zipf(card, None, out_lines)]
+        uniform = uniform_steps_ms()
+        kernels = [phase_zipf(card, uniform["fp32"], out_lines)]
+        kernels += phase_zipf_src(card, uniform, out_lines)
     elif args.kernels_only:
         src, dst, et, _, _ = train_inputs(np.random.default_rng(SEED))
         graph = build_graph(src, dst, et, TRAIN["num_nodes"],
@@ -3550,6 +3714,9 @@ def main(argv=None) -> int:
                                 card, out_lines)
         del graph
         kernels.append(phase_zipf(card, step_ms, out_lines))
+        kernels += phase_zipf_src(
+            card, {"fp32": step_ms, "bf16": bf16_record["step_ms"]},
+            out_lines)
         serve.update(phase_trainer(card, out_lines, args.out))
         kernels += phase_halo(card, out_lines, args.out)
         emit({"phase": "serve", "card": card, **serve}, out_lines)

@@ -18,15 +18,25 @@
 // over the edges e with src s and relation r. The TPU kernel carries dattn
 // and dbias across its sequential grid; blocks on this card run in no order,
 // so the work is two kernels, both without atomics, hence deterministic:
-//   relgat_bwd_src_kernel   one warp per (src row, head) walks the row's
+//   relgat_bwd_src_kernel   one warp per (work item, head) walks the item's
 //       out-edges in src-CSR order with h[s] and the dh accumulator in
-//       registers and writes every dh row once. It folds each edge's de into
-//       a slab of R floats in shared memory that only this warp touches (the
-//       head-0 warp folds gsum[d] into one more), lane 0 adding edge by edge,
-//       and writes the slabs out as W[s, head, :] and B[s, :], zeros
-//       included. W costs N*H*R*4 bytes (256 MB at N = 100k, H = 16,
-//       R = 40), B N*R*4; no per-edge array is written (the per-edge de
-//       [E, H] of the first design was 64 MB at 1M edges).
+//       registers. A work item (data/csr.py build_bwd_plan) is a source row
+//       of at most bwd_item_edges out-edges, rows without out-edges
+//       included, or one chunk of that many consecutive out-edges of a
+//       longer row, so a hub row costs its edges spread over many blocks
+//       and not one warp's serial walk. The warp folds each edge's de into
+//       a slab of R floats in shared memory that only it touches (the
+//       head-0 warp folds gsum[d] into one more), lane 0 adding edge by
+//       edge. A whole row's item writes dh[s] and the slabs as W[s, head, :]
+//       and B[s, :], zeros included; a chunk writes the same rows at row
+//       N + slot of the same arrays, after their N source rows, and
+//       relgat_bwd_src_merge_kernel adds each split row's partial rows in
+//       chunk order (one thread a value, the first chunk first) into dh[s],
+//       W[s] and B[s]. So the bits depend on the
+//       plan and not on the run, and a row that no plan splits gets the
+//       same bits as before the plan. W costs N*H*R*4 bytes (256 MB at
+//       N = 100k, H = 16, R = 40), B N*R*4; no per-edge array is written
+//       (the per-edge de [E, H] of the first design was 64 MB at 1M edges).
 //   relgat_bwd_rel_*        a streaming reduction over node rows: each block
 //       takes a tile of kRelTileRows rows of one head, stages W and h through
 //       shared memory with cp.async (kRelStages buffers), accumulates an
@@ -70,7 +80,7 @@
 // ops/cuda/fused.py design_of picks one by width, as measured.
 //
 // Wider heads (F > 128, up to 1024), fp32 or bf16 rows:
-// relgat_bwd_src_ring_kernel gives a block a source row and a group of up to
+// relgat_bwd_src_ring_kernel gives a block a work item and a group of up to
 // kRingBwdGroupHeads heads. A producer warp copies the group's slice of
 // g[dst] of each out-edge into a ring of shared-memory stages with one bulk
 // copy (cp.async.bulk) on the stage's mbarrier, as the forward's ring does;
@@ -121,6 +131,21 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b, int lane) {
   b = upper ? mine : other;
 }
 
+// The row a src-pass work item writes in dh, W and B: an item with slot -1
+// is its row's only one and writes row s; a chunk of a split row writes row
+// num_rows + slot, one of the partial rows kept after the num_rows source
+// rows of the same arrays, which relgat_bwd_src_merge_kernel adds into row
+// s. The item is read again here, after the edge loop, by a volatile load
+// that the compiler neither merges with the first read nor hoists, so that
+// nothing of it stays in registers across the loop.
+__device__ __forceinline__ int64_t item_row(const int4* item, int num_rows) {
+  int s, p0, p1, slot;
+  asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(s), "=r"(p0), "=r"(p1), "=r"(slot)
+               : "l"(item));
+  return slot < 0 ? s : static_cast<int64_t>(num_rows) + slot;
+}
+
 // Six blocks an SM (48 warps, at most 40 registers a thread) where a lane
 // holds at most 4 floats of a row; wider rows would spill under that bound.
 // T is the element type of h and g.
@@ -134,13 +159,14 @@ relgat_bwd_src_kernel(const T* __restrict__ h,          // [N, H*F]
                       const float* __restrict__ l,      // [N, H]
                       const float* __restrict__ s_dot,  // [N, H]
                       const float* __restrict__ gsum,   // [N]
-                      const int* __restrict__ src_ptr,  // [N + 1]
+                      const int4* __restrict__ items,   // [J] (s, p0, p1, slot)
                       const int* __restrict__ dst,      // [E] src-sorted
                       const int* __restrict__ etype,    // [E] src-sorted
                       const int* __restrict__ eid,      // [E] src-sorted
-                      float* __restrict__ dh,           // [N, H*F]
-                      float* __restrict__ w_out,        // [N, H, R]
-                      float* __restrict__ b_out,        // [N, R]
+                      float* __restrict__ dh,           // [N + P, H*F]
+                      float* __restrict__ w_out,        // [N + P, H, R]
+                      float* __restrict__ b_out,        // [N + P, R]
+                      int num_rows,
                       int heads, int feat, int num_rel, float slope,
                       float eps, int use_dropout, uint32_t seed, uint32_t thr,
                       float keep_prob) {
@@ -153,16 +179,22 @@ relgat_bwd_src_kernel(const T* __restrict__ h,          // [N, H*F]
   const int warps = blockDim.x >> 5;
   const int head = blockIdx.y * warps + warp;
   if (head >= heads) return;
-  const int s = blockIdx.x;
+  // the item's fields one by one, each where it is used: a 16-byte load
+  // took four registers at once and pushed the template into spills
+  const int* item = reinterpret_cast<const int*>(items + blockIdx.x);
+  const int s = item[0];
   const int64_t hf = static_cast<int64_t>(heads) * feat;
   const int64_t row = s * hf + static_cast<int64_t>(head) * feat;
   EdgeEntry* table = reinterpret_cast<EdgeEntry*>(smem) + warp * 32;
   float* slabs = smem + warps * 32 * (sizeof(EdgeEntry) / sizeof(float));
   float* slab = slabs + warp * num_rel;
-  float* bslab = head == 0 ? slabs + warps * num_rel : nullptr;
+  // the head-0 warp also folds gsum[d] into the B slab (a flag, not a
+  // null pointer: a generic pointer took registers the loop needs)
+  const bool head0 = head == 0;
+  float* bslab = slabs + warps * num_rel;
   for (int r = lane; r < num_rel; r += 32) {
     slab[r] = 0.f;
-    if (bslab != nullptr) bslab[r] = 0.f;
+    if (head0) bslab[r] = 0.f;
   }
 
   float hv[FPL];
@@ -173,8 +205,8 @@ relgat_bwd_src_kernel(const T* __restrict__ h,          // [N, H*F]
   const T* g_head = g + static_cast<int64_t>(head) * feat;
   const float* attn_head = attn + static_cast<int64_t>(head) * num_rel * feat;
 
-  const int p_end = src_ptr[s + 1];
-  for (int p0 = src_ptr[s]; p0 < p_end; p0 += 32) {
+  const int p_end = item[2];
+  for (int p0 = item[1]; p0 < p_end; p0 += 32) {
     const int cnt = min(32, p_end - p0);
     __syncwarp();  // the last batch's table reads (and slab zeroing) are done
     if (lane < cnt) {
@@ -190,7 +222,7 @@ relgat_bwd_src_kernel(const T* __restrict__ h,          // [N, H*F]
       e.keep = use_dropout
                    ? dropout_keep(eid[p], head, seed, thr) / keep_prob
                    : 1.f;
-      e.gsum = bslab != nullptr ? gsum[e.dst] : 0.f;
+      e.gsum = head0 ? gsum[e.dst] : 0.f;
       e.pad = 0.f;
       table[lane] = e;
     }
@@ -218,17 +250,19 @@ relgat_bwd_src_kernel(const T* __restrict__ h,          // [N, H*F]
       for (int i = 0; i < FPL; ++i) acc[i] += aw * gv[i] + de * av[i];
       if (lane == 0) {
         slab[e.rel] += de;
-        if (bslab != nullptr) bslab[e.rel] += e.gsum;
+        if (head0) bslab[e.rel] += e.gsum;
       }
     }
   }
 
-  store_row<VEC, NV>(dh + row, feat, lane, acc);
+  const int64_t orow = item_row(items + blockIdx.x, num_rows);
+  store_row<VEC, NV>(dh + orow * hf + static_cast<int64_t>(head) * feat, feat,
+                     lane, acc);
   __syncwarp();
-  float* wrow = w_out + (static_cast<int64_t>(s) * heads + head) * num_rel;
+  float* wrow = w_out + (orow * heads + head) * num_rel;
   for (int r = lane; r < num_rel; r += 32) {
     wrow[r] = slab[r];
-    if (bslab != nullptr) b_out[static_cast<int64_t>(s) * num_rel + r] = bslab[r];
+    if (head0) b_out[orow * num_rel + r] = bslab[r];
   }
 }
 
@@ -238,7 +272,7 @@ relgat_bwd_src_kernel(const T* __restrict__ h,          // [N, H*F]
 constexpr int kBwdPairMinBlocks = 4;
 
 // relgat_bwd_src_kernel over bf16 rows of F <= 128 with F % 8 == 0, in
-// blocks of (src row, group of up to 16 heads): warp w takes the two
+// blocks of (work item, group of up to 16 heads): warp w takes the two
 // adjacent heads 2w and 2w + 1 of the group, half-warp `half` the second,
 // lane hl features 8*hl .. 8*hl + 7 of its head. So a warp's load of an
 // edge's g row is one contiguous 512-byte piece at F = 128, and a block's
@@ -258,13 +292,14 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
                            const float* __restrict__ l,      // [N, H]
                            const float* __restrict__ s_dot,  // [N, H]
                            const float* __restrict__ gsum,   // [N]
-                           const int* __restrict__ src_ptr,  // [N + 1]
+                           const int4* __restrict__ items,   // [J] (s, p0, p1, slot)
                            const int* __restrict__ dst,      // [E]
                            const int* __restrict__ etype,    // [E]
                            const int* __restrict__ eid,      // [E]
-                           float* __restrict__ dh,           // [N, H*F]
-                           float* __restrict__ w_out,        // [N, H, R]
-                           float* __restrict__ b_out,        // [N, R]
+                           float* __restrict__ dh,           // [N + P, H*F]
+                           float* __restrict__ w_out,        // [N + P, H, R]
+                           float* __restrict__ b_out,        // [N + P, R]
+                           int num_rows,
                            int heads, int feat, int num_rel, float slope,
                            float eps, int use_dropout, uint32_t seed,
                            uint32_t thr, float keep_prob) {
@@ -282,17 +317,19 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   const int head = 2 * pair + half;
   const bool active = head < heads;
   const bool in_row = active && f < feat;
-  const int s = blockIdx.x;
+  const int* item = reinterpret_cast<const int*>(items + blockIdx.x);
+  const int s = item[0];
   const int64_t hf = static_cast<int64_t>(heads) * feat;
   const int64_t row = s * hf + static_cast<int64_t>(head) * feat;
   EdgeEntry* table = reinterpret_cast<EdgeEntry*>(smem) + warp * 32 + 16 * half;
   float* slabs = smem + warps * 32 * (sizeof(EdgeEntry) / sizeof(float));
   float* slab = slabs + (2 * warp + half) * num_rel;
-  float* bslab = head == 0 ? slabs + 2 * warps * num_rel : nullptr;
+  const bool head0 = head == 0;  // as in relgat_bwd_src_kernel
+  float* bslab = slabs + 2 * warps * num_rel;
   if (active) {
     for (int r = hl; r < num_rel; r += 16) {
       slab[r] = 0.f;
-      if (bslab != nullptr) bslab[r] = 0.f;
+      if (head0) bslab[r] = 0.f;
     }
   }
 
@@ -307,8 +344,8 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
   const float* attn_head =
       attn + static_cast<int64_t>(head) * num_rel * feat + f;
 
-  const int p_end = src_ptr[s + 1];
-  for (int p0 = src_ptr[s]; p0 < p_end; p0 += 16) {
+  const int p_end = item[2];
+  for (int p0 = item[1]; p0 < p_end; p0 += 16) {
     const int cnt = min(16, p_end - p0);
     __syncwarp();  // the last batch's table reads (and slab zeroing) are done
     if (active && hl < cnt) {
@@ -324,7 +361,7 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
       e.keep = use_dropout
                    ? dropout_keep(eid[p], head, seed, thr) / keep_prob
                    : 1.f;
-      e.gsum = bslab != nullptr ? gsum[e.dst] : 0.f;
+      e.gsum = head0 ? gsum[e.dst] : 0.f;
       e.pad = 0.f;
       table[hl] = e;
     }
@@ -364,23 +401,25 @@ relgat_bwd_src_pair_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
       for (int i = 0; i < 8; ++i) acc[i] += aw * gv[i] + de * av[i];
       if (hl == 0) {
         slab[e.rel] += de;
-        if (bslab != nullptr) bslab[e.rel] += e.gsum;
+        if (head0) bslab[e.rel] += e.gsum;
       }
     }
   }
 
+  const int64_t orow = item_row(items + blockIdx.x, num_rows);
   if (in_row) {
-    *reinterpret_cast<float4*>(dh + row + f) =
+    float* dst_row = dh + orow * hf + static_cast<int64_t>(head) * feat + f;
+    *reinterpret_cast<float4*>(dst_row) =
         make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float4*>(dh + row + f + 4) =
+    *reinterpret_cast<float4*>(dst_row + 4) =
         make_float4(acc[4], acc[5], acc[6], acc[7]);
   }
   __syncwarp();
   if (!active) return;
-  float* wrow = w_out + (static_cast<int64_t>(s) * heads + head) * num_rel;
+  float* wrow = w_out + (orow * heads + head) * num_rel;
   for (int r = hl; r < num_rel; r += 16) {
     wrow[r] = slab[r];
-    if (bslab != nullptr) b_out[static_cast<int64_t>(s) * num_rel + r] = bslab[r];
+    if (head0) b_out[orow * num_rel + r] = bslab[r];
   }
 }
 
@@ -397,10 +436,11 @@ struct alignas(16) RingEntry {
   float pad;
 };
 
-// Heads wider than 128 features, fp32 or bf16 rows. Block (src row s, group
-// of up to kRingBwdGroupHeads heads): warps 0 .. G-1 are the group's heads, one
-// each, and warp G the producer, which streams the group's slice of g[dst]
-// of each out-edge, in src-CSR order, through `stages` ring stages of
+// Heads wider than 128 features, fp32 or bf16 rows. Block (work item of src
+// row s, group of up to kRingBwdGroupHeads heads): warps 0 .. G-1 are the
+// group's heads, one each, and warp G the producer, which streams the group's
+// slice of g[dst] of each of the item's out-edges, in src-CSR order, through
+// `stages` ring stages of
 // `stage_elems` values with one bulk copy an edge. A head's warp keeps h[s]
 // and the dh sum in registers, all lanes busy (the VW layout of
 // relgat_common.cuh); its lanes load the
@@ -420,13 +460,14 @@ relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
                            const float* __restrict__ l,      // [N, H]
                            const float* __restrict__ s_dot,  // [N, H]
                            const float* __restrict__ gsum,   // [N]
-                           const int* __restrict__ src_ptr,  // [N + 1]
+                           const int4* __restrict__ items,   // [J] (s, p0, p1, slot)
                            const int* __restrict__ dst,      // [E]
                            const int* __restrict__ etype,    // [E]
                            const int* __restrict__ eid,      // [E]
-                           float* __restrict__ dh,           // [N, H*F]
-                           float* __restrict__ w_out,        // [N, H, R]
-                           float* __restrict__ b_out,        // [N, R]
+                           float* __restrict__ dh,           // [N + P, H*F]
+                           float* __restrict__ w_out,        // [N + P, H, R]
+                           float* __restrict__ b_out,        // [N + P, R]
+                           int num_rows,
                            int head_groups, int group_heads, int heads,
                            int feat, int num_rel, int stages, int stage_elems,
                            float slope, float eps, int use_dropout,
@@ -441,7 +482,8 @@ relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
   float* slabs = reinterpret_cast<float*>(tables + group_heads * 32);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int s = blockIdx.x / head_groups;
+  const int4 item = items[blockIdx.x / head_groups];
+  const int s = item.x;
   const int h0 = (blockIdx.x % head_groups) * group_heads;
   const int gh = min(group_heads, heads - h0);
   if (threadIdx.x == 0) {
@@ -456,8 +498,8 @@ relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
   __syncthreads();
   const int64_t hf = static_cast<int64_t>(heads) * feat;
   const T* g_group = g + static_cast<int64_t>(h0) * feat;
-  const int p_begin = src_ptr[s];
-  const int p_end = src_ptr[s + 1];
+  const int p_begin = item.y;
+  const int p_end = item.z;
 
   if (warp == group_heads) {  // the producer
     int st = 0;
@@ -553,13 +595,51 @@ relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
     }
   }
 
-  lane_store<NK, VW>(dh + row, feat, lane, acc);
+  const int64_t orow = item_row(items + blockIdx.x / head_groups, num_rows);
+  lane_store<NK, VW>(dh + orow * hf + static_cast<int64_t>(head) * feat, feat,
+                     lane, acc);
   __syncwarp();
-  float* wrow = w_out + (static_cast<int64_t>(s) * heads + head) * num_rel;
+  float* wrow = w_out + (orow * heads + head) * num_rel;
   for (int r = lane; r < num_rel; r += 32) {
     wrow[r] = slab[r];
-    if (bslab != nullptr) b_out[static_cast<int64_t>(s) * num_rel + r] = bslab[r];
+    if (bslab != nullptr) b_out[orow * num_rel + r] = bslab[r];
   }
+}
+
+// Threads of a merge block.
+constexpr int kBwdMergeThreads = 256;
+
+// Block (split source row, tile of kBwdMergeThreads values of its dh, W and
+// B rows, H*F + H*R + R in all): thread i adds value i of the row's partial
+// rows num_rows + [c0, c1) in chunk order and writes the sum once into row
+// s, so every value has one fixed order of additions and no atomics.
+__global__ void __launch_bounds__(kBwdMergeThreads)
+relgat_bwd_src_merge_kernel(const int* __restrict__ merge,  // [T, 3] (s, c0, c1)
+                            float* __restrict__ dh,         // [N + P, H*F]
+                            float* __restrict__ w_out,      // [N + P, H, R]
+                            float* __restrict__ b_out,      // [N + P, R]
+                            int num_rows, int hf, int hr, int num_rel) {
+  const int s = merge[3 * blockIdx.x];
+  const int c0 = num_rows + merge[3 * blockIdx.x + 1];
+  const int c1 = num_rows + merge[3 * blockIdx.x + 2];
+  int j = blockIdx.y * kBwdMergeThreads + threadIdx.x;
+  float* out = dh;
+  int width = hf;
+  if (j >= hf) {
+    j -= hf;
+    out = w_out;
+    width = hr;
+    if (j >= hr) {
+      j -= hr;
+      out = b_out;
+      width = num_rel;
+      if (j >= num_rel) return;
+    }
+  }
+  float sum = 0.f;
+#pragma unroll 8
+  for (int c = c0; c < c1; ++c) sum += out[static_cast<int64_t>(c) * width + j];
+  out[static_cast<int64_t>(s) * width + j] = sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -1324,76 +1404,104 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// The ring kernel, NK features a lane in the VW layout, in blocks of up to
-// kRingBwdGroupHeads heads (the groups balanced, as in the forward).
+// What every src-pass kernel takes after its rows: the edge tables, the work
+// plan (data/csr.py build_bwd_plan) and the outputs with the partial rows.
+struct SrcArgs {
+  const float* attn;
+  const float* m;
+  const float* l;
+  const float* s_dot;
+  const float* gsum;
+  const int4* items;
+  const int* merge;
+  const int* dst;
+  const int* etype;
+  const int* eid;
+  float* dh;
+  float* w_out;
+  float* b_out;
+  int num_rows;
+  int num_items;
+  int num_split;
+  int heads;
+  int feat;
+  int num_rel;
+  float slope;
+  float eps;
+  int use_dropout;
+  uint32_t seed;
+  uint32_t thr;
+  float keep_prob;
+  cudaStream_t st;
+};
+
+// The ring kernel, NK features a lane in the VW layout, in blocks of (work
+// item, group of up to kRingBwdGroupHeads heads) (the groups balanced, as in
+// the forward).
 template <int NK, int VW, typename T>
-cudaError_t launch_bwd_ring(const T* h, const T* g, const float* attn,
-                            const float* m, const float* l,
-                            const float* s_dot, const float* gsum,
-                            const int* src_ptr, const int* dst,
-                            const int* etype, const int* eid, float* dh,
-                            float* w_out, float* b_out, int num_nodes,
-                            int heads, int feat, int num_rel, float slope,
-                            float eps, int use_dropout, int seed,
-                            unsigned int thr, float keep_prob,
-                            cudaStream_t st) {
+cudaError_t launch_bwd_ring(const T* h, const T* g, const SrcArgs& a) {
   using namespace relgat;
   constexpr int kG = kRingBwdGroupHeads;
-  const int groups = (heads + kG - 1) / kG;
-  const int gh = (heads + groups - 1) / groups;
-  const int elems = ring_stage_elems(gh * feat, sizeof(T));
+  const int groups = (a.heads + kG - 1) / kG;
+  const int gh = (a.heads + groups - 1) / groups;
+  const int elems = ring_stage_elems(gh * a.feat, sizeof(T));
   const int stage_bytes = elems * static_cast<int>(sizeof(T));
   const int fit = kRingBytes / stage_bytes;
   const int stages = fit < 2 ? 2 : (fit > kRingMaxStages ? kRingMaxStages : fit);
   const size_t smem =
       static_cast<size_t>(stages) * (stage_bytes + 2 * sizeof(uint64_t)) +
       static_cast<size_t>(gh) * 32 * sizeof(RingEntry) +
-      static_cast<size_t>(gh + 1) * num_rel * sizeof(float);
+      static_cast<size_t>(gh + 1) * a.num_rel * sizeof(float);
   auto kernel = relgat_bwd_src_ring_kernel<NK, VW, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<num_nodes * groups, 32 * (gh + 1), smem, st>>>(
-      h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype, eid, dh, w_out,
-      b_out, groups, gh, heads, feat, num_rel, stages, elems, slope, eps,
-      use_dropout, static_cast<uint32_t>(seed), thr, keep_prob);
+  kernel<<<a.num_items * groups, 32 * (gh + 1), smem, a.st>>>(
+      h, g, a.attn, a.m, a.l, a.s_dot, a.gsum, a.items, a.dst, a.etype, a.eid,
+      a.dh, a.w_out, a.b_out, a.num_rows, groups, gh,
+      a.heads, a.feat, a.num_rel, stages, elems, a.slope, a.eps,
+      a.use_dropout, a.seed, a.thr, a.keep_prob);
   return cudaGetLastError();
 }
 
-// design: kDesignLanes or kDesignRing (relgat_common.cuh), at F > 128.
-template <typename T>
-int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
-                   const float* l, const float* s_dot, const float* gsum,
-                   const int* src_ptr, const int* dst, const int* etype,
-                   const int* eid, float* dh, float* w_out, float* b_out,
-                   int num_nodes, int heads, int feat, int num_rel,
-                   float slope, float eps, int use_dropout, int seed,
-                   unsigned int thr, float keep_prob, int design,
-                   void* stream) {
+// The split rows' chunks, added in chunk order into dh, W and B.
+cudaError_t launch_bwd_merge(const SrcArgs& a) {
   using namespace relgat;
+  if (a.num_split == 0) return cudaSuccess;
+  const int hf = a.heads * a.feat;
+  const int hr = a.heads * a.num_rel;
+  const dim3 grid(a.num_split,
+                  (hf + hr + a.num_rel + kBwdMergeThreads - 1) /
+                      kBwdMergeThreads);
+  relgat_bwd_src_merge_kernel<<<grid, kBwdMergeThreads, 0, a.st>>>(
+      a.merge, a.dh, a.w_out, a.b_out, a.num_rows, hf, hr, a.num_rel);
+  return cudaGetLastError();
+}
+
+// One kernel over the work items, then the merge. design: kDesignLanes or
+// kDesignRing (relgat_common.cuh), at F > 128.
+template <typename T>
+cudaError_t launch_src_items(const T* h, const T* g, const SrcArgs& a,
+                             int design) {
+  using namespace relgat;
+  const int heads = a.heads;
+  const int feat = a.feat;
   const int wpb = heads < kMaxWarpsPerBlock ? heads : kMaxWarpsPerBlock;
   const size_t smem = static_cast<size_t>(wpb) * 32 * sizeof(EdgeEntry) +
-                      static_cast<size_t>(wpb + 1) * num_rel * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxBwdSmemBytes))
-    return static_cast<int>(cudaErrorInvalidValue);
+                      static_cast<size_t>(wpb + 1) * a.num_rel * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxBwdSmemBytes)) return cudaErrorInvalidValue;
   const dim3 block(32 * wpb);
-  const dim3 grid(num_nodes, (heads + wpb - 1) / wpb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(a.num_items, (heads + wpb - 1) / wpb);
   // 4 values a vector: 16 bytes of an fp32 row, 8 of a bf16 one
   const bool vec4 = feat % 4 == 0 && aligned(h, 4 * sizeof(T)) &&
-                    aligned(g, 4 * sizeof(T)) && aligned(attn, 16) &&
-                    aligned(dh, 16);
+                    aligned(g, 4 * sizeof(T)) && aligned(a.attn, 16) &&
+                    aligned(a.dh, 16);
 #define RELGAT_BWD_LAUNCH(VEC, NV)                                           \
-  relgat_bwd_src_kernel<VEC, NV, T><<<grid, block, smem, st>>>(              \
-      h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype, eid, dh, w_out,    \
-      b_out, heads, feat, num_rel, slope, eps, use_dropout,                  \
-      static_cast<uint32_t>(seed), thr, keep_prob)
-#define RELGAT_BWD_RING(NK, VW)                                              \
-  static_cast<int>(launch_bwd_ring<NK, VW>(                                  \
-      h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype, eid, dh, w_out,    \
-      b_out, num_nodes, heads, feat, num_rel, slope, eps, use_dropout, seed, \
-      thr, keep_prob, st))
+  relgat_bwd_src_kernel<VEC, NV, T><<<grid, block, smem, a.st>>>(            \
+      h, g, a.attn, a.m, a.l, a.s_dot, a.gsum, a.items, a.dst, a.etype,      \
+      a.eid, a.dh, a.w_out, a.b_out, a.num_rows, heads, feat, a.num_rel,     \
+      a.slope, a.eps, a.use_dropout, a.seed, a.thr, a.keep_prob)
   constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   // The pair kernel: two heads a warp, up to 16 heads a block; a table of
   // 2 x 16 edges a warp, one slab a head and one more.
@@ -1401,33 +1509,31 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
   const int wpb2 = pairs < kMaxWarpsPerBlock ? pairs : kMaxWarpsPerBlock;
   const size_t pair_smem =
       static_cast<size_t>(wpb2) * 32 * sizeof(EdgeEntry) +
-      static_cast<size_t>(2 * wpb2 + 1) * num_rel * sizeof(float);
+      static_cast<size_t>(2 * wpb2 + 1) * a.num_rel * sizeof(float);
   if (kBf16 && vec4 && feat % 8 == 0 && feat <= 128 && aligned(h, 16) &&
       aligned(g, 16) && pair_smem <= static_cast<size_t>(kMaxBwdSmemBytes)) {
-    const dim3 grid2(num_nodes, (pairs + wpb2 - 1) / wpb2);
-    relgat_bwd_src_pair_kernel<<<grid2, 32 * wpb2, pair_smem, st>>>(
+    const dim3 grid2(a.num_items, (pairs + wpb2 - 1) / wpb2);
+    relgat_bwd_src_pair_kernel<<<grid2, 32 * wpb2, pair_smem, a.st>>>(
         reinterpret_cast<const __nv_bfloat16*>(h),
-        reinterpret_cast<const __nv_bfloat16*>(g), attn, m, l, s_dot, gsum,
-        src_ptr, dst, etype, eid, dh, w_out, b_out, heads, feat, num_rel,
-        slope, eps, use_dropout, static_cast<uint32_t>(seed), thr,
-        keep_prob);
+        reinterpret_cast<const __nv_bfloat16*>(g), a.attn, a.m, a.l, a.s_dot,
+        a.gsum, a.items, a.dst, a.etype, a.eid, a.dh, a.w_out, a.b_out,
+        a.num_rows, heads, feat, a.num_rel, a.slope, a.eps, a.use_dropout,
+        a.seed, a.thr, a.keep_prob);
   } else if (feat > 32 * kMaxFeatPerLane) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
   } else if (feat > 128 && design == kDesignRing) {
     // two values a read where every head's piece of a row is 2-value aligned
-    const bool pairs = feat % 2 == 0 && aligned(h, 2 * sizeof(T)) &&
-                       aligned(g, 2 * sizeof(T)) && aligned(attn, 8) &&
-                       aligned(dh, 8);
-    if (pairs) {
-      return feat <= 256   ? RELGAT_BWD_RING(8, 2)
-             : feat <= 320 ? RELGAT_BWD_RING(10, 2)
-             : feat <= 512 ? RELGAT_BWD_RING(16, 2)
-                           : RELGAT_BWD_RING(32, 2);
+    if (feat % 2 == 0 && aligned(h, 2 * sizeof(T)) &&
+        aligned(g, 2 * sizeof(T)) && aligned(a.attn, 8) && aligned(a.dh, 8)) {
+      return feat <= 256   ? launch_bwd_ring<8, 2>(h, g, a)
+             : feat <= 320 ? launch_bwd_ring<10, 2>(h, g, a)
+             : feat <= 512 ? launch_bwd_ring<16, 2>(h, g, a)
+                           : launch_bwd_ring<32, 2>(h, g, a);
     }
-    return feat <= 256   ? RELGAT_BWD_RING(8, 1)
-           : feat <= 320 ? RELGAT_BWD_RING(10, 1)
-           : feat <= 512 ? RELGAT_BWD_RING(16, 1)
-                         : RELGAT_BWD_RING(32, 1);
+    return feat <= 256   ? launch_bwd_ring<8, 1>(h, g, a)
+           : feat <= 320 ? launch_bwd_ring<10, 1>(h, g, a)
+           : feat <= 512 ? launch_bwd_ring<16, 1>(h, g, a)
+                         : launch_bwd_ring<32, 1>(h, g, a);
   } else if (vec4 && feat <= 128) {
     RELGAT_BWD_LAUNCH(4, 1);
   } else if (vec4 && feat <= 256) {
@@ -1449,9 +1555,34 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
   } else {
     RELGAT_BWD_LAUNCH(1, 32);
   }
-#undef RELGAT_BWD_RING
 #undef RELGAT_BWD_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+// items [J, 4] and merge [T, 3] are data/csr.py's src-pass work plan; dh, W
+// and B have num_rows source rows and then a partial row for each chunk of a
+// split row.
+template <typename T>
+int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
+                   const float* l, const float* s_dot, const float* gsum,
+                   const int* items, const int* merge, const int* dst,
+                   const int* etype, const int* eid, float* dh, float* w_out,
+                   float* b_out, int num_rows, int num_items, int num_split,
+                   int heads, int feat, int num_rel, float slope, float eps,
+                   int use_dropout, int seed, unsigned int thr,
+                   float keep_prob, int design, void* stream) {
+  if (!aligned(items, 16) || heads < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SrcArgs a{attn, m, l, s_dot, gsum,
+                  reinterpret_cast<const int4*>(items), merge, dst, etype,
+                  eid, dh, w_out, b_out, num_rows, num_items, num_split,
+                  heads, feat, num_rel, slope, eps, use_dropout,
+                  static_cast<uint32_t>(seed), thr, keep_prob,
+                  static_cast<cudaStream_t>(stream)};
+  cudaError_t err = cudaSuccess;
+  if (num_items > 0) err = launch_src_items(h, g, a, design);
+  if (err == cudaSuccess) err = launch_bwd_merge(a);
+  return static_cast<int>(err);
 }
 
 template <int RM, int VH, int VW, typename TH>
@@ -1825,34 +1956,33 @@ int launch_bwd_rel(const TH* h, const float* w, const float* b,
 
 }  // namespace
 
-extern "C" int relgat_bwd_src(const float* h, const float* g,
-                              const float* attn, const float* m,
-                              const float* l, const float* s_dot,
-                              const float* gsum, const int* src_ptr,
-                              const int* dst, const int* etype, const int* eid,
-                              float* dh, float* w_out, float* b_out,
-                              int num_nodes, int heads, int feat, int num_rel,
-                              float slope, float eps, int use_dropout,
-                              int seed, unsigned int thr, float keep_prob,
-                              int design, void* stream) {
-  return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype,
-                        eid, dh, w_out, b_out, num_nodes, heads, feat,
-                        num_rel, slope, eps, use_dropout, seed, thr,
-                        keep_prob, design, stream);
+extern "C" int relgat_bwd_src(
+    const float* h, const float* g, const float* attn, const float* m,
+    const float* l, const float* s_dot, const float* gsum, const int* items,
+    const int* merge, const int* dst, const int* etype, const int* eid,
+    float* dh, float* w_out, float* b_out, int num_rows, int num_items,
+    int num_split, int heads, int feat, int num_rel, float slope, float eps,
+    int use_dropout, int seed, unsigned int thr, float keep_prob, int design,
+    void* stream) {
+  return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, items, merge, dst,
+                        etype, eid, dh, w_out, b_out, num_rows, num_items,
+                        num_split, heads, feat, num_rel, slope, eps,
+                        use_dropout, seed, thr, keep_prob, design, stream);
 }
 
 // The same with h and g in bf16 (kernel_precision="default").
 extern "C" int relgat_bwd_src_bf16(
     const __nv_bfloat16* h, const __nv_bfloat16* g, const float* attn,
     const float* m, const float* l, const float* s_dot, const float* gsum,
-    const int* src_ptr, const int* dst, const int* etype, const int* eid,
-    float* dh, float* w_out, float* b_out, int num_nodes, int heads,
-    int feat, int num_rel, float slope, float eps, int use_dropout, int seed,
-    unsigned int thr, float keep_prob, int design, void* stream) {
-  return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, src_ptr, dst, etype,
-                        eid, dh, w_out, b_out, num_nodes, heads, feat,
-                        num_rel, slope, eps, use_dropout, seed, thr,
-                        keep_prob, design, stream);
+    const int* items, const int* merge, const int* dst, const int* etype,
+    const int* eid, float* dh, float* w_out, float* b_out, int num_rows,
+    int num_items, int num_split, int heads, int feat, int num_rel,
+    float slope, float eps, int use_dropout, int seed, unsigned int thr,
+    float keep_prob, int design, void* stream) {
+  return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, items, merge, dst,
+                        etype, eid, dh, w_out, b_out, num_rows, num_items,
+                        num_split, heads, feat, num_rel, slope, eps,
+                        use_dropout, seed, thr, keep_prob, design, stream);
 }
 
 extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,

@@ -23,7 +23,17 @@ CUDA kernels gather and reduce rows directly, so they read plain CSR:
   slots ``[first, end)`` in chunk order for the merge kernel. So no row,
   however many in-edges it has, is one warp's serial walk;
 - by source (backward): ``src_ptr [N_src+1]`` with ``by_src_dst``,
-  ``by_src_etype`` and ``by_src_eid [E]``, each row's edges in dst-CSR order.
+  ``by_src_etype`` and ``by_src_eid [E]``, each row's edges in dst-CSR order;
+- the backward's work plan, the same rules over the src-CSR:
+  ``bwd_items [J, 4]`` of ``(src row, first edge, end edge, partial slot)``
+  and ``bwd_merge [T, 3]``, ``bwd_item_edges`` (``BWD_ITEM_EDGES``;
+  ``with_bwd_plan`` rebuilds the plan at another size) edges an item at
+  most. A row of at most that
+  many out-edges (rows without out-edges included) is one item, slot -1,
+  and the src pass writes its dh, W and B rows directly; a longer row's
+  chunks write partial rows that ``relgat_bwd_src``'s merge adds in chunk
+  order. So no source row, however many out-edges it has, is one warp's
+  serial walk.
 
 The source space may differ from the destination rows: ``num_nodes`` counts
 the destination rows (of ``out`` and the statistics), ``num_src`` the rows of
@@ -44,6 +54,17 @@ import torch
 # Most edges of one forward work item: csrc/relgat_fwd.cu kItemEdges, the
 # size of the kernel's shared-memory edge table.
 FWD_ITEM_EDGES = 256
+# Most edges of one src-pass work item. The src pass reads its edge table
+# 32 or 16 edges at a time, so any size runs. On an H100 80GB HBM3 (700 W;
+# src_plans.py, PERF.md section 6) 256 was within 3% of the best size on
+# every graph timed where the sizes give different plans (out-degree hubs
+# first or last in the source order; 8M edges on 100k nodes), in both
+# passes; where every row fits one item (uniform or in-degree hubs at 1M
+# edges) all sizes are one plan. Smaller items lose to their partial rows
+# (32: up to 23%), larger ones to the tail of a hub's last chunks (1024:
+# up to 10%). So the size is one constant, not a function of the graph's
+# degrees.
+BWD_ITEM_EDGES = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +86,10 @@ class CSRGraph:
     fwd_item_edges: int         # the plan's most edges per item
     fwd_num_parts: int          # partial slots of the split rows
     num_src: int                # rows of the source space
-
+    bwd_items: torch.Tensor     # [J, 4] (src row, e0, e1, slot or -1)
+    bwd_merge: torch.Tensor     # [T, 3] (src row, first slot, end slot)
+    bwd_item_edges: int         # the src pass's most edges per item
+    bwd_num_parts: int          # partial slots of the split source rows
 
     @property
     def fwd_num_items(self) -> int:
@@ -75,6 +99,14 @@ class CSRGraph:
     def fwd_num_split(self) -> int:
         return int(self.fwd_merge.shape[0])
 
+    @property
+    def bwd_num_items(self) -> int:
+        return int(self.bwd_items.shape[0])
+
+    @property
+    def bwd_num_split(self) -> int:
+        return int(self.bwd_merge.shape[0])
+
 
 def _row_ptr(keys: np.ndarray, num_rows: int) -> np.ndarray:
     ptr = np.zeros(num_rows + 1, np.int64)
@@ -82,19 +114,19 @@ def _row_ptr(keys: np.ndarray, num_rows: int) -> np.ndarray:
     return ptr
 
 
-def build_fwd_plan(dst_ptr: np.ndarray, item_edges: int):
-    """The forward's work items ``[I, 4]`` and merge list ``[S, 3]`` (int64)
-    over a dst-CSR ``dst_ptr``, ``item_edges`` edges an item at most."""
+def _build_plan(ptr: np.ndarray, item_edges: int):
+    """Work items ``[I, 4]`` and merge list ``[S, 3]`` (int64) over a CSR
+    ``ptr``, ``item_edges`` edges an item at most."""
     if item_edges < 1:
         raise ValueError(f"item_edges must be positive, got {item_edges}")
-    dst_ptr = np.asarray(dst_ptr, np.int64)
-    deg = np.diff(dst_ptr)
+    ptr = np.asarray(ptr, np.int64)
+    deg = np.diff(ptr)
     chunks = np.maximum(1, -(-deg // item_edges))
     row = np.repeat(np.arange(deg.shape[0]), chunks)
     first = np.cumsum(chunks) - chunks         # each row's first item
     k = np.arange(row.shape[0]) - first[row]   # chunk index within the row
-    e0 = dst_ptr[row] + k * item_edges
-    e1 = np.minimum(e0 + item_edges, dst_ptr[row + 1])
+    e0 = ptr[row] + k * item_edges
+    e1 = np.minimum(e0 + item_edges, ptr[row + 1])
     split = chunks[row] > 1
     slot = np.full(row.shape[0], -1, np.int64)
     slot[split] = np.arange(int(split.sum()))
@@ -103,6 +135,42 @@ def build_fwd_plan(dst_ptr: np.ndarray, item_edges: int):
     ends = np.cumsum(chunks[split_rows])
     merge = np.stack([split_rows, ends - chunks[split_rows], ends], axis=1)
     return items, merge.reshape(-1, 3)
+
+
+def build_fwd_plan(dst_ptr: np.ndarray, item_edges: int):
+    """The forward's work items ``[I, 4]`` and merge list ``[S, 3]`` (int64)
+    over a dst-CSR ``dst_ptr``, ``item_edges`` edges an item at most."""
+    return _build_plan(dst_ptr, item_edges)
+
+
+def build_bwd_plan(src_ptr: np.ndarray, item_edges: int):
+    """The src pass's work items ``[J, 4]`` of ``(src row, first edge, end
+    edge, partial slot or -1)`` in src-CSR order and merge list ``[T, 3]``
+    of ``(src row, first slot, end slot)`` (int64) over a src-CSR
+    ``src_ptr``, ``item_edges`` edges an item at most."""
+    return _build_plan(src_ptr, item_edges)
+
+
+def _int32(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+
+
+def _bwd_fields(src_ptr: np.ndarray, item_edges: int, device) -> dict:
+    items, merge = build_bwd_plan(src_ptr, item_edges)
+    return dict(
+        bwd_items=_int32(items, device), bwd_merge=_int32(merge, device),
+        bwd_item_edges=int(item_edges),
+        bwd_num_parts=int(merge[-1, 2]) if len(merge) else 0,
+    )
+
+
+def with_bwd_plan(csr: CSRGraph, item_edges: int) -> CSRGraph:
+    """``csr`` with the src pass's work plan rebuilt at ``item_edges``
+    edges an item at most (for timing item sizes, ``src_plans.py``, and
+    for splitting rows at small sizes in tests)."""
+    src_ptr = csr.src_ptr.cpu().numpy()
+    return dataclasses.replace(
+        csr, **_bwd_fields(src_ptr, item_edges, csr.src_ptr.device))
 
 
 def build_csr_graph(
@@ -116,8 +184,8 @@ def build_csr_graph(
     num_src: Optional[int] = None,
     eid: Optional[np.ndarray] = None,
 ) -> CSRGraph:
-    """Build the two orderings and the forward's work plan from real edges
-    that are already sorted by dst (``data/graph.py`` sorts them stably),
+    """Build the two orderings and both work plans from real edges that are
+    already sorted by dst (``data/graph.py`` sorts them stably),
     ``dst < num_nodes`` and ``src < num_src`` (default ``num_nodes``),
     checked here: on the card an index out of range is an illegal memory
     access. ``eid`` gives the edges' canonical ids (default: their
@@ -136,10 +204,11 @@ def build_csr_graph(
     eid = np.arange(e) if eid is None else np.asarray(eid, np.int64)
     by_src = np.argsort(src, kind="stable")
     dst_ptr = _row_ptr(dst, num_nodes)
+    src_ptr = _row_ptr(src, num_src)
     items, merge = build_fwd_plan(dst_ptr, FWD_ITEM_EDGES)
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+        return _int32(a, device)
 
     return CSRGraph(
         dst_ptr=t(dst_ptr),
@@ -147,7 +216,7 @@ def build_csr_graph(
         dst=t(dst),
         etype=t(etype),
         eid=t(eid),
-        src_ptr=t(_row_ptr(src, num_src)),
+        src_ptr=t(src_ptr),
         by_src_dst=t(dst[by_src]),
         by_src_etype=t(etype[by_src]),
         by_src_eid=t(eid[by_src]),
@@ -159,4 +228,5 @@ def build_csr_graph(
         fwd_item_edges=FWD_ITEM_EDGES,
         fwd_num_parts=int(merge[-1, 2]) if len(merge) else 0,
         num_src=num_src,
+        **_bwd_fields(src_ptr, BWD_ITEM_EDGES, device),
     )

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 # A bf16 variant takes the same arguments, its h (and g) pointing at bf16;
 # relgat_bwd_rel_bf16 also its design.
 _FWD = [_P] * 15 + [_I] * 6 + [_F, _F, _I, _I, _U, _F, _I, _P]
-_BWD_SRC = [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _U, _F, _I, _P]
+_BWD_SRC = [_P] * 15 + [_I] * 6 + [_F, _F, _I, _I, _U, _F, _I, _P]
 _BWD_REL = [_P] * 7 + [_I] * 5 + [_P]
 _BWD_REL_BF16 = [_P] * 7 + [_I] * 6 + [_P]  # and the design
 SIGNATURES = {

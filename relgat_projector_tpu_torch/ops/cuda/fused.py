@@ -11,7 +11,11 @@ Port of ``relgat_projector_tpu/ops/pallas/fused.py``:
 - ``relgat_bwd_src`` and ``relgat_bwd_rel`` (``csrc/relgat_bwd.cu``) together
   replace ``_bwd_src_kernel``. The first computes dh in src order and folds
   each edge's logit gradient ``de`` per (src row, relation) into ``W``, and
-  ``gsum[dst]`` into ``B``; the second reduces ``dattn = W^T h`` per head and
+  ``gsum[dst]`` into ``B``, over the work items of ``CSRGraph.bwd_items``
+  (a source row of at most ``bwd_item_edges`` out-edges, or one such chunk
+  of a longer row, whose partial dh, W and B rows a merge kernel adds in
+  chunk order; ``relgat_bwd_src_split_plain`` is that route in plain
+  PyTorch); the second reduces ``dattn = W^T h`` per head and
   ``dbias = sum_s B[s]`` over the node rows, reading h and W once (the TPU
   kernel sums dattn and dbias across its sequential grid, which this card
   does not have).
@@ -103,10 +107,11 @@ def _dropout_args(seed: Optional[int], rate: float):
     return 0, 0, 0, 1.0
 
 
-def _keep_scale(csr: CSRGraph, heads, seed, rate) -> Optional[torch.Tensor]:
+def _keep_scale(eid, heads, seed, rate) -> Optional[torch.Tensor]:
+    """The dropout keep / (1 - rate) of edges ``eid`` [E, H], or None."""
     if not (rate > 0.0 and seed is not None):
         return None
-    return edge_keep_mask_all_heads(csr.eid, heads, seed, rate) / (1.0 - rate)
+    return edge_keep_mask_all_heads(eid, heads, seed, rate) / (1.0 - rate)
 
 
 def _on_card(
@@ -203,7 +208,7 @@ def relgat_fwd_plain(
     m = segment_max(e, dst, n)
     p = torch.exp(e - torch.where(torch.isfinite(m), m, 0.0)[dst])
     l = _atomic_sum(p, dst, n)
-    keep = _keep_scale(csr, heads, seed, rate)
+    keep = _keep_scale(csr.eid, heads, seed, rate)
     if keep is not None:
         p = p * keep
     acc = _atomic_sum(hs * p[..., None], dst, n)
@@ -234,7 +239,7 @@ def relgat_fwd_split_plain(
     m_c = segment_max(e, item, num_items)                        # [I, H]
     p = torch.exp(e - m_c[item])
     l_c = _atomic_sum(p, item, num_items)
-    keep = _keep_scale(csr, heads, seed, rate)
+    keep = _keep_scale(csr.eid, heads, seed, rate)
     if keep is not None:
         p = p * keep
     acc_c = _atomic_sum(hs * p[..., None], item, num_items)
@@ -338,17 +343,13 @@ def max_num_rel(heads: int) -> int:
             // (4 * (warps + 1)))
 
 
-def relgat_bwd_src_plain(
-    h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
-    negative_slope, eps,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of ``relgat_bwd_src``: ``(dh [N_src, H*F],
-    W [N_src, H, R], B [N_src, R])``, W and B as segment sums over the key
-    ``src * R + etype``."""
-    n, hf = h.shape
-    heads, num_rel, f = attn.shape
-    src, dst, et = csr.src.long(), csr.dst.long(), csr.etype.long()
-    hs = h.view(n, heads, f)[src]
+def _src_terms(h, g, attn, m, l, s_dot, src, dst, et, keep, *,
+               negative_slope, eps):
+    """Per edge of ``(src, dst, et)``: ``alpha * keep`` and the logit
+    gradient ``de`` [E, H], with the rows ``g[dst]`` and ``attn[et]``
+    [E, H, F] they multiply (``keep`` [E, H] or None)."""
+    heads, _, f = attn.shape
+    hs = h.view(-1, heads, f)[src]
     gd = g.view(-1, heads, f)[dst]
     ar = attn[:, et].transpose(0, 1)
     eraw = _dots(hs, ar)
@@ -358,17 +359,65 @@ def relgat_bwd_src_plain(
     alpha = torch.exp(
         F.leaky_relu(eraw, negative_slope) - m_safe[dst]
     ) / l.clamp_min(eps)[dst]
-    keep = _keep_scale(csr, heads, seed, rate)
     k = keep if keep is not None else 1.0
     de = alpha * (dalpha * k - s_dot[dst])
     de = de * torch.where(eraw >= 0, 1.0, negative_slope)
-    dh = _atomic_sum((alpha * k)[..., None] * gd, src, n)
+    return alpha * k, de, gd, ar
+
+
+def relgat_bwd_src_plain(
+    h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    negative_slope, eps,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``relgat_bwd_src``: ``(dh [N_src, H*F],
+    W [N_src, H, R], B [N_src, R])``, W and B as segment sums over the key
+    ``src * R + etype``."""
+    n, hf = h.shape
+    heads, num_rel, _ = attn.shape
+    src, dst, et = csr.src.long(), csr.dst.long(), csr.etype.long()
+    aw, de, gd, ar = _src_terms(
+        h, g, attn, m, l, s_dot, src, dst, et,
+        _keep_scale(csr.eid, heads, seed, rate),
+        negative_slope=negative_slope, eps=eps)
+    dh = _atomic_sum(aw[..., None] * gd, src, n)
     dh += _atomic_sum(de[..., None] * ar, src, n)
     dh = dh.reshape(n, hf)
     key = src * num_rel + et
     w = _atomic_sum(de, key, n * num_rel).view(n, num_rel, heads)
     b = _atomic_sum(gsum[dst], key, n * num_rel).view(n, num_rel)
     return dh, w.transpose(1, 2).contiguous(), b
+
+
+def relgat_bwd_src_split_plain(
+    h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    negative_slope, eps,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``relgat_bwd_src_plain`` by the kernels' route: partial dh, W and B
+    rows per work item of ``csr.bwd_items`` over the src-CSR, then each
+    source row's items added. The tests hold it to
+    ``relgat_bwd_src_plain``."""
+    n, hf = h.shape
+    heads, num_rel, _ = attn.shape
+    items = csr.bwd_items.long()
+    num_items = items.shape[0]
+    item = torch.repeat_interleave(
+        torch.arange(num_items, device=h.device), items[:, 2] - items[:, 1])
+    dst, et = csr.by_src_dst.long(), csr.by_src_etype.long()
+    aw, de, gd, ar = _src_terms(
+        h, g, attn, m, l, s_dot, items[item, 0], dst, et,
+        _keep_scale(csr.by_src_eid, heads, seed, rate),
+        negative_slope=negative_slope, eps=eps)
+    dh_c = _atomic_sum(aw[..., None] * gd, item, num_items)
+    dh_c += _atomic_sum(de[..., None] * ar, item, num_items)
+    key = item * num_rel + et
+    w_c = _atomic_sum(de, key, num_items * num_rel).view(
+        num_items, num_rel, heads)
+    b_c = _atomic_sum(gsum[dst], key, num_items * num_rel).view(
+        num_items, num_rel)
+    row = items[:, 0]
+    dh = _atomic_sum(dh_c, row, n).reshape(n, hf)
+    w = _atomic_sum(w_c, row, n)
+    return dh, w.transpose(1, 2).contiguous(), _atomic_sum(b_c, row, n)
 
 
 def relgat_bwd_src_bf16_plain(
@@ -404,26 +453,29 @@ def _launch_bwd_src(
             f"slab of R floats per warp, and one more, in "
             f"{MAX_BWD_SMEM_BYTES} bytes of shared memory)"
         )
-    dh = _f32(h, h.shape)
-    w = _f32(h, (n, heads, num_rel))
-    b = _f32(h, (n, num_rel))
+    # after the n source rows, one partial row a chunk of a split row (slot
+    # k: row n + k), which the merge adds into its source row
+    rows = n + csr.bwd_num_parts
+    dh = _f32(h, (rows, heads * f))
+    w = _f32(h, (rows, heads, num_rel))
+    b = _f32(h, (rows, num_rel))
     if n == 0:  # no source row: a grid of no blocks is not a launch
         return dh, w, b
     use, s, thr, keep = _dropout_args(seed, rate)
     rc = entry_point(name)(
         h.data_ptr(), g.data_ptr(), attn.data_ptr(), m.data_ptr(),
         l.data_ptr(), s_dot.data_ptr(), gsum.data_ptr(),
-        csr.src_ptr.data_ptr(), csr.by_src_dst.data_ptr(),
-        csr.by_src_etype.data_ptr(), csr.by_src_eid.data_ptr(),
-        dh.data_ptr(), w.data_ptr(), b.data_ptr(),
-        n, heads, f, num_rel, float(negative_slope), float(eps),
-        use, s, thr, keep,
+        csr.bwd_items.data_ptr(), csr.bwd_merge.data_ptr(),
+        csr.by_src_dst.data_ptr(), csr.by_src_etype.data_ptr(),
+        csr.by_src_eid.data_ptr(), dh.data_ptr(), w.data_ptr(), b.data_ptr(),
+        n, csr.bwd_num_items, csr.bwd_num_split, heads, f, num_rel,
+        float(negative_slope), float(eps), use, s, thr, keep,
         DESIGNS[design or design_of(wrapper, heads, f)], _stream(),
     )
     _raise_on(rc, name)
     if design is None:
         wrapper.launches += 1
-    return dh, w, b
+    return dh[:n], w[:n], b[:n]
 
 
 def relgat_bwd_src(
@@ -431,7 +483,9 @@ def relgat_bwd_src(
     negative_slope, eps,
 ):
     """Gradient wrt ``h`` and the per-(src row, relation) sums ``W`` of the
-    logit gradient and ``B`` of ``gsum[dst]``, every source row written."""
+    logit gradient and ``B`` of ``gsum[dst]``, every source row written;
+    on the card over ``csr``'s src-pass work plan, the split rows' chunks
+    merged in order (one launch counted)."""
     args = (h, g, attn, m, l, s_dot, gsum, csr)
     kw = dict(seed=seed, rate=rate, negative_slope=negative_slope, eps=eps)
     if not _on_card("relgat_bwd_src", csr, *args[:-1]):

@@ -1,0 +1,162 @@
+"""The src pass's work plan and its merge rule, on the CPU.
+
+``data/csr.py`` cuts the src-CSR into work items of at most
+``bwd_item_edges`` edges (``BWD_ITEM_EDGES``; ``with_bwd_plan`` rebuilds
+the plan at another size): a source row of at most that many out-edges is
+one item, a longer row consecutive chunks whose partial dh, W and B rows ``relgat_bwd_src``'s
+merge kernel adds in chunk order. Here the plan's invariants are checked on
+rows of out-degree 0, K, K+1 and 3K+5, a uniform graph, a zipf graph (dst
+drawn with p ~ 1/rank, ``bench.py``'s recipe: in-degree hubs) and the same
+graph with src and dst swapped (out-degree hubs), and
+``relgat_bwd_src_split_plain`` (the kernels' route in plain PyTorch) is held
+to ``relgat_bwd_src_plain`` in float64 to 1e-12: the two differ only in the
+order of the additions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from relgat_projector_tpu_torch.data.csr import (
+    BWD_ITEM_EDGES,
+    build_bwd_plan,
+    build_csr_graph,
+    with_bwd_plan,
+)
+from relgat_projector_tpu_torch.data.graph import build_graph
+from relgat_projector_tpu_torch.ops import cuda as kern
+
+K = 16  # a small item size, so that the graphs here split rows
+REL_TOL = 1e-12
+HUB = 5
+CASES = ("degree_0", "degree_K", "degree_K+1", "degree_3K+5", "uniform",
+         "zipf", "zipf_src")
+DEGREES = {"0": 0, "K": K, "K+1": K + 1, "3K+5": 3 * K + 5}
+
+
+def _graph(case, n=300, e=3000, num_rel=6, item_edges=K):
+    rng = np.random.default_rng(CASES.index(case))
+    src = rng.integers(0, n, e)
+    if case.startswith("zipf"):
+        p = 1.0 / np.arange(1, n + 1)
+        dst = rng.choice(n, size=e, p=p / p.sum())
+        if case == "zipf_src":
+            src, dst = dst, src
+    else:
+        dst = rng.integers(0, n, e)
+    if case.startswith("degree_"):
+        degree = DEGREES[case.split("_")[1]]
+        src[src == HUB] = HUB + 1
+        src[:degree] = HUB
+    et = rng.integers(0, num_rel, e)
+    g = build_graph(src, dst, et, n, num_rel=num_rel, csr=True, device="cpu")
+    return g, with_bwd_plan(g.csr, item_edges), rng
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plan_covers_every_edge_once_in_order(case):
+    g, c, _ = _graph(case)
+    ptr = c.src_ptr.numpy()
+    deg = np.diff(ptr)
+    items = c.bwd_items.numpy()
+    merge = c.bwd_merge.numpy()
+    row, e0, e1, slot = items.T
+    assert c.bwd_item_edges == K and c.bwd_num_items == len(items)
+    # the items, in order, tile [0, E) in src-CSR order, row after row
+    assert e0[0] == 0 and e1[-1] == c.num_edges
+    np.testing.assert_array_equal(e0[1:], e1[:-1])
+    assert (np.diff(row) >= 0).all()
+    np.testing.assert_array_equal(np.unique(row), np.arange(c.num_src))
+    assert ((ptr[row] <= e0) & (e1 <= ptr[row + 1])).all()
+    assert ((e1 - e0) <= K).all()
+    # a row of at most K out-edges (none included) is one whole-row item
+    per_row = np.bincount(row, minlength=c.num_src)
+    np.testing.assert_array_equal(per_row, np.maximum(1, -(-deg // K)))
+    whole = per_row[row] == 1
+    assert (slot[whole] == -1).all()
+    np.testing.assert_array_equal(e0[whole], ptr[row[whole]])
+    np.testing.assert_array_equal(e1[whole], ptr[row[whole] + 1])
+    assert (deg[row[whole]] == 0).sum() == (deg == 0).sum()
+    # a split row: full chunks of K but the last, slots contiguous in chunk
+    # order, listed once in the merge list
+    assert (e1[~whole] - e0[~whole] >= 1).all()
+    np.testing.assert_array_equal(slot[~whole], np.arange((~whole).sum()))
+    assert c.bwd_num_split == len(merge) and c.bwd_num_parts == (~whole).sum()
+    for r, first, end in merge:
+        mine = np.flatnonzero(row == r)
+        np.testing.assert_array_equal(slot[mine], np.arange(first, end))
+        assert (e1[mine[:-1]] - e0[mine[:-1]] == K).all()
+    np.testing.assert_array_equal(merge[:, 0], np.flatnonzero(deg > K))
+    if case.startswith("degree_"):
+        want = DEGREES[case.split("_")[1]]
+        assert deg[HUB] == want
+        assert per_row[HUB] == max(1, -(-want // K))
+    if case == "zipf_src":
+        assert len(merge) >= 1 and deg.max() > 10 * K
+
+
+def test_every_layout_carries_the_default_plan():
+    g, _, _ = _graph("zipf_src")
+    c = g.csr
+    assert c.bwd_item_edges == BWD_ITEM_EDGES
+    items, merge = build_bwd_plan(c.src_ptr.numpy(), BWD_ITEM_EDGES)
+    np.testing.assert_array_equal(c.bwd_items.numpy(), items)
+    np.testing.assert_array_equal(c.bwd_merge.numpy(), merge.reshape(-1, 3))
+    # a layout built with another item size, and a source space of its own
+    rng = np.random.default_rng(1)
+    dst = np.sort(rng.integers(0, 40, 200))
+    src = rng.integers(0, 50, 200)
+    src[:30] = 3
+    sub = build_csr_graph(src, dst, np.zeros_like(src), 40, 1,
+                          torch.device("cpu"), num_src=50)
+    assert sub.bwd_item_edges == BWD_ITEM_EDGES and sub.bwd_num_split == 0
+    sub = with_bwd_plan(sub, 7)
+    assert sub.bwd_item_edges == 7 and sub.bwd_num_items > 50
+    assert 3 in sub.bwd_merge[:, 0].tolist()
+    empty = build_csr_graph(*(np.zeros(0, np.int64),) * 3, 8, 1,
+                            torch.device("cpu"), num_src=0)
+    assert empty.bwd_num_items == 0 and empty.bwd_num_parts == 0
+
+
+@pytest.mark.parametrize("item_edges", (0, -1))
+def test_plan_needs_positive_item_size(item_edges):
+    with pytest.raises(ValueError, match="item_edges"):
+        build_bwd_plan(np.array([0, 3, 3]), item_edges)
+
+
+def _src_args(case, heads=3, num_rel=6, f=16, rate=0.0):
+    g, c, rng = _graph(case, num_rel=num_rel)
+    n = g.num_nodes
+    h = torch.from_numpy(rng.standard_normal((n, heads * f)) * 0.5)
+    gr = torch.from_numpy(rng.standard_normal((n, heads * f)))
+    attn = torch.from_numpy(rng.standard_normal((heads, num_rel, f)) * 0.3)
+    bias = torch.from_numpy(rng.standard_normal(num_rel) * 0.1)
+    kw = dict(seed=-13579 if rate else None, rate=rate, negative_slope=0.2,
+              eps=1e-16)
+    out, m, l, b = kern.relgat_fwd_plain(h, attn, bias, c, **kw)
+    s_dot = ((out - b[:, None]) * gr).view(n, heads, f).sum(-1)
+    return (h, gr, attn, m, l, s_dot, gr.sum(1), c), kw
+
+
+@pytest.mark.parametrize("case", ("degree_K+1", "degree_3K+5", "uniform",
+                                  "zipf", "zipf_src"))
+@pytest.mark.parametrize("rate", (0.0, 0.3))
+def test_merge_matches_plain(case, rate):
+    args, kw = _src_args(case, rate=rate)
+    assert args[-1].bwd_num_split >= 1
+    want = kern.relgat_bwd_src_plain(*args, **kw)
+    got = kern.relgat_bwd_src_split_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64 and a.shape == b.shape
+        assert float((a - b).abs().max()) <= REL_TOL * float(
+            b.abs().max().clamp_min(1e-300))
+
+
+def test_rows_without_out_edges_are_zero():
+    args, kw = _src_args("zipf_src")
+    c = args[-1]
+    empty = torch.from_numpy(np.diff(c.src_ptr.numpy()) == 0)
+    assert bool(empty.any())
+    for fn in (kern.relgat_bwd_src, kern.relgat_bwd_src_split_plain):
+        for x in fn(*args, **kw):
+            assert bool((x[empty] == 0).all()) and bool(torch.isfinite(x).all())

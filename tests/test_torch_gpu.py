@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from relgat_projector_tpu_torch.config import ModelConfig, RunConfig, TrainConfig
-from relgat_projector_tpu_torch.data.csr import FWD_ITEM_EDGES, build_fwd_plan
+from relgat_projector_tpu_torch.data.csr import (
+    BWD_ITEM_EDGES, FWD_ITEM_EDGES, build_fwd_plan, with_bwd_plan)
 from relgat_projector_tpu_torch.data.synthetic import generate_synthetic_kg
 from relgat_projector_tpu_torch.data.graph import build_graph
 from relgat_projector_tpu_torch.ops import cuda as kern
@@ -519,6 +520,97 @@ def test_wide_heads_both_designs(card, heads, feat, bf16):
     after = kern.launch_counts()
     assert after[fwd.__name__] == before[fwd.__name__] + 2
     assert after[bwd_src.__name__] == before[bwd_src.__name__] + 2
+
+
+def _out_hub_case(heads, feat, degree=3 * BWD_ITEM_EDGES + 5, num_rel=7,
+                  n=600, e=6_000):
+    """A uniform graph whose row 77 has ``degree`` out-edges (the src pass
+    splits it), attention inputs and the forward's statistics."""
+    rng = np.random.default_rng(degree + heads)
+    src = rng.integers(0, n, e)
+    src[src == 77] = 78
+    src = np.concatenate([src, np.full(degree, 77)])
+    dst = rng.integers(0, n, e + degree)
+    et = rng.integers(0, num_rel, e + degree)
+    g = build_graph(src, dst, et, n, num_rel=num_rel, csr=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(degree)
+    shape = (g.num_nodes, heads * feat)
+    h = torch.randn(shape, generator=gen, device="cuda") * 0.5
+    gr = torch.randn(shape, generator=gen, device="cuda")
+    attn = torch.randn((heads, num_rel, feat), generator=gen,
+                       device="cuda") * 0.3
+    bias = torch.randn((num_rel,), generator=gen, device="cuda") * 0.1
+    return g, h, gr, attn, bias
+
+
+@pytest.mark.parametrize("heads,feat", [(16, 128), (3, 128), (4, 32), (3, 40),
+                                        (12, 300), (16, 200), (4, 512),
+                                        (3, 301)])
+@pytest.mark.parametrize("bf16", (False, True))
+def test_bwd_src_split_rows_every_design(card, heads, feat, bf16):
+    """A source row of 3K + 5 out-edges, split into chunks: the src pass
+    (the template, the bf16 pair kernel, past 128 features both the ring
+    and the template, forced) within the bar of its float64 plain version
+    with dropout 0.3, the same bits twice, one launch a call with the
+    merge; and on every row that no plan splits the same bits as with a
+    plan of one item a row."""
+    g, h, gr, attn, bias = _out_hub_case(heads, feat)
+    csr = g.csr
+    outdeg = np.diff(csr.src_ptr.cpu().numpy())
+    assert outdeg[77] == 3 * BWD_ITEM_EDGES + 5 and csr.bwd_num_split == 1
+    fwd, bwd_src, src_plain = (
+        (kern.relgat_fwd_bf16, kern.relgat_bwd_src_bf16,
+         kern.relgat_bwd_src_bf16_plain) if bf16 else
+        (kern.relgat_fwd, kern.relgat_bwd_src, kern.relgat_bwd_src_plain))
+    rows_h, rows_g = ((h.to(torch.bfloat16), gr.to(torch.bfloat16)) if bf16
+                      else (h, gr))
+    kw = dict(seed=-987654321, rate=0.3, negative_slope=0.2, eps=1e-16)
+    out, m, l, b = fwd(rows_h, attn, bias, csr, **kw)
+    n = h.shape[0]
+    s_dot = ((out - b[:, None]) * gr).view(n, heads, feat).sum(-1)
+    args = (rows_h, rows_g, attn, m, l, s_dot, gr.sum(1))
+    before = kern.launch_counts()[bwd_src.__name__]
+    first = bwd_src(*args, csr, **kw)
+    second = bwd_src(*args, csr, **kw)
+    torch.cuda.synchronize()
+    assert kern.launch_counts()[bwd_src.__name__] == before + 2
+    want = _exact(src_plain, *args, csr, **kw)
+    for a, b_, c in zip(first, second, want):
+        assert torch.equal(a, b_)
+        assert _rel(a, c) <= REL_TOL
+        assert _rel(a[77], c[77]) <= REL_TOL
+    designs = kern.designs_of(bwd_src) if feat > 128 else ()
+    for d in designs:
+        for a, c in zip(kern.with_design(bwd_src, d, *args, csr, **kw), want):
+            assert _rel(a, c) <= REL_TOL
+    whole = with_bwd_plan(csr, int(outdeg.max()))
+    assert whole.bwd_num_split == 0
+    keep = torch.from_numpy(outdeg <= BWD_ITEM_EDGES).cuda()
+    for a, c in zip(first, bwd_src(*args, whole, **kw)):
+        assert torch.equal(a[keep], c[keep])
+        assert _rel(a[~keep], c[~keep]) <= REL_TOL
+
+
+def test_bwd_src_small_items_match_plain(card):
+    """Items of 5 edges split most rows of a uniform graph, rows without
+    out-edges stay whole: fp32 and bf16 against the float64 plain version;
+    the merge writes the split rows' W and B too."""
+    g, h, gr, attn, bias = _out_hub_case(16, 128, degree=50, e=3_000)
+    csr = with_bwd_plan(g.csr, 5)
+    assert csr.bwd_num_split > 100
+    kw = dict(seed=11, rate=0.3, negative_slope=0.2, eps=1e-16)
+    for bf16 in (False, True):
+        fwd, bwd_src, src_plain = (
+            (kern.relgat_fwd_bf16, kern.relgat_bwd_src_bf16,
+             kern.relgat_bwd_src_bf16_plain) if bf16 else
+            (kern.relgat_fwd, kern.relgat_bwd_src, kern.relgat_bwd_src_plain))
+        rows_h, rows_g = ((h.to(torch.bfloat16), gr.to(torch.bfloat16))
+                          if bf16 else (h, gr))
+        out, m, l, b = fwd(rows_h, attn, bias, csr, **kw)
+        s_dot = ((out - b[:, None]) * gr).view(h.shape[0], 16, 128).sum(-1)
+        args = (rows_h, rows_g, attn, m, l, s_dot, gr.sum(1), csr)
+        for a, c in zip(bwd_src(*args, **kw), _exact(src_plain, *args, **kw)):
+            assert _rel(a, c) <= REL_TOL
 
 
 def test_split_path_never_falls_back(card):

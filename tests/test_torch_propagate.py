@@ -7,9 +7,14 @@ the bars ``test_pallas.py`` holds the Pallas kernels to against XLA: forward
 rtol 1e-4 / atol 1e-5, gradients rtol 1e-3 / atol 1e-5 (fp32 sums in other
 orders, the TPU kernel's per-chunk reference shift). Logits stay within a
 spread of a few units per destination, far inside the ~80 where that shift
-is exact.
+is exact. The ``out_hub`` case gives one source row 200 out-edges and the
+layout a src-pass item size of ``OUT_HUB_ITEM_EDGES``, so that the src
+pass's work plan splits that row (and a few others) into chunks; on the CPU
+its gradients are also taken through ``relgat_bwd_src_split_plain``, the
+kernels' route of per-chunk partial rows and their merge.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -22,14 +27,18 @@ from relgat_projector_tpu.data.blocked import build_blocked_graph
 from relgat_projector_tpu.ops.dropout import seed_from_key
 from relgat_projector_tpu.ops.pallas import relgat_propagate_pallas
 from relgat_projector_tpu.ops.relgat_ops import relgat_propagate as jax_propagate
+from relgat_projector_tpu_torch.data.csr import with_bwd_plan
 from relgat_projector_tpu_torch.data.graph import build_graph
+from relgat_projector_tpu_torch.ops.cuda import fused
 from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
 
 TD, TE = 16, 64
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
-CASES = ("uniform", "empty_rows", "heavy_dst", "no_bias", "dropout", "zipf")
+CASES = ("uniform", "empty_rows", "heavy_dst", "no_bias", "dropout", "zipf",
+         "out_hub")
 DROPOUT_KEY = 3
+OUT_HUB_ITEM_EDGES = 16
 
 
 def _inputs(case):
@@ -45,8 +54,13 @@ def _inputs(case):
         # in-degree on hubs, dst drawn with p ~ 1/rank (bench.py's recipe)
         p = 1.0 / np.arange(1, n + 1) ** 1.0
         dst = rng.choice(n, size=e, p=p / p.sum())
+    if case == "out_hub":
+        src[:200] = 5  # 200 out-edges, 13 chunks of OUT_HUB_ITEM_EDGES
     et = rng.integers(0, r, e)
     g = build_graph(src, dst, et, n, num_rel=r, csr=True, device="cpu")
+    if case == "out_hub":
+        g = dataclasses.replace(
+            g, csr=with_bwd_plan(g.csr, OUT_HUB_ITEM_EDGES))
     n_pad = g.num_nodes
     h = (rng.standard_normal((n_pad, heads, f)) * 0.5).astype(np.float32)
     attn = (rng.standard_normal((heads, r, f)) * 0.3).astype(np.float32)
@@ -132,6 +146,34 @@ def test_propagate_matches_jax(case, port, ref):
     assert len(grads) == len(want_grads)
     for got, want in zip(grads, want_grads):
         np.testing.assert_allclose(got, want, **GRAD_TOL)
+
+
+def test_split_src_route_matches_jax(monkeypatch):
+    """The kernels' route through the src pass's work plan (partial rows
+    per chunk, merged in chunk order), which the CPU wrapper does not take
+    by itself, against JAX's Pallas kernels in interpret mode."""
+    calls = []
+
+    def split_route(*args, **kw):
+        calls.append(args[-1].bwd_num_split)
+        return fused.relgat_bwd_src_split_plain(*args, **kw)
+
+    monkeypatch.setattr(fused, "relgat_bwd_src_plain", split_route)
+    out, grads, g = _torch_results("out_hub", use_pallas=True)
+    assert g.csr.bwd_num_split >= 1
+    assert calls and all(n == g.csr.bwd_num_split for n in calls)
+    want_out, want_grads = _jax_results("out_hub")["pallas"]
+    np.testing.assert_allclose(out, want_out, **FWD_TOL)
+    assert len(grads) == len(want_grads) == 3
+    for got, want in zip(grads, want_grads):
+        np.testing.assert_allclose(got, want, **GRAD_TOL)
+
+
+def test_out_hub_splits_the_src_pass():
+    g = _inputs("out_hub")[0]
+    deg = np.diff(g.csr.src_ptr.numpy())
+    assert deg[5] >= 200 and g.csr.bwd_item_edges == OUT_HUB_ITEM_EDGES
+    assert 5 in g.csr.bwd_merge[:, 0].tolist()
 
 
 def test_kernel_path_zeroes_rows_without_in_edges():
