@@ -27,6 +27,7 @@ from relgat_projector_tpu_torch.device import compute_matmul
 from relgat_projector_tpu_torch.models.initializers import xavier_uniform
 from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
 from relgat_projector_tpu_torch.parallel.mesh import gather_blocks
+from relgat_projector_tpu_torch.utils.profiling import span
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 
 
@@ -107,25 +108,27 @@ def apply_relgat_layer(
         proj, attn = proj[lo:lo + per], attn[lo:lo + per]
     heads, in_dim, out_dim = proj.shape
     n = x.shape[0]
-    w = proj.permute(1, 0, 2).reshape(in_dim, heads * out_dim)
-    h = compute_matmul(x, w, compute_dtype).view(n, heads, out_dim)
+    with span("relgat/project"):
+        w = proj.permute(1, 0, 2).reshape(in_dim, heads * out_dim)
+        h = compute_matmul(x, w, compute_dtype).view(n, heads, out_dim)
 
-    agg = relgat_propagate(
-        h,
-        attn.float(),
-        params.get("rel_bias"),
-        graph.src,
-        graph.dst,
-        graph.etype,
-        num_nodes=graph.num_nodes,
-        attn_dropout_rate=attn_dropout_rate,
-        dropout_seed=dropout_seed,
-        use_pallas=use_pallas,
-        csr=graph.csr,
-        kernel_precision=kernel_precision,
-        halo=graph.halo,
-        edge_shard=graph.edge_shard,
-    )
+    with span("relgat/propagate"):
+        agg = relgat_propagate(
+            h,
+            attn.float(),
+            params.get("rel_bias"),
+            graph.src,
+            graph.dst,
+            graph.etype,
+            num_nodes=graph.num_nodes,
+            attn_dropout_rate=attn_dropout_rate,
+            dropout_seed=dropout_seed,
+            use_pallas=use_pallas,
+            csr=graph.csr,
+            kernel_precision=kernel_precision,
+            halo=graph.halo,
+            edge_shard=graph.edge_shard,
+        )
     out = agg.reshape(n, heads * out_dim)
     if grid is not None and grid.model > 1:
         out = gather_blocks(out, grid.model_group, grid.model_index,

@@ -54,6 +54,7 @@ from relgat_projector_tpu_torch.models.state_dict import (
     params_from_state_dict,
 )
 from relgat_projector_tpu_torch.utils import msgpack
+from relgat_projector_tpu_torch.utils.profiling import span
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -133,25 +134,26 @@ def single_gat_step(
         rows = (graph.num_nodes, lo, hi)
     x = node_emb
     for li in range(num_layers):
-        seed, keep = draw_layer_randomness(
-            rng, (x.shape[0] if rows is None else rows[0], width),
-            dropout_rate=cfg.dropout,
-            attn_dropout_rate=cfg.rel_attn_dropout, train=train,
-            device=x.device,
-        )
-        if rows is not None and keep is not None:
-            keep = keep[rows[1]:rows[2]]
-        if cfg.remat and torch.is_grad_enabled():
-            # preserve_rng_state would save and restore the default
-            # generators, which the layer does not draw from.
-            x = checkpoint(
-                layer_fn, params["layers"][li], x, seed, keep,
-                use_reentrant=False, preserve_rng_state=False,
+        with span("relgat/gat_layer"):
+            seed, keep = draw_layer_randomness(
+                rng, (x.shape[0] if rows is None else rows[0], width),
+                dropout_rate=cfg.dropout,
+                attn_dropout_rate=cfg.rel_attn_dropout, train=train,
+                device=x.device,
             )
-        else:
-            x = layer_fn(params["layers"][li], x, seed, keep)
-        if li < num_layers - 1:
-            x = F.elu(x)
+            if rows is not None and keep is not None:
+                keep = keep[rows[1]:rows[2]]
+            if cfg.remat and torch.is_grad_enabled():
+                # preserve_rng_state would save and restore the default
+                # generators, which the layer does not draw from.
+                x = checkpoint(
+                    layer_fn, params["layers"][li], x, seed, keep,
+                    use_reentrant=False, preserve_rng_state=False,
+                )
+            else:
+                x = layer_fn(params["layers"][li], x, seed, keep)
+            if li < num_layers - 1:
+                x = F.elu(x)
     if cfg.project_to_input_size:
         x = apply_projection_head(
             params["projection"], x, dropout_rate=cfg.projection_dropout,

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from relgat_projector_tpu_torch.device import compute_matmul
 from relgat_projector_tpu_torch.models.initializers import torch_linear_uniform
+from relgat_projector_tpu_torch.utils.profiling import span
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 
 
@@ -79,19 +80,21 @@ def apply_projection_head(
     """The head over ``x``'s rows. ``rows = (total, lo, hi)``: ``x`` holds
     rows ``[lo, hi)`` of ``total`` (a graph shard's), and the dropout mask
     is drawn for all of them and sliced."""
-    n_ln = len(params["ln_scale"])
-    y = x
-    for i, w in enumerate(params["linears"]):
-        y = compute_matmul(y, w, compute_dtype)
-        if i < n_ln:  # every layer but the last: GELU -> LayerNorm
-            y = F.gelu(y, approximate="none")
-            y = _layer_norm(y, params["ln_scale"][i], params["ln_bias"][i])
-    if train and dropout_rate > 0.0 and rng is not None:
-        shape = y.shape if rows is None else (rows[0], y.shape[1])
-        keep = y.new_empty(shape).bernoulli_(
-            1.0 - dropout_rate, generator=rng.device
-        )
-        if rows is not None:
-            keep = keep[rows[1]:rows[2]]
-        y = y * keep / (1.0 - dropout_rate)
-    return y
+    with span("relgat/head"):
+        n_ln = len(params["ln_scale"])
+        y = x
+        for i, w in enumerate(params["linears"]):
+            y = compute_matmul(y, w, compute_dtype)
+            if i < n_ln:  # every layer but the last: GELU -> LayerNorm
+                y = F.gelu(y, approximate="none")
+                y = _layer_norm(y, params["ln_scale"][i],
+                                params["ln_bias"][i])
+        if train and dropout_rate > 0.0 and rng is not None:
+            shape = y.shape if rows is None else (rows[0], y.shape[1])
+            keep = y.new_empty(shape).bernoulli_(
+                1.0 - dropout_rate, generator=rng.device
+            )
+            if rows is not None:
+                keep = keep[rows[1]:rows[2]]
+            y = y * keep / (1.0 - dropout_rate)
+        return y

@@ -40,6 +40,7 @@ from relgat_projector_tpu_torch.train.state import (
     TrainState,
     global_norm,
 )
+from relgat_projector_tpu_torch.utils.profiling import span
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 from relgat_projector_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -64,18 +65,19 @@ def score_batch(
     """Loss and metrics of one triplet batch given the representations
     (on a ``grid``, this rank's rows of them: all, or its shard's with
     ``halo``; ``split_data`` fetches only its data slice's rows)."""
-    if neg_dst is None:
-        if rng is None:
-            raise ValueError("score_batch needs rng or injected neg_dst")
-        neg_dst = sample_negative_dst(
-            rng.device, dst, num_nodes=num_real_nodes,
-            num_neg=train_cfg.num_neg,
+    if neg_dst is None and rng is None:
+        raise ValueError("score_batch needs rng or injected neg_dst")
+    with span("relgat/score"):
+        if neg_dst is None:
+            neg_dst = sample_negative_dst(
+                rng.device, dst, num_nodes=num_real_nodes,
+                num_neg=train_cfg.num_neg,
+            )
+        src_vec, dst_vec, neg_dst_vec = batch_vectors(
+            x, src, dst, neg_dst, grid, halo, split_data=split_data
         )
-    src_vec, dst_vec, neg_dst_vec = batch_vectors(
-        x, src, dst, neg_dst, grid, halo, split_data=split_data
-    )
-    return score_vectors(params, model_cfg, train_cfg, src_vec, rel, dst_vec,
-                         neg_dst_vec, weight)
+        return score_vectors(params, model_cfg, train_cfg, src_vec, rel,
+                             dst_vec, neg_dst_vec, weight)
 
 
 def score_vectors(
@@ -175,12 +177,14 @@ def loss_and_grads(
     it = iter(req)
     params_req = tree_map(lambda _: next(it), params)
     with torch.enable_grad():
-        loss, metrics = batch_forward(
-            params_req, model_cfg, train_cfg, node_emb, graph, src, rel, dst,
-            weight, rng=rng, train=True, neg_dst=neg_dst, grid=grid,
-        )
+        with span("relgat/forward"):
+            loss, metrics = batch_forward(
+                params_req, model_cfg, train_cfg, node_emb, graph, src, rel,
+                dst, weight, rng=rng, train=True, neg_dst=neg_dst, grid=grid,
+            )
         scaled = loss if grid is None else loss / grid.size
-        grads = torch.autograd.grad(scaled, req, allow_unused=True)
+        with span("relgat/backward"):
+            grads = torch.autograd.grad(scaled, req, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(req, grads)]
     it = iter(grads)
     grads = tree_map(lambda _: next(it), params)
@@ -205,49 +209,56 @@ def make_train_step(
         state: TrainState, node_emb, graph: GraphData, src, rel, dst, weight,
         neg_dst: Optional[torch.Tensor] = None,
     ):
-        loss, fwd_metrics, grads = loss_and_grads(
-            state.params, model_cfg, train_cfg, node_emb, graph, src, rel,
-            dst, weight, rng=state.rng, neg_dst=neg_dst, grid=grid,
-        )
-        active = weight.sum() > 0
-        finite = torch.isfinite(loss) & active
-        new_params, new_opt = optimizer.update(
-            grads, state.opt_state, state.params
-        )
+        with span("relgat/step"):
+            loss, fwd_metrics, grads = loss_and_grads(
+                state.params, model_cfg, train_cfg, node_emb, graph, src, rel,
+                dst, weight, rng=state.rng, neg_dst=neg_dst, grid=grid,
+            )
+            with span("relgat/optimizer"):
+                active = weight.sum() > 0
+                finite = torch.isfinite(loss) & active
+                new_params, new_opt = optimizer.update(
+                    grads, state.opt_state, state.params
+                )
 
-        def select(new, old):
-            return tree_map(lambda a, b: torch.where(finite, a, b), new, old)
+                def select(new, old):
+                    return tree_map(lambda a, b: torch.where(finite, a, b),
+                                    new, old)
 
-        opt_state = type(state.opt_state)(
-            mu=select(new_opt.mu, state.opt_state.mu),
-            nu=select(new_opt.nu, state.opt_state.nu),
-            count=torch.where(finite, new_opt.count, state.opt_state.count),
-        )
-        next_state = TrainState(
-            params=select(new_params, state.params),
-            opt_state=opt_state,
-            step=state.step + finite.to(torch.int32),
-            rng=state.rng,
-            nonfinite_steps=state.nonfinite_steps
-            + (~torch.isfinite(loss) & active).to(torch.int32),
-        )
-        mrr, hits = M.compute_mrr_hits(
-            fwd_metrics["pos_score"], fwd_metrics["neg_score"], ks,
-            weights=weight,
-        )
-        metrics = {
-            "loss": loss,
-            "finite": finite,
-            "grad_norm": global_norm(grads),
-            "lr": lr_schedule(state.step),
-            "mrr": mrr,
-            **{f"hits@{k}": v for k, v in hits.items()},
-            **{
-                k: v for k, v in fwd_metrics.items()
-                if k not in ("pos_score", "neg_score")
-            },
-        }
-        return next_state, metrics
+                opt_state = type(state.opt_state)(
+                    mu=select(new_opt.mu, state.opt_state.mu),
+                    nu=select(new_opt.nu, state.opt_state.nu),
+                    count=torch.where(finite, new_opt.count,
+                                      state.opt_state.count),
+                )
+                next_state = TrainState(
+                    params=select(new_params, state.params),
+                    opt_state=opt_state,
+                    step=state.step + finite.to(torch.int32),
+                    rng=state.rng,
+                    nonfinite_steps=state.nonfinite_steps
+                    + (~torch.isfinite(loss) & active).to(torch.int32),
+                )
+                grad_norm = global_norm(grads)
+                lr = lr_schedule(state.step)
+            with span("relgat/score"):
+                mrr, hits = M.compute_mrr_hits(
+                    fwd_metrics["pos_score"], fwd_metrics["neg_score"], ks,
+                    weights=weight,
+                )
+            metrics = {
+                "loss": loss,
+                "finite": finite,
+                "grad_norm": grad_norm,
+                "lr": lr,
+                "mrr": mrr,
+                **{f"hits@{k}": v for k, v in hits.items()},
+                **{
+                    k: v for k, v in fwd_metrics.items()
+                    if k not in ("pos_score", "neg_score")
+                },
+            }
+            return next_state, metrics
 
     return train_step
 
@@ -327,9 +338,10 @@ def make_eval_step(
             src, rel, dst, weight, rng=rng, neg_dst=neg_dst, grid=grid,
             halo=graph.halo, split_data=False,
         )
-        mrr, hits = M.compute_mrr_hits(
-            fwd["pos_score"], fwd["neg_score"], ks, weights=weight
-        )
+        with span("relgat/score"):
+            mrr, hits = M.compute_mrr_hits(
+                fwd["pos_score"], fwd["neg_score"], ks, weights=weight
+            )
         n = weight.sum()
         out = {
             "n_examples": n,

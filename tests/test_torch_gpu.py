@@ -744,6 +744,43 @@ def test_remat_gives_the_same_bits_on_the_card(card):
                            getattr(ends[True].rng, name).get_state())
 
 
+@pytest.mark.parametrize("mode", [
+    {}, dict(compute_dtype="bfloat16", kernel_precision="default"),
+    dict(remat=True)], ids=("fp32", "bf16", "remat"))
+def test_device_time_by_span_covers_the_trace(card, mode):
+    """Two steps under ``torch.profiler``: the spans' device time and the
+    unattributed rest sum to the trace's device time within 0.5%; every
+    kernel named ``relgat`` falls under ``relgat/propagate`` (the remat
+    recompute's too), every GEMM under the projections, the head or the
+    scorer; every idle gap has a span or lies outside the step."""
+    from relgat_projector_tpu_torch.utils import profiling
+
+    _, _, step, state, x, g, batch, _ = _card_step(card, **mode)
+    state, _ = step(state, x, g, *batch)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            state, _ = step(state, x, g, *batch)
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type.name == "CUDA") / 1e6
+    by_span = profiling.device_time_by_span(prof)
+    assert abs(sum(by_span.values()) - total) <= 5e-3 * total
+    ops = profiling.device_ops(prof)
+    kernels = [o for o in ops if "relgat" in o.name.lower()]
+    assert kernels and {o.span for o in kernels} == {"relgat/propagate"}
+    gemms = [o for o in ops if any(k in o.name.lower() for k in
+                                   ("gemm", "cutlass", "sm90_", "nvjet"))]
+    assert gemms and {o.span for o in gemms} <= {
+        "relgat/project", "relgat/head", "relgat/score"}
+    assert {o.phase for o in kernels} == {"forward", "backward"}
+    assert set(profiling.idle_by_span(prof)) <= {
+        "relgat/step", "relgat/forward", "relgat/backward",
+        "relgat/optimizer", profiling.OUTSIDE_STEP} | {o.span for o in ops}
+
+
 def test_scan_segments_gives_the_same_bits_on_the_card(card):
     ends = []
     for segments in (0, 4):
