@@ -51,7 +51,11 @@ Phases, in order; any failure exits non-zero:
               decay 1e-4, lr 2e-5 linear) on a seeded uniform graph of
               100,000 nodes and 1,000,000 edges (bench.py's scale), random
               weights from a seed: 3 warm-up and 10 timed steps through the
-              kernels. Each kernel's launch count must equal layers x steps.
+              kernels. Each kernel's launch count must equal layers x steps,
+              and each of the head's GELU -> LayerNorm kernels
+              (gelu_layer_norm_fwd, _bwd) (projection_layers - 1) x steps
+              (also in train_bf16 and train_fp16); the export after it
+              launches the head's forward once.
               Then torch.profiler over two more steps: device time by
               kernel group and the device's idle share (diagnostic).
    train_bf16 - the same model, graph, weights and batches in the bf16
@@ -123,7 +127,16 @@ Phases, in order; any failure exits non-zero:
               variant's backward pair against the bound of the whole TPU
               backward kernel's function, and the rates of a plain copy, a
               row gather and a sparse product (torch.sparse.mm of the
-              dst-CSR against h) on this card.
+              dst-CSR against h) on this card. Then the head's GELU ->
+              LayerNorm kernels at the train head's hidden block (100,000
+              rows x 2,048, fp32 y, bf16 z and dz; launches from
+              train_bf16): z (bf16 and fp32), dy, dscale and dbias held to
+              the plain composition by autograd in float64, each within
+              twice the plain fp32 composition's error or 1e-5 of the
+              largest value, the same bits twice, and timed beside their
+              bytes bound, the plain composition (plain_ms) and
+              F.layer_norm(F.gelu(y)) (library_ms; for the backward, each
+              route's backward alone on a kept graph).
 7. zipf     - the same size with in-degree on hubs (dst drawn with
               p ~ 1/rank, bench.py's zipf class; the heaviest row has ~83k
               in-edges): 3 warm-up and 5 timed train steps, and relgat_fwd
@@ -271,6 +284,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from relgat_projector_tpu_torch import cli
 from relgat_projector_tpu_torch import export as export_cli
@@ -304,6 +318,7 @@ from relgat_projector_tpu_torch.models.model import (
 from relgat_projector_tpu_torch.models.scorer import l2_normalize
 from relgat_projector_tpu_torch.ops import cuda as kern
 from relgat_projector_tpu_torch.ops import propagate
+from relgat_projector_tpu_torch.ops.cuda import gelu_layernorm as gln
 from relgat_projector_tpu_torch.ops.cuda.build import build_all
 from relgat_projector_tpu_torch.ops.propagate import relgat_propagate_kernels
 from relgat_projector_tpu_torch.parallel.halo import (
@@ -424,6 +439,12 @@ VARIANTS = {False: ("relgat_fwd", "relgat_bwd_src", "relgat_bwd_rel"),
 # and an fp32 reference may take the other side there.
 EXACT_AT_TRAIN_SHAPES = ("relgat_bwd_rel", "relgat_bwd_rel_bf16")
 SRC_ROWS = 3_000
+# The head's GELU -> LayerNorm kernels (ops/cuda/gelu_layernorm.py): the
+# source, what they replace, and the rows of the float64 reference a chunk.
+HEAD_CU = "relgat_projector_tpu_torch/csrc/gelu_layernorm.cu"
+HEAD_REPLACES = "none: the JAX package leaves the block to XLA"
+HEAD_KERNELS = ("gelu_layer_norm_fwd", "gelu_layer_norm_bwd")
+HEAD_CHUNK = 25_000
 # The kernels that read one H*F row per edge (h[src], g[dst]).
 ROW_GATHERS = ("relgat_fwd", "relgat_bwd_src", "relgat_fwd_bf16",
                "relgat_bwd_src_bf16")
@@ -955,7 +976,8 @@ def edge_batches(src, et, dst, picks):
 def train_steps(node_emb, graph, batches, warmup, **model):
     """The production model (``model`` overriding its config) from a seed
     and its Adam state, trained on ``batches``: ``warmup`` steps, then the
-    rest timed. The launch counts and the peak memory cover all of them; no
+    rest timed. The launch counts (the head's in ``gln.head_counts()``)
+    and the peak memory cover all of them; no
     reference to an earlier state outlives its step. Returns (model config,
     train step, state, metrics, seconds per timed step, launch counts, the
     first step's loss)."""
@@ -971,6 +993,7 @@ def train_steps(node_emb, graph, batches, warmup, **model):
     weight = torch.ones(t["batch"], device=DEVICE)
     torch.cuda.reset_peak_memory_stats()
     kern.reset_launch_counts()
+    gln.reset_head_counts()
     first_loss = None
     for batch in batches[:warmup]:
         state, metrics = step(state, node_emb, graph, *batch, weight)
@@ -1001,6 +1024,16 @@ def check_train(metrics, counts, expected, what):
               f"{what}: {name} launched {c} times, expected {expected[name]}")
 
 
+def check_head(mcfg, steps, what):
+    """The head's GELU -> LayerNorm kernels since ``train_steps`` zeroed
+    their counters: each once per hidden block per step. Returns them."""
+    head = gln.head_counts()
+    want = (mcfg.projection_layers - 1) * steps
+    check(head == {k: want for k in HEAD_KERNELS},
+          f"{what}: the head's kernels launched {head}, expected {want} each")
+    return head
+
+
 def phase_train(card, out_lines, out_dir):
     t = TRAIN
     rng = np.random.default_rng(SEED)
@@ -1016,6 +1049,7 @@ def phase_train(card, out_lines, out_dir):
 
     mcfg, step, state, metrics, step_s, counts, first_loss = train_steps(
         node_emb, graph, batches, t["warmup_steps"])
+    head = check_head(mcfg, len(batches), "train")
     record = {
         "phase": "train", "card": card,
         "nodes": t["num_nodes"], "edges": t["num_edges"],
@@ -1027,7 +1061,7 @@ def phase_train(card, out_lines, out_dir):
         "setup_s": setup_s, "loss": float(metrics["loss"]),
         "grad_norm": float(metrics["grad_norm"]),
         "step": int(state.step), "first_step_loss": first_loss,
-        "launches": counts,
+        "launches": counts, "head_launches": head,
     }
     emit(record, out_lines)
     check_train(metrics, counts,
@@ -1039,11 +1073,13 @@ def phase_train(card, out_lines, out_dir):
                   out_lines, out_dir)
 
     before = kern.launch_counts()
+    head_before = gln.head_counts()
     t0 = time.perf_counter()
     rep = get_node_repr(state.params, mcfg, node_emb, graph)
     torch.cuda.synchronize()
     export_s = time.perf_counter() - t0
     after = kern.launch_counts()
+    head_after = gln.head_counts()
     emit({"phase": "export", "card": card, "shape": list(rep.shape),
           "export_ms": export_s * 1e3,
           "forward_launches": after["relgat_fwd"] - before["relgat_fwd"]},
@@ -1056,6 +1092,10 @@ def phase_train(card, out_lines, out_dir):
     check(after["relgat_bwd_src"] == before["relgat_bwd_src"]
           and after["relgat_bwd_rel"] == before["relgat_bwd_rel"],
           "export ran a backward kernel")
+    head_ran = {k: head_after[k] - head_before[k] for k in HEAD_KERNELS}
+    check(head_ran == {"gelu_layer_norm_fwd": mcfg.projection_layers - 1,
+                       "gelu_layer_norm_bwd": 0},
+          f"export: the head's kernels launched {head_ran}")
     return (counts, graph, step_s * 1e3, node_emb, batches, first_loss,
             state.params, mcfg)
 
@@ -1183,6 +1223,7 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
     torch.cuda.empty_cache()
     mcfg, step, state, metrics, step_s, counts, first_loss = train_steps(
         node_emb, graph, batches, t["warmup_steps"], **BF16_MODE)
+    head = check_head(mcfg, len(batches), "train_bf16")
     loss_rel = abs(first_loss - fp32_first_loss) / abs(fp32_first_loss)
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "train_bf16", "card": card, **BF16_MODE,
@@ -1197,7 +1238,7 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
           "first_step_loss": first_loss,
           "first_step_loss_fp32": fp32_first_loss,
           "first_step_loss_rel_diff": loss_rel, "tol": TRAIN_LOSS_TOL,
-          "launches": counts}, out_lines)
+          "launches": counts, "head_launches": head}, out_lines)
     check_train(metrics, counts,
                 expected_launches(True, t["layers"] * len(batches)),
                 "train_bf16")
@@ -1208,7 +1249,8 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
     profile_steps(step, state, node_emb, graph, batches[0], weight,
                   step_s * 1e3, step_matmul_flops(graph.num_nodes), card,
                   out_lines, out_dir, phase="profile_bf16")
-    return counts, {"step_ms": step_s * 1e3, "peak": peak}
+    return counts, {"step_ms": step_s * 1e3, "peak": peak,
+                    "head_launches": head}
 
 
 def phase_train_default(card, out_lines, graph, node_emb, batches,
@@ -1479,9 +1521,10 @@ def phase_train_fp16(card, out_lines, graph, node_emb, batches,
     TRAIN_LOSS_TOL of the fp32 step's; step time and peak memory."""
     c, t = FP16, TRAIN
     torch.cuda.empty_cache()
-    _, _, state, metrics, step_s, counts, first_loss = train_steps(
+    mcfg, _, state, metrics, step_s, counts, first_loss = train_steps(
         node_emb, graph, batches[:c["steps"]], c["warmup_steps"],
         compute_dtype=c["compute_dtype"])
+    head = check_head(mcfg, c["steps"], "train_fp16")
     peak = torch.cuda.max_memory_allocated()
     loss_rel = abs(first_loss - fp32_first_loss) / abs(fp32_first_loss)
     dtypes = sorted({str(x.dtype) for x in tree_leaves(state.params)})
@@ -1495,7 +1538,7 @@ def phase_train_fp16(card, out_lines, graph, node_emb, batches,
           "loss": float(metrics["loss"]), "first_step_loss": first_loss,
           "first_step_loss_fp32": fp32_first_loss,
           "first_step_loss_rel_diff": loss_rel, "tol": TRAIN_LOSS_TOL,
-          "launches": counts}, out_lines)
+          "launches": counts, "head_launches": head}, out_lines)
     check_train(metrics, counts,
                 expected_launches(False, t["layers"] * c["steps"]),
                 "train_fp16")
@@ -1928,6 +1971,125 @@ def phase_kernels(graph, counts, default_counts, doc_counts, card,
           "spmm_ms": spmm_ms}, out_lines)
     check(all(r["max_rel_err"] <= REL_TOL for r in rows),
           "kernel parity at the train shapes failed")
+    del h, g, idx, adj
+    torch.cuda.empty_cache()
+    return rows + head_block_rows(counts, card, out_lines)
+
+
+def head_block_reference(y, scale, bias, dz):
+    """``(z, dy, dscale, dbias)`` of the plain composition by autograd in
+    float64, ``HEAD_CHUNK`` rows at a time (the block is row-wise; the
+    scale and bias gradients are summed over the chunks)."""
+    s64 = scale.double().requires_grad_()
+    b64 = bias.double().requires_grad_()
+    zs, dys, dscale, dbias = [], [], 0.0, 0.0
+    for lo in range(0, y.shape[0], HEAD_CHUNK):
+        y64 = y[lo:lo + HEAD_CHUNK].double().requires_grad_()
+        z = gln.gelu_layer_norm_plain(y64, s64, b64)
+        dy, ds, db = torch.autograd.grad(
+            z, (y64, s64, b64), dz[lo:lo + HEAD_CHUNK].double())
+        zs.append(z.detach())
+        dys.append(dy)
+        dscale, dbias = dscale + ds, dbias + db
+    return torch.cat(zs), torch.cat(dys), dscale, dbias
+
+
+def head_block_rows(counts, card, out_lines):
+    """The kernels line's rows of the head's GELU -> LayerNorm kernels at
+    ``TRAIN``'s hidden block (every node row, H*F wide; fp32 y, scale and
+    bias, bf16 z and dz, as the bf16 mode runs them), each output held to
+    the plain composition in float64 within twice the plain fp32
+    composition's error or ``REL_TOL`` of its largest value, the same bits
+    twice, and timed beside its bytes bound, the plain composition and the
+    library's ``F.layer_norm(F.gelu(y))``."""
+    t = TRAIN
+    n, d = t["num_nodes"], t["heads"] * t["feat"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    y = torch.randn((n, d), generator=gen, device=DEVICE) * 1.5
+    scale = 1 + 0.2 * torch.randn((d,), generator=gen, device=DEVICE)
+    bias = 0.1 * torch.randn((d,), generator=gen, device=DEVICE)
+    dz = torch.randn((n, d), generator=gen, device=DEVICE).bfloat16()
+    dzf = dz.float()
+    bf16 = torch.bfloat16
+    ref = head_block_reference(y, scale, bias, dz)
+
+    z, mean, rstd = gln.gelu_layer_norm_fwd(y, scale, bias, bf16)
+    z32 = gln.gelu_layer_norm_fwd(y, scale, bias, torch.float32)[0]
+    bwd = gln.gelu_layer_norm_bwd(dz, y, scale, mean, rstd)
+    same_bits = (torch.equal(z, gln.gelu_layer_norm_fwd(y, scale, bias,
+                                                        bf16)[0])
+                 and all(torch.equal(a, b) for a, b in zip(
+                     bwd, gln.gelu_layer_norm_bwd(dz, y, scale, mean, rstd))))
+    check(same_bits, "the head's kernels gave other bits in a second call")
+
+    leaves = tuple(x.detach().requires_grad_() for x in (y, scale, bias))
+    routes = {
+        "plain": lambda: gln.gelu_layer_norm_plain(*leaves),
+        "library": lambda: F.layer_norm(F.gelu(leaves[0], approximate="none"),
+                                        (d,), leaves[1], leaves[2], 1e-5),
+    }
+    plain = None
+    fwd_ms, bwd_ms = {}, {}
+    for name, route in routes.items():
+        with torch.no_grad():
+            fwd_ms[name] = cuda_ms(route, reps=5, warmup=1)
+        out = route()
+        grads = torch.autograd.grad(out, leaves, dzf, retain_graph=True)
+        if name == "plain":
+            plain = (out.detach(),) + grads
+        bwd_ms[name] = cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, dzf, retain_graph=True), reps=5, warmup=1)
+        del out, grads
+    torch.cuda.empty_cache()
+
+    def errs(got, plain_got, want):
+        """A ``{max_rel_err, max_abs_err, plain_max_rel_err, bar}`` of one
+        output, checked against its bar."""
+        e = rel_err(got, want)
+        bar = max(2 * rel_err(plain_got, want), REL_TOL)
+        return {"max_rel_err": e, "max_abs_err": abs_err(got, want),
+                "plain_max_rel_err": rel_err(plain_got, want), "bar": bar}
+
+    fwd_errs = {"z_bf16": errs(z, plain[0].to(bf16), ref[0]),
+                "z_fp32": errs(z32, plain[0], ref[0])}
+    bwd_errs = {k: errs(a, b, c) for k, a, b, c in
+                zip(("dy", "dscale", "dbias"), bwd, plain[1:], ref[1:])}
+    del ref, plain, z32
+    # bytes: y fp32 in, z bf16 out, scale and bias in, mean and rstd out;
+    # dz bf16, y fp32, scale, mean and rstd in, dy fp32, dscale and dbias out
+    nbytes = {"gelu_layer_norm_fwd": 4 * n * d + 2 * n * d + 8 * d + 8 * n,
+              "gelu_layer_norm_bwd": (2 * n * d + 4 * n * d + 4 * d + 8 * n
+                                      + 4 * n * d + 8 * d)}
+    ms = {"gelu_layer_norm_fwd": cuda_ms(
+              lambda: gln.gelu_layer_norm_fwd(y, scale, bias, bf16),
+              reps=20, warmup=2),
+          "gelu_layer_norm_bwd": cuda_ms(
+              lambda: gln.gelu_layer_norm_bwd(dz, y, scale, mean, rstd),
+              reps=20, warmup=2)}
+    rows = []
+    for name, e, times in (("gelu_layer_norm_fwd", fwd_errs, fwd_ms),
+                           ("gelu_layer_norm_bwd", bwd_errs, bwd_ms)):
+        worst = max(e.values(), key=lambda x: x["max_rel_err"])
+        bound = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        row = {
+            "name": name, "graph": None, "rows": n, "width": d,
+            "route": "cuda", "source": HEAD_CU, "replaces": HEAD_REPLACES,
+            "launches": counts.get(name),
+            "max_abs_err": max(x["max_abs_err"] for x in e.values()),
+            "max_rel_err": worst["max_rel_err"],
+            "ms": ms[name], "plain_ms": times["plain"],
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": times["library"],
+            "reference": "float64", "bytes": nbytes[name], "flops": None,
+            "card": card, "same_bits_twice": same_bits,
+        }
+        emit({"phase": "kernel", **row, "roofline": bound / ms[name],
+              "errors": e}, out_lines)
+        for out, x in e.items():
+            check(x["max_rel_err"] <= x["bar"],
+                  f"{name}: {out} is {x['max_rel_err']} from the float64 "
+                  f"plain composition, past {x['bar']}")
+        rows.append(row)
     return rows
 
 
@@ -3677,8 +3839,9 @@ def main(argv=None) -> int:
         graph = build_graph(src, dst, et, TRAIN["num_nodes"],
                             num_rel=TRAIN["num_rel"], csr=True, device=DEVICE)
         # No main path runs here, so no launches were counted.
-        kernels = phase_kernels(graph, {k: None for k in KERNELS}, None,
-                                None, card, out_lines)
+        kernels = phase_kernels(graph,
+                                {k: None for k in [*KERNELS, *HEAD_KERNELS]},
+                                None, None, card, out_lines)
     else:
         worst = phase_parity(card, out_lines)
         worst = max(worst, phase_parity_wide(card, out_lines))
@@ -3710,6 +3873,7 @@ def main(argv=None) -> int:
         del node_emb, batches
         launches = {k: counts[k] for k in VARIANTS[False]}
         launches.update({k: counts_bf16[k] for k in VARIANTS[True]})
+        launches.update(bf16_record["head_launches"])
         kernels = phase_kernels(graph, launches, default_counts, doc_counts,
                                 card, out_lines)
         del graph

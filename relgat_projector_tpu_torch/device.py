@@ -65,7 +65,8 @@ class _CastMatMul(torch.autograd.Function):
     its VJP. In that VJP's jaxpr each backward product takes the cotangent
     against the other rounded operand, sums in fp32 and is rounded to ``t``
     (the type of the operand it differentiates) before the cast back to
-    fp32; so are dx and dw here. For bf16 and fp16 the cotangent itself is
+    that operand's own type (fp32, or a half type ``x`` arrived in); so
+    are dx and dw here. For bf16 and fp16 the cotangent itself is
     rounded to ``t`` here, the operand type of the tensor cores (and of a
     TPU's one-pass product at default precision); JAX on the CPU keeps it
     fp32, the one rounding the two still differ by. A float8 product keeps
@@ -75,6 +76,7 @@ class _CastMatMul(torch.autograd.Function):
     def forward(ctx, x, w, dtype):
         xq, wq = x.to(dtype), w.to(dtype)
         ctx.save_for_backward(xq, wq)
+        ctx.in_dtypes = (x.dtype, w.dtype)
         return _mm(xq, wq, torch.float32)
 
     @staticmethod
@@ -83,10 +85,11 @@ class _CastMatMul(torch.autograd.Function):
         dtype = xq.dtype
         gq = g.to(dtype) if dtype in HALF_TYPES else g
         dx = dw = None
+        x_dtype, w_dtype = ctx.in_dtypes
         if ctx.needs_input_grad[0]:
-            dx = _mm(gq, wq.t().to(gq.dtype), dtype).float()
+            dx = _mm(gq, wq.t().to(gq.dtype), dtype).to(x_dtype)
         if ctx.needs_input_grad[1]:
-            dw = _mm(xq.t().to(gq.dtype), gq, dtype).float()
+            dw = _mm(xq.t().to(gq.dtype), gq, dtype).to(w_dtype)
         return dx, dw, None
 
 

@@ -5,7 +5,9 @@ dims is the identity; one layer is a bias-free linear; ``k >= 2`` layers are
 ``k - 1`` blocks of ``linear -> exact GELU -> LayerNorm(eps 1e-5)`` then a
 final linear; trailing dropout. Weights are ``[in, out]`` (``x @ W``); each
 linear takes its operands in ``compute_dtype`` and gives fp32, and GELU,
-LayerNorm and dropout run in fp32.
+LayerNorm and dropout run in fp32. On the card each GELU -> LayerNorm is
+one fused function (``ops/cuda/gelu_layernorm.py``) that writes its output
+already in a bf16 or fp16 ``compute_dtype``, the next linear's operand.
 """
 
 from __future__ import annotations
@@ -13,10 +15,10 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from relgat_projector_tpu_torch.device import compute_matmul
+from relgat_projector_tpu_torch.device import HALF_TYPES, compute_matmul
 from relgat_projector_tpu_torch.models.initializers import torch_linear_uniform
+from relgat_projector_tpu_torch.ops.cuda.gelu_layernorm import gelu_layer_norm
 from relgat_projector_tpu_torch.utils.profiling import span
 from relgat_projector_tpu_torch.utils.rng import RngStreams
 
@@ -61,12 +63,6 @@ def init_projection_head(
     }
 
 
-def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
-    mean = x.mean(-1, keepdim=True)
-    var = (x - mean).square().mean(-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + 1e-5) * scale + bias
-
-
 def apply_projection_head(
     params: Dict[str, list],
     x: torch.Tensor,
@@ -82,13 +78,14 @@ def apply_projection_head(
     is drawn for all of them and sliced."""
     with span("relgat/head"):
         n_ln = len(params["ln_scale"])
+        operand = (compute_dtype if compute_dtype in HALF_TYPES
+                   else torch.float32)
         y = x
         for i, w in enumerate(params["linears"]):
             y = compute_matmul(y, w, compute_dtype)
             if i < n_ln:  # every layer but the last: GELU -> LayerNorm
-                y = F.gelu(y, approximate="none")
-                y = _layer_norm(y, params["ln_scale"][i],
-                                params["ln_bias"][i])
+                y = gelu_layer_norm(y, params["ln_scale"][i],
+                                    params["ln_bias"][i], operand)
         if train and dropout_rate > 0.0 and rng is not None:
             shape = y.shape if rows is None else (rows[0], y.shape[1])
             keep = y.new_empty(shape).bernoulli_(

@@ -21,7 +21,7 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("relgat_fwd", "relgat_bwd")
+SOURCES = ("relgat_fwd", "relgat_bwd", "gelu_layernorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -40,6 +40,8 @@ _FWD = [_P] * 15 + [_I] * 6 + [_F, _F, _I, _I, _U, _F, _I, _P]
 _BWD_SRC = [_P] * 15 + [_I] * 6 + [_F, _F, _I, _I, _U, _F, _I, _P]
 _BWD_REL = [_P] * 7 + [_I] * 5 + [_P]
 _BWD_REL_BF16 = [_P] * 7 + [_I] * 6 + [_P]  # and the design
+_GELU_LN_FWD = [_P] * 6 + [_I] * 4 + [_P]
+_GELU_LN_BWD = [_P] * 9 + [_I] * 4 + [_P]
 SIGNATURES = {
     "relgat_fwd": ("relgat_fwd", _FWD),
     "relgat_fwd_bf16": ("relgat_fwd", _FWD),
@@ -47,6 +49,8 @@ SIGNATURES = {
     "relgat_bwd_src_bf16": ("relgat_bwd", _BWD_SRC),
     "relgat_bwd_rel": ("relgat_bwd", _BWD_REL),
     "relgat_bwd_rel_bf16": ("relgat_bwd", _BWD_REL_BF16),
+    "gelu_ln_fwd": ("gelu_layernorm", _GELU_LN_FWD),
+    "gelu_ln_bwd": ("gelu_layernorm", _GELU_LN_BWD),
 }
 
 _lock = threading.Lock()

@@ -12,8 +12,10 @@ and the traced step, the harness's kernel-name groups (``devtrace``), and,
 where the port has them (``utils/profiling.py``), the traced steps' device
 time by span, by phase, by span and kernel group, the top elementwise
 kernels by span, the idle gaps by the span the stepping thread was in and
-by the span of the operation each gap ends in, and the checks of the
-split against the harness's groups. ``--root`` imports the port and the
+by the span of the operation each gap ends in, the checks of the split
+against the harness's groups, and, where the port has them, the head's
+fused-block launches a window step (``head_counts`` of
+``ops/cuda/gelu_layernorm.py``). ``--root`` imports the port and the
 benchmark from another checkout (to time two versions side by side);
 ``--out`` also writes the line to ``DIR/<cell>.<seed>.json``.
 Needs a CUDA card.
@@ -129,7 +131,16 @@ def main(argv=None) -> int:
     program = harness.make_program(cell, inputs)
     for i in range(WARM_STEPS):
         program.run(i)
+    try:  # the head's fused-block counters, where the port has them
+        from relgat_projector_tpu_torch.ops.cuda import gelu_layernorm
+    except ImportError:
+        gelu_layernorm = None
+    if gelu_layernorm is not None:
+        gelu_layernorm.reset_head_counts()
     win = harness.window(program, WARM_STEPS, args.seconds, "cuda")
+    head_counts = (None if gelu_layernorm is None else
+                   {k: v / win["steps"]
+                    for k, v in gelu_layernorm.head_counts().items()})
     traced = harness.traced_steps(program, win["next"], "cuda")
     steps = traced["steps"]
     line = {
@@ -143,6 +154,7 @@ def main(argv=None) -> int:
                       for k, v in traced["groups_s"].items()},
         "busy_ms": 1e3 * traced["busy_s"] / steps,
         "gaps_ms": {k: 1e3 * v / steps for k, v in traced["gaps"][:6]},
+        "head_counts_per_step": head_counts,
     }
     if hasattr(profiling, "device_ops"):
         t0 = time.perf_counter()
