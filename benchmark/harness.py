@@ -57,7 +57,8 @@ class Cell:
 
 
 def load_cell(workload: str, root: Path = ROOT) -> Cell:
-    """The cell ``workload`` of ``root/BENCHMARK.json`` with its files."""
+    """The cell ``workload`` of ``root/BENCHMARK.json`` with its files, all
+    read under ``root``."""
     spec = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
@@ -65,9 +66,10 @@ def load_cell(workload: str, root: Path = ROOT) -> Cell:
     cell = cells[workload]
     configs = {c["name"]: c for c in spec["configs"]}
     config = json.loads((root / configs[cell["config"]]["file"]).read_text())
+    bench = root / BENCH_DIR.name
     traffic = json.loads(
-        (BENCH_DIR / "traffic" / f"{cell['traffic']}.json").read_text())
-    limits = json.loads((BENCH_DIR / "limits" / f"{workload}.json").read_text())
+        (bench / "traffic" / f"{cell['traffic']}.json").read_text())
+    limits = json.loads((bench / "limits" / f"{workload}.json").read_text())
     e2e = [m for m in spec["end_to_end"]
            if workload in m.get("workloads", [workload])]
     reported = {m["name"] for m in e2e}

@@ -16,7 +16,9 @@ negatives and dropout stream:
   relation biases alone. A configuration in bf16 holds the two apart:
   a relation bias's gradient sums the cotangent over every feature and
   in-edge with heavy cancellation, so one bf16 rounding flipped
-  downstream moves it by percents, far more than any other leaf;
+  downstream moves it by percents, far more than any other leaf. Where
+  that sum cancels past any limit (a hub's in-edges over every feature),
+  a cell compares the relation biases by their change alone;
 - ``change_gap``: the same of each parameter's change over the three
   steps, leaving out the leaves whose reference gradient is under a
   thousandth of the median leaf's (they move under Adam by round-off).
