@@ -43,7 +43,12 @@ never converted. The plain versions are the reference the kernels are held
 to on the card; nothing on the card's main path calls them. Each wrapper
 counts its launches in a plain int attribute, ``<wrapper>.launches``, where
 its kernel launches: a call that launches nothing (a src pass over no
-source rows) counts nothing.
+source rows) counts nothing. Beside it, ``<wrapper>.designs`` counts the
+kernels each call launches by design, as the C entry point picks them:
+``"pair"``, ``"lanes"`` or ``"ring"`` over the work items of a forward or
+src pass, then ``"merge"`` where rows were split; ``"mma"`` or ``"tile"``
+for the relation reduction, then its ``"reduce"``. ``design_counts()``
+reads them and ``reset_design_counts()`` zeroes them.
 
 Shapes, over the layout's ``N_src = csr.num_src`` source rows and
 ``N = csr.num_nodes`` destination rows (both the padded node count on one
@@ -184,6 +189,29 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _count(wrapper, *designs: str) -> None:
+    """Count a call's launches: one of ``wrapper``, and one a kernel by its
+    design (``designs``, in launch order)."""
+    wrapper.launches += 1
+    for d in designs:
+        wrapper.designs[d] = wrapper.designs.get(d, 0) + 1
+
+
+def _items_design(chosen: str, f: int, pair: bool) -> str:
+    """The kernel a forward or src pass launches over its work items, as
+    ``csrc/relgat_fwd.cu`` and ``relgat_bwd.cu`` pick it: the bf16 pair
+    kernel where ``pair`` (its width and alignment hold), the ring kernel
+    past 128 features where ``chosen``, else the one-warp-a-head
+    template."""
+    if pair:
+        return "pair"
+    return "ring" if f > 128 and chosen == "ring" else "lanes"
+
+
 def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``(a * b).sum(-1)`` of two ``[E, H, F]`` arrays, as batched dot
     products that make no ``[E, H, F]`` temporary."""
@@ -288,6 +316,7 @@ def _launch_fwd(
     part_ml = _f32(h, (parts, heads, 2))
     part_bias = h.new_empty((parts,), dtype=torch.float64)
     use, s, thr, keep = _dropout_args(seed, rate)
+    chosen = design or design_of(wrapper, heads, f)
     rc = entry_point(name)(
         h.data_ptr(), attn.data_ptr(), rel_bias.data_ptr(),
         csr.fwd_items.data_ptr(), csr.src.data_ptr(), csr.etype.data_ptr(),
@@ -296,11 +325,16 @@ def _launch_fwd(
         part_ml.data_ptr(), part_bias.data_ptr(), csr.fwd_num_items,
         csr.fwd_num_split, csr.fwd_item_edges, heads, f, num_rel,
         float(negative_slope), float(eps), use, s, thr, keep,
-        DESIGNS[design or design_of(wrapper, heads, f)], _stream(),
+        DESIGNS[chosen], _stream(),
     )
     _raise_on(rc, name)
     if design is None:
-        wrapper.launches += 1
+        pair = (wrapper is relgat_fwd_bf16 and f % 8 == 0 and f <= 128
+                and _aligned(h, attn, out, part_acc))
+        _count(wrapper,
+               *((_items_design(chosen, f, pair),)
+                 if csr.fwd_num_items > 0 else ()),
+               *(("merge",) if csr.fwd_num_split > 0 else ()))
     return out, m, l, bias
 
 
@@ -326,8 +360,8 @@ def relgat_fwd_bf16(
     return _launch_fwd(relgat_fwd_bf16, h, attn, rel_bias, csr, **kw)
 
 
-relgat_fwd.launches = 0
-relgat_fwd_bf16.launches = 0
+relgat_fwd.launches = relgat_fwd_bf16.launches = 0
+relgat_fwd.designs, relgat_fwd_bf16.designs = {}, {}
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +496,7 @@ def _launch_bwd_src(
     if n == 0:  # no source row: a grid of no blocks is not a launch
         return dh, w, b
     use, s, thr, keep = _dropout_args(seed, rate)
+    chosen = design or design_of(wrapper, heads, f)
     rc = entry_point(name)(
         h.data_ptr(), g.data_ptr(), attn.data_ptr(), m.data_ptr(),
         l.data_ptr(), s_dot.data_ptr(), gsum.data_ptr(),
@@ -470,11 +505,19 @@ def _launch_bwd_src(
         csr.by_src_eid.data_ptr(), dh.data_ptr(), w.data_ptr(), b.data_ptr(),
         n, csr.bwd_num_items, csr.bwd_num_split, heads, f, num_rel,
         float(negative_slope), float(eps), use, s, thr, keep,
-        DESIGNS[design or design_of(wrapper, heads, f)], _stream(),
+        DESIGNS[chosen], _stream(),
     )
     _raise_on(rc, name)
     if design is None:
-        wrapper.launches += 1
+        pair_warps = min((heads + 1) // 2, MAX_WARPS_PER_BLOCK)
+        pair = (wrapper is relgat_bwd_src_bf16 and f % 8 == 0 and f <= 128
+                and _aligned(h, g, attn, dh)
+                and pair_warps * EDGE_TABLE_BYTES
+                + 4 * (2 * pair_warps + 1) * num_rel <= MAX_BWD_SMEM_BYTES)
+        _count(wrapper,
+               *((_items_design(chosen, f, pair),)
+                 if csr.bwd_num_items > 0 else ()),
+               *(("merge",) if csr.bwd_num_split > 0 else ()))
     return dh[:n], w[:n], b[:n]
 
 
@@ -506,8 +549,8 @@ def relgat_bwd_src_bf16(
     return _launch_bwd_src(relgat_bwd_src_bf16, *args, **kw)
 
 
-relgat_bwd_src.launches = 0
-relgat_bwd_src_bf16.launches = 0
+relgat_bwd_src.launches = relgat_bwd_src_bf16.launches = 0
+relgat_bwd_src.designs, relgat_bwd_src_bf16.designs = {}, {}
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +635,7 @@ def _launch_bwd_rel(wrapper, h, w, b, design=None):
     rc = entry_point(name)(*args, _stream())
     _raise_on(rc, name)
     if design is None:
-        wrapper.launches += 1
+        _count(wrapper, *((chosen,) if tiles > 0 else ()), "reduce")
     return dattn, dbias
 
 
@@ -613,8 +656,8 @@ def relgat_bwd_rel_bf16(h, w, b):
     return _launch_bwd_rel(relgat_bwd_rel_bf16, h, w, b)
 
 
-relgat_bwd_rel.launches = 0
-relgat_bwd_rel_bf16.launches = 0
+relgat_bwd_rel.launches = relgat_bwd_rel_bf16.launches = 0
+relgat_bwd_rel.designs, relgat_bwd_rel_bf16.designs = {}, {}
 
 
 # csrc/relgat_common.cuh kDesignLanes, kDesignRing: the forward and src pass
@@ -713,3 +756,15 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def design_counts() -> dict:
+    """Kernel launches by ``"<wrapper>/<design>"`` since the last reset,
+    the designs each wrapper launched (see the module's docstring)."""
+    return {f"{k.__name__}/{d}": n for k in KERNELS
+            for d, n in sorted(k.designs.items())}
+
+
+def reset_design_counts() -> None:
+    for k in KERNELS:
+        k.designs.clear()

@@ -15,7 +15,9 @@ kernels by span, the idle gaps by the span the stepping thread was in and
 by the span of the operation each gap ends in, the checks of the split
 against the harness's groups, and, where the port has them, the head's
 fused-block launches a window step (``head_counts`` of
-``ops/cuda/gelu_layernorm.py``). ``--root`` imports the port and the
+``ops/cuda/gelu_layernorm.py``) and the propagate's kernel launches a
+window step by wrapper and design (``design_counts`` of
+``ops/cuda/fused.py``). ``--root`` imports the port and the
 benchmark from another checkout (to time two versions side by side);
 ``--out`` also writes the line to ``DIR/<cell>.<seed>.json``.
 Needs a CUDA card.
@@ -135,12 +137,19 @@ def main(argv=None) -> int:
         from relgat_projector_tpu_torch.ops.cuda import gelu_layernorm
     except ImportError:
         gelu_layernorm = None
+    from relgat_projector_tpu_torch.ops.cuda import fused
+    designs = hasattr(fused, "design_counts")  # where the port has them
     if gelu_layernorm is not None:
         gelu_layernorm.reset_head_counts()
+    if designs:
+        fused.reset_design_counts()
     win = harness.window(program, WARM_STEPS, args.seconds, "cuda")
     head_counts = (None if gelu_layernorm is None else
                    {k: v / win["steps"]
                     for k, v in gelu_layernorm.head_counts().items()})
+    design_counts = ({k: v / win["steps"]
+                      for k, v in fused.design_counts().items()}
+                     if designs else None)
     traced = harness.traced_steps(program, win["next"], "cuda")
     steps = traced["steps"]
     line = {
@@ -155,6 +164,7 @@ def main(argv=None) -> int:
         "busy_ms": 1e3 * traced["busy_s"] / steps,
         "gaps_ms": {k: 1e3 * v / steps for k, v in traced["gaps"][:6]},
         "head_counts_per_step": head_counts,
+        "design_counts_per_step": design_counts,
     }
     if hasattr(profiling, "device_ops"):
         t0 = time.perf_counter()
