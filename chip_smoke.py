@@ -31,6 +31,14 @@ Phases, in order; any failure exits non-zero:
               kernel and the one-warp-a-head template, ops.cuda.with_design)
               against the float64 plain version, and the dispatch the same
               bits twice.
+   parity_dense - the bf16 src pass where its dispatch takes the
+              factored ring (dense enough for ops.cuda.ring_src_loop):
+              12 x 256 at R = 100 on a 4,000-node, 201,000-edge graph
+              with rows without out-edges, a split row and a relation
+              without edges, dropout 0 and 0.3; every design within 1e-5
+              of float64, the dispatch the same bits twice and those of
+              its factored loop forced; a kernels-line row (graph
+              "dense") with its time, the plain version's and the bound.
    agree    - one training forward and backward of a small model through
               the kernels and through the plain path on the card, with the
               same weights, negatives and dropout draws: loss and every
@@ -376,6 +384,15 @@ WIDE = dict(num_nodes=4_000, num_edges=40_000, num_rel=40, hub_degree=1_000,
             out_hub_degree=1_000)
 # The library's default widths on TRAIN's graph: 12 heads x 300, one GAT
 # layer (config.py), the rest of the TRAIN model as it is.
+# The bf16 src pass where its ring takes the factored loop by dispatch
+# (ops/cuda/fused.py ring_src_loop: E >= N_src (0.28 R + 10)): the large
+# preset's 12 x 256 at zipf-inv-10m's 100 relations, which the logits
+# kernel splits into two groups and the fold takes in 13 stages, on a
+# uniform graph of ~50 out-edges a row; rows 0..99 have no out-edges, row
+# 150 has ``out_hub_degree`` (the work plan splits it) and the last
+# relation has no edge.
+DENSE = dict(num_nodes=4_000, num_edges=200_000, num_rel=100, heads=12,
+             feat=256, out_hub_degree=1_000)
 DEFAULT_WIDTH = dict(heads=12, feat=300, layers=1, warmup_steps=1,
                      timed_steps=3)
 # The reference's doc-scale tile (SURVEY.md: out_dim 200) with TRAIN's 16
@@ -722,17 +739,116 @@ def phase_parity_wide(card, out_lines):
     return worst
 
 
+def dense_graph(rng):
+    """``DENSE``'s graph: uniform edges from rows 100.. to any row, and
+    ``out_hub_degree`` more from row 150; relations 0 .. R - 2."""
+    c = DENSE
+    n = c["num_nodes"]
+    src = np.concatenate([rng.integers(100, n, c["num_edges"]),
+                          np.full(c["out_hub_degree"], 150)])
+    dst = rng.integers(0, n, src.size)
+    et = rng.integers(0, c["num_rel"] - 1, src.size)
+    return src, dst, et
+
+
+def phase_parity_dense(card, out_lines):
+    """``relgat_bwd_src_bf16`` where its dispatch takes the factored ring:
+    at ``DENSE``'s widths on ``dense_graph``, dropout 0 and 0.3, the
+    dispatch twice (the same bits, and those of the factored loop forced)
+    and each design forced against the float64 plain version, within
+    ``REL_TOL`` (``design_errors``, the bf16 forward with it). Returns the
+    worst error and the kernels line's row of the dispatch: its time, the
+    plain version's, the bound, and each design's time."""
+    c = DENSE
+    heads, feat, num_rel = c["heads"], c["feat"], c["num_rel"]
+    src, dst, et = dense_graph(np.random.default_rng(SEED + 17))
+    graph = build_graph(src, dst, et, c["num_nodes"], num_rel=num_rel,
+                        csr=True, device=DEVICE)
+    csr = graph.csr
+    n = graph.num_nodes
+    fwd, name, _ = VARIANTS[True]
+    check(ring_loop(name, csr, heads, feat, num_rel) == "factored"
+          and csr.bwd_num_split >= 1,
+          "the dense parity graph does not take the factored ring or "
+          "lacks a split source row")
+    inputs = make_kernel_inputs(csr, n, heads, feat, num_rel, SEED + 17)
+    worst = 0.0
+    for rate in (0.0, 0.3):
+        designs = design_errors(inputs, True, seed=424242, rate=rate)
+        kw = dict(seed=424242, rate=rate, negative_slope=0.2, eps=1e-16)
+        calls, _ = variant_calls(inputs, True, kw)
+        dispatch = calls[name](KERNELS[name])
+        forced = calls[name](lambda *a, **k: kern.with_design(
+            KERNELS[name], "ring", *a, **k))
+        as_forced = all(torch.equal(a, b) for a, b in zip(dispatch, forced))
+        del calls, dispatch, forced
+        torch.cuda.synchronize()
+        w = max(e for d in designs.values()
+                for e in d["max_rel_err"].values())
+        worst = max(worst, w)
+        emit({"phase": "parity_dense", "variant": "bf16", "heads": heads,
+              "feat": feat, "num_rel": num_rel, "edges": csr.num_edges,
+              "split_rows": csr.bwd_num_split, "attn_dropout": rate,
+              "max_rel_err": w, "designs": designs,
+              "dispatch_as_factored": as_forced, "card": card}, out_lines)
+        check(all(d["same_bits_twice"] for d in designs.values())
+              and as_forced,
+              f"parity_dense: {name} gave other bits in a second call or "
+              f"than its factored loop forced: {designs}")
+        torch.cuda.empty_cache()
+    check(worst <= REL_TOL,
+          f"the factored ring at {heads} x {feat}, R = {num_rel}: max "
+          f"relative error {worst} > {REL_TOL}")
+    kw = dict(seed=None, rate=0.0, negative_slope=0.2, eps=1e-16)
+    calls, v = variant_calls(inputs, True, kw)
+    ms = cuda_ms(lambda: calls[name](KERNELS[name]), reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: calls[name](PLAIN[name]), reps=2)
+    row_bytes = v["rh"].element_size()
+    nbytes, flops = bounds(n, csr.num_edges, heads, feat, num_rel,
+                           row_bytes=row_bytes)["relgat_bwd_src"]
+    best, by = bound_ms(nbytes, flops)
+    source, replaces = KERNEL_SOURCES[name]
+    row = {
+        "name": name, "graph": "dense", "heads": heads, "feat": feat,
+        "num_rel": num_rel, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": None, "max_rel_err": worst,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": best, "bound_by": by,
+        "library_ms": None, "reference": "float64", "same_bits_twice": True,
+        "bytes": nbytes, "flops": flops, "card": card,
+        "row_gather_bytes": row_bytes * csr.num_edges * heads * feat,
+        **design_times(calls, (name,), heads, feat, csr=csr,
+                       num_rel=num_rel)[name],
+    }
+    emit({"phase": "kernel", **row, **row_gather_floor(row)}, out_lines)
+    del calls, v, inputs
+    torch.cuda.empty_cache()
+    return worst, [row]
+
+
+def ring_loop(name, csr, heads, feat, num_rel):
+    """The loop of the bf16 src pass's ring that its dispatch takes on
+    ``csr`` (``ops.cuda.ring_src_loop``): ``"factored"`` or
+    ``"per_edge"``; None for another kernel or design. Forced, the design
+    ``"ring"`` is the factored loop and ``"ring_per_edge"`` the other,
+    whatever the graph."""
+    if (name != "relgat_bwd_src_bf16"
+            or kern.design_of(KERNELS[name], heads, feat) != "ring"):
+        return None
+    return kern.ring_src_loop(csr.num_edges, csr.num_src, num_rel)
+
+
 def design_errors(inputs, bf16, *, seed, rate):
     """At F > 128, the forward and src pass of a variant: the dispatch
     twice (the same bits), and each design forced (``ops.cuda.with_design``)
     against the float64 plain version, max|a-b| / max|b| over the
-    outputs."""
+    outputs; for the bf16 src pass also the loop its dispatch takes
+    (``ring_loop``)."""
     h, g, attn, bias = inputs["h"], inputs["g"], inputs["attn"], inputs["bias"]
     csr = inputs["csr"]
     kw = dict(seed=seed, rate=rate, negative_slope=0.2, eps=1e-16)
     fwd, bwd_src, _ = VARIANTS[bf16]
     rh, rg = (h.to(torch.bfloat16), g.to(torch.bfloat16)) if bf16 else (h, g)
-    heads, _, feat = attn.shape
+    heads, num_rel, feat = attn.shape
     n = h.shape[0]
     out, m, l, b = KERNELS[fwd](rh, attn, bias, csr, **kw)
     s_dot = ((out - b[:, None]) * g).view(n, heads, feat).sum(-1)
@@ -746,7 +862,7 @@ def design_errors(inputs, bf16, *, seed, rate):
                              and a.is_floating_point() else a
                              for a in args), **kw)
         errs = {}
-        for design in kern.DESIGNS:
+        for design in kern.designs_of(KERNELS[name]):
             got = kern.with_design(KERNELS[name], design, *args, **kw)
             # the forward's out and l (m is -inf on rows without in-edges;
             # run_kernel_pair holds the bias sum)
@@ -754,6 +870,7 @@ def design_errors(inputs, bf16, *, seed, rate):
                      else zip(got, want))
             errs[design] = max(rel_err(a, b) for a, b in pairs)
         res[name] = {"design": kern.design_of(KERNELS[name], heads, feat),
+                     "ring_loop": ring_loop(name, csr, heads, feat, num_rel),
                      "max_rel_err": errs,
                      "same_bits_twice": all(torch.equal(a, b) for a, b in
                                             zip(first, second))}
@@ -1752,17 +1869,25 @@ def variant_calls(inputs, bf16, kw):
                        gsum=gsum, w=w, bsum=bsum)
 
 
-def design_times(calls, names, heads, feat, reps=10):
+def design_times(calls, names, heads, feat, reps=10, csr=None,
+                 num_rel=None):
     """For each of ``names`` (a variant's forward and src pass past 128
     features, or relgat_bwd_rel_bf16, at ``heads`` x ``feat``; ``calls`` as
     ``variant_calls`` gives them): the design its dispatch takes
     (``ops.cuda.design_of``) and each design's time, forced
     (``ops.cuda.with_design``), with CUDA events in this run: ``ring_ms``,
     the ring kernel, and ``lanes_ms``, the one-warp-a-head template; or
-    ``mma_ms``, the tensor cores, and ``tile_ms``, the SIMT tile kernel."""
+    ``mma_ms``, the tensor cores, and ``tile_ms``, the SIMT tile kernel.
+    The bf16 src pass's ``ring_ms`` is its factored loop and
+    ``ring_per_edge_ms`` its per-edge one; with the graph ``csr`` and its
+    ``num_rel`` its row also names the loop its dispatch takes
+    (``ring_loop``)."""
     res = {}
     for name in names:
         res[name] = {"design": kern.design_of(KERNELS[name], heads, feat)}
+        if csr is not None:
+            res[name]["ring_loop"] = ring_loop(name, csr, heads, feat,
+                                               num_rel)
         for design in kern.designs_of(KERNELS[name]):
             res[name][f"{design}_ms"] = cuda_ms(
                 lambda: calls[name](lambda *a, **k: kern.with_design(
@@ -1831,7 +1956,8 @@ def kernel_rows(inputs, bf16, counts, card, out_lines):
     row_bytes = rh.element_size()
     bnd = bounds(n, csr.num_edges, heads, feat, num_rel,
                  row_bytes=row_bytes)
-    designs = (design_times(calls, (fwd, bwd_src), heads, feat)
+    designs = (design_times(calls, (fwd, bwd_src), heads, feat, csr=csr,
+                            num_rel=num_rel)
                if feat > 128 else {})
     by_design = {}
     if bf16:
@@ -3845,6 +3971,8 @@ def main(argv=None) -> int:
     else:
         worst = phase_parity(card, out_lines)
         worst = max(worst, phase_parity_wide(card, out_lines))
+        dense_worst, dense_rows = phase_parity_dense(card, out_lines)
+        worst = max(worst, dense_worst)
         phase_agree(card, out_lines)
         phase_agree_bf16(card, out_lines)
         (counts, graph, step_ms, node_emb, batches, first_loss, params,
@@ -3875,7 +4003,7 @@ def main(argv=None) -> int:
         launches.update({k: counts_bf16[k] for k in VARIANTS[True]})
         launches.update(bf16_record["head_launches"])
         kernels = phase_kernels(graph, launches, default_counts, doc_counts,
-                                card, out_lines)
+                                card, out_lines) + dense_rows
         del graph
         kernels.append(phase_zipf(card, step_ms, out_lines))
         kernels += phase_zipf_src(

@@ -94,6 +94,24 @@
 // slower at some (fp32 past 520 features, bf16 at 496-512), so the
 // dispatch takes it where it measured faster (ops/cuda/fused.py
 // RING_RANGES).
+//
+// On bf16 rows the ring takes an edge's attn terms by (source row, head,
+// relation), not by edge: they depend on the edge only through s and its
+// relation r, so
+//   <h[s], attn[r]>           = P[s, hd, r],  P = h attn^T   [N, H, R]
+//   sum_e de_e attn[rel_e]    = sum_r W[s, hd, r] attn[hd, r]
+// and the loop loads no attn row (each was 1 KB from L2 an edge and head at
+// F = 256, twice the bf16 g slice the stage delivers). Three kernels:
+// relgat_bwd_src_logits_kernel writes P into the W buffer (no new array;
+// an item reads P[s] into its edge table and writes W[s] only after its
+// loop, a chunk of a split row writes rows N + slot, the merge W[s] last),
+// the ring loop (dalpha, one dot product, then alpha, de, dh += aw g and
+// the slab), the merge, then relgat_bwd_src_fold_kernel adds W attn into
+// dh. The two products cost N * H * R * F whatever the edges, so on sparse
+// graphs the bf16 ring keeps the per-edge loop (kDesignRingPerEdge; the
+// rule is ops/cuda/fused.py ring_src_loop). The fp32 ring keeps the
+// per-edge loop (its g slice is as wide as the attn row, which hides that
+// load).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
@@ -432,8 +450,8 @@ struct alignas(16) RingEntry {
   float keep;       // dropout keep / (1 - rate), or 1
   int dst;
   int rel;
-  float gsum;  // gsum[d], for the head-0 warp only
-  float pad;
+  float gsum;   // gsum[d], for the head-0 warp only
+  float logit;  // P[s, head, rel] in the factored loop, else unused
 };
 
 // Heads wider than 128 features, fp32 or bf16 rows. Block (work item of src
@@ -450,9 +468,15 @@ struct alignas(16) RingEntry {
 // of g[dst] and releases the stage, then computes alpha and de as
 // relgat_bwd_src_kernel does and folds de (and, head 0, gsum[dst]) into its
 // slab in shared memory. dh, W and B are written once, as there.
-template <int NK, int VW, typename T>
+// FACTORED (bf16 rows): the table also takes each edge's logit P[s, head,
+// rel] from w_out (relgat_bwd_src_logits_kernel's), and the loop loads no
+// attn row: one dot product, <h[s], g[d]>, and dh += aw g only; the de
+// attn[rel] terms come later, summed by relation (the fold kernel).
+template <int NK, int VW, typename T, bool FACTORED>
 __global__ void __launch_bounds__(32 * (kRingBwdGroupHeads + 1),
-                                  ring_bwd_warps<NK>() / (kRingBwdGroupHeads + 1))
+                                  (FACTORED ? ring_bwd_factored_warps<NK>()
+                                            : ring_bwd_warps<NK>()) /
+                                      (kRingBwdGroupHeads + 1))
 relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
                            const T* __restrict__ g,          // [N, H*F]
                            const float* __restrict__ attn,   // [H, R, F]
@@ -552,7 +576,10 @@ relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
                    ? dropout_keep(eid[p], head, seed, thr) / keep_prob
                    : 1.f;
       e.gsum = bslab != nullptr ? gsum[e.dst] : 0.f;
-      e.pad = 0.f;
+      // w_out row s holds P until this item's (or the merge's) W lands
+      e.logit = FACTORED ? w_out[(static_cast<int64_t>(s) * heads + head) *
+                                     num_rel + e.rel]
+                         : 0.f;
       table[lane] = e;
     }
     __syncwarp();
@@ -561,8 +588,9 @@ relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
       const int d = e.dst;
       const int rel = e.rel;
       float av[NK];
-      lane_row<NK, VW>(attn_head + static_cast<int64_t>(rel) * feat, feat,
-                       lane, av);
+      if constexpr (!FACTORED)
+        lane_row<NK, VW>(attn_head + static_cast<int64_t>(rel) * feat, feat,
+                         lane, av);
       const T* grow = ring + st * stage_elems +
                       ring_shift(g_group + d * hf) + warp * feat;
       mbar_wait(&full[st], ph);
@@ -576,18 +604,30 @@ relgat_bwd_src_ring_kernel(const T* __restrict__ h,          // [N, H*F]
       }
       float eraw = 0.f;
       float dalpha = 0.f;
+      if constexpr (FACTORED) {
 #pragma unroll
-      for (int k = 0; k < NK; ++k) {
-        eraw += hv[k] * av[k];
-        dalpha += hv[k] * gv[k];
+        for (int k = 0; k < NK; ++k) dalpha += hv[k] * gv[k];
+        dalpha = warp_sum(dalpha);
+        eraw = e.logit;
+      } else {
+#pragma unroll
+        for (int k = 0; k < NK; ++k) {
+          eraw += hv[k] * av[k];
+          dalpha += hv[k] * gv[k];
+        }
+        warp_sum2(eraw, dalpha, lane);
       }
-      warp_sum2(eraw, dalpha, lane);
       const float alpha = expf(leaky_relu(eraw, slope) - e.m_safe) * e.inv_denom;
       const float de =
           alpha * (dalpha * e.keep - e.s) * (eraw >= 0.f ? 1.f : slope);
       const float aw = alpha * e.keep;
+      if constexpr (FACTORED) {
 #pragma unroll
-      for (int k = 0; k < NK; ++k) acc[k] += aw * gv[k] + de * av[k];
+        for (int k = 0; k < NK; ++k) acc[k] += aw * gv[k];
+      } else {
+#pragma unroll
+        for (int k = 0; k < NK; ++k) acc[k] += aw * gv[k] + de * av[k];
+      }
       if (lane == 0) {
         slab[rel] += de;
         if (bslab != nullptr) bslab[rel] += e.gsum;
@@ -1396,6 +1436,360 @@ relgat_bwd_rel_mma_tma_kernel(const __grid_constant__ CUtensorMap hmap,
                     wn * mtiles + mt);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 ring src pass's products by (source row, head, relation).
+//
+// relgat_bwd_src_logits_kernel: P[s, hd, r] = <h[s, hd], attn[hd, r]> for
+// every source row, into the W buffer [N + parts, H, R] (rows < N). A GEMM
+// per head with M = rows, N = relations, K = features; h is bf16 and so
+// exact, and each fp32 attn value splits exactly into three bf16 pieces
+// (split_bf16x3), so mma.sync m16n8k16 runs lo, mid and hi x h, each
+// product exact in fp32, into a fresh sum a k-step (16 features) that FADD
+// adds to the fp32 sum, as relgat_bwd_rel_mma_kernel does for W: not TF32.
+// A block takes one head, a group of up to kLogitMaxNTiles n-tiles of 8
+// relations and a run of rows: it splits the group's attn rows once into
+// shared memory (three bf16 planes, zeros past R and F), then each warp
+// takes 32 rows (two m-tiles) at a time, loading its A fragments straight
+// from h two k-steps ahead and its B fragments from the planes. The k order
+// within a step is permuted so that a lane's four values are adjacent
+// features, 4t .. 4t + 3 of the step (A: one 8-byte load of each of its
+// rows; B: one 8-byte shared load a piece): logical k 2t, 2t + 1 are
+// features 4t, 4t + 1 and logical 2t + 8, 2t + 9 are 4t + 2, 4t + 3, on
+// both operands. VH: 4 values a load (F a multiple of 4, rows aligned), or
+// 1.
+//
+// What bounds it: 3 x 2 N H R F tensor FLOPs (0.19 PFLOP at N = 100k,
+// 12 x 256, R = 100: 0.19 ms at 989 TFLOP/s) and P written (0.48 GB there,
+// 0.14 ms). It took 0.98 ms there on an H100 80GB HBM3 (700 W); the first
+// design, which split attn in registers for every (warp, n-tile, k-step),
+// 3.4 ms; A one k-step ahead, 1.12 ms; two n-tiles' product chains
+// interleaved, 1.10 ms.
+constexpr int kLogitWarps = 8;
+constexpr int kLogitRows = 32;       // rows a warp takes at a time
+constexpr int kLogitMaxNTiles = 7;   // n-tiles of 8 relations a block
+constexpr int kLogitSmemBytes = 104 * 1024;  // the planes; two blocks an SM
+
+// bf16 values of a plane's row of `feat` features: the k-steps' features
+// rounded up to 64 and 16 more, so that the 8 rows one B fragment read
+// touches start 32 bytes apart modulo 128 (two wavefronts, the least).
+__host__ __device__ constexpr int logit_stride(int feat) {
+  return ((feat + 15) / 16 * 16 + 63) / 64 * 64 + 16;
+}
+
+// A lane's four bf16 values at features f .. f + 3 of a row, as two words
+// (f, f + 1 and f + 2, f + 3; zeros past F or for a row out of range).
+template <int VH>
+__device__ __forceinline__ uint2 load4_bf16(const __nv_bfloat16* row, int f,
+                                            int feat, bool ok) {
+  if constexpr (VH == 4) {
+    return ok && f < feat ? *reinterpret_cast<const uint2*>(row + f)
+                          : make_uint2(0u, 0u);
+  } else {
+    static_assert(VH == 1, "4 values a load, or 1");
+    const unsigned short* r = reinterpret_cast<const unsigned short*>(row);
+    uint32_t v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = ok && f + q < feat ? r[f + q] : 0u;
+    return make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
+  }
+}
+
+template <int VH>
+__device__ __forceinline__ float4 load4_f32(const float* row, int f, int feat,
+                                            bool ok) {
+  if constexpr (VH == 4) {
+    return ok && f < feat ? *reinterpret_cast<const float4*>(row + f)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = ok && f + q < feat ? row[f + q] : 0.f;
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Grid: runs x relation groups x heads blocks; a run is `run` rows (a
+// multiple of kLogitRows).
+template <int VH>
+__global__ void __launch_bounds__(32 * kLogitWarps, 2)
+relgat_bwd_src_logits_kernel(const __nv_bfloat16* __restrict__ h,  // [N, H*F]
+                             const float* __restrict__ attn,  // [H, R, F]
+                             float* __restrict__ p,           // [N, H, R]
+                             int num_rows, int heads, int feat, int num_rel,
+                             int group_ntiles, int run) {
+  extern __shared__ __align__(16) unsigned char logit_smem[];
+  __nv_bfloat16* planes = reinterpret_cast<__nv_bfloat16*>(logit_smem);
+  const int stride = logit_stride(feat);
+  const int rels = 8 * group_ntiles;
+  const int plane = rels * stride;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int head = blockIdx.z;
+  const int r0 = blockIdx.y * rels;
+  const int nt = min(group_ntiles, (num_rel - r0 + 7) / 8);
+  const int ksteps = (feat + 15) / 16;
+
+  // the planes: relation r0 + i, features 4c .. 4c + 3, split once
+  const float* attn_head = attn + static_cast<int64_t>(head) * num_rel * feat;
+  for (int idx = threadIdx.x; idx < rels * 4 * ksteps; idx += blockDim.x) {
+    const int i = idx / (4 * ksteps);
+    const int f = 4 * (idx % (4 * ksteps));
+    const float4 x = load4_f32<VH>(
+        attn_head + static_cast<int64_t>(r0 + i) * feat, f, feat,
+        r0 + i < num_rel);
+    uint32_t pc[4][3];  // [value][piece: hi, mid, lo]
+    split_bf16x3(x.x, pc[0][0], pc[0][1], pc[0][2]);
+    split_bf16x3(x.y, pc[1][0], pc[1][1], pc[1][2]);
+    split_bf16x3(x.z, pc[2][0], pc[2][1], pc[2][2]);
+    split_bf16x3(x.w, pc[3][0], pc[3][1], pc[3][2]);
+#pragma unroll
+    for (int piece = 0; piece < 3; ++piece)
+      *reinterpret_cast<uint2*>(planes + piece * plane + i * stride + f) =
+          make_uint2(pack_hi16(pc[0][piece], pc[1][piece]),
+                     pack_hi16(pc[2][piece], pc[3][piece]));
+  }
+  __syncthreads();
+
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  const int n1 = min(num_rows, (blockIdx.x + 1) * run);
+  // lane (g, t)'s B fragments: plane row 8 j + g, features k0 + 4t ..
+  const __nv_bfloat16* bbase = planes + g * stride + 4 * t;
+  for (int row0 = blockIdx.x * run + warp * kLogitRows; row0 < n1;
+       row0 += kLogitWarps * kLogitRows) {
+    // row q of this lane: row0 + g + 8 q (m-tile q / 2, its rows g or g + 8)
+    const __nv_bfloat16* hrow[4];
+    bool rok[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = row0 + g + 8 * q;
+      rok[q] = row < n1;
+      hrow[q] = h + (rok[q] ? row : 0) * hf + static_cast<int64_t>(head) * feat;
+    }
+    float acc[2][kLogitMaxNTiles][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < kLogitMaxNTiles; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][j][q] = 0.f;
+    // k-step ks's A words, loaded two k-steps ahead: cur holds step ks
+    // and is refilled with step ks + 2 once read
+    auto step = [&](int ks, uint2 (&cur)[4]) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[q >> 1][q & 1] = cur[q].x;        // logical k 2t, 2t + 1
+        a[q >> 1][2 + (q & 1)] = cur[q].y;  // logical k 2t + 8, 2t + 9
+      }
+      if (ks + 2 < ksteps) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          cur[q] = load4_bf16<VH>(hrow[q], 16 * (ks + 2) + 4 * t, feat,
+                                  rok[q]);
+      }
+      const __nv_bfloat16* bk = bbase + 16 * ks;
+#pragma unroll
+      for (int j = 0; j < kLogitMaxNTiles; ++j) {
+        if (j >= nt) continue;
+        uint2 b[3];
+#pragma unroll
+        for (int piece = 0; piece < 3; ++piece)
+          b[piece] = *reinterpret_cast<const uint2*>(bk + piece * plane +
+                                                     8 * j * stride);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int piece = 2; piece >= 0; --piece)  // lo, mid, hi
+            mma_bf16(d, a[mi], b[piece].x, b[piece].y);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mi][j][q] += d[q];
+        }
+      }
+    };
+    uint2 even[4], odd[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      even[q] = load4_bf16<VH>(hrow[q], 4 * t, feat, rok[q]);
+      odd[q] = load4_bf16<VH>(hrow[q], 16 + 4 * t, feat, rok[q]);
+    }
+    for (int ks = 0; ks < ksteps; ks += 2) {
+      step(ks, even);
+      if (ks + 1 < ksteps) step(ks + 1, odd);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int j = 0; j < kLogitMaxNTiles; ++j) {
+        if (j >= nt) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int row = row0 + 16 * mi + g + 8 * (q >> 1);
+          const int r = r0 + 8 * j + 2 * t + (q & 1);
+          if (row < n1 && r < num_rel)
+            p[(static_cast<int64_t>(row) * heads + head) * num_rel + r] =
+                acc[mi][j][q];
+        }
+      }
+  }
+}
+
+// relgat_bwd_src_fold_kernel: dh[s, hd, :] += sum_r W[s, hd, r] attn[hd, r]
+// over rows s < N, after the merge: the attn term of dh that the factored
+// loop leaves out, in fp32 FMAs over r in order. A GEMM per head with M =
+// rows, N = features, K = relations: a block takes kFoldRows x kFoldCols,
+// stages kFoldK relations of W (transposed) and of attn in shared memory
+// (two buffers, the next stage's loads in registers while this one is
+// used), copies its tile of dh into shared memory with cp.async a share a
+// stage, and a thread an 8 x 8 tile (rows 8 ty .., features 4 tx .. and
+// 64 + 4 tx ..), whose sum it adds to the staged dh and writes once. What
+// bounds it: 2 N H R F FLOPs at the fp32 rate (61 GFLOP at N = 100k,
+// 12 x 256, R = 100: 0.92 ms at 67 TFLOP/s) and dh read and written (2.5 GB
+// there, 0.73 ms); it took 1.90 ms there and 1.10 ms at R = 40 on an H100
+// 80GB HBM3 (700 W). Measured and dropped: the whole dh tile copied as the
+// block starts (2.05 / 1.24 ms), or read in the epilogue (2.07 / 1.49);
+// 64-row tiles (2.12 / 1.16); 16 relations a stage (2.09 / 1.12); the
+// tensor cores, W and attn each split into three bf16 pieces and all nine
+// products taken (2.70 ms at R = 100 with 128 features a block, 3.10 with
+// 64 and chains interleaved). VEC: 16-byte accesses of attn and dh (F a
+// multiple of 4, aligned).
+constexpr int kFoldRows = 128;
+constexpr int kFoldCols = 128;
+constexpr int kFoldK = 8;
+constexpr int kFoldThreads = 256;
+constexpr int kFoldSmemBytes = kFoldRows * kFoldCols * 4;  // the dh tile
+
+template <bool VEC>
+__global__ void __launch_bounds__(kFoldThreads, 2)
+relgat_bwd_src_fold_kernel(const float* __restrict__ w,     // [N, H, R]
+                           const float* __restrict__ attn,  // [H, R, F]
+                           float* __restrict__ dh,          // [N, H*F]
+                           int num_rows, int heads, int feat, int num_rel,
+                           int col_tiles) {
+  __shared__ __align__(16) float ws[2][kFoldK][kFoldRows];
+  __shared__ __align__(16) float as[2][kFoldK][kFoldCols];
+  extern __shared__ __align__(16) float dh_tile[];  // [kFoldRows][kFoldCols]
+  const int tid = threadIdx.x;
+  const int head = blockIdx.y / col_tiles;
+  const int f0 = (blockIdx.y % col_tiles) * kFoldCols;
+  const int s0 = blockIdx.x * kFoldRows;
+  const int64_t hf = static_cast<int64_t>(heads) * feat;
+  float* dh_head = dh + static_cast<int64_t>(head) * feat;
+
+  // dh's tile, zeros past the rows and F (never written back), copied a
+  // share of it with each stage of relations, so that every block reads
+  // dh while it computes
+  constexpr int kV = VEC ? 4 : 1;
+  constexpr int kCopies = kFoldRows * kFoldCols / kV / kFoldThreads;
+  const int steps = (num_rel + kFoldK - 1) / kFoldK;
+  const int per_step = (kCopies + steps - 1) / steps;
+  auto copy_dh = [&](int q0, int q1) {
+    for (int q = q0; q < q1 && q < kCopies; ++q) {
+      const int i = tid + q * kFoldThreads;
+      const int r = i / (kFoldCols / kV);
+      const int c = kV * (i % (kFoldCols / kV));
+      const bool ok = s0 + r < num_rows && f0 + c < feat;
+      cp_async<kV>(dh_tile + r * kFoldCols + c,
+                   ok ? dh_head + (s0 + r) * hf + f0 + c : dh, ok);
+    }
+    cp_async_commit();
+  };
+
+  // the staging: W rows s0 + wi, relations r0 + wk .. + 3; attn relation
+  // r0 + ak, features f0 + ac .. + 3
+  const int wi = tid >> 1;
+  const int wk = 4 * (tid & 1);
+  const bool w_ok = s0 + wi < num_rows;
+  const float* wrow =
+      w + (static_cast<int64_t>(w_ok ? s0 + wi : 0) * heads + head) * num_rel;
+  const int ak = tid >> 5;
+  const int ac = 4 * (tid & 31);
+  const float* attn_head = attn + static_cast<int64_t>(head) * num_rel * feat;
+  float wv[4];
+  float4 av;
+  auto fetch = [&](int r0) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = r0 + wk + q;
+      wv[q] = w_ok && r < num_rel ? wrow[r] : 0.f;
+    }
+    const int r = r0 + ak;
+    av = load4_f32<kV>(attn_head + static_cast<int64_t>(r) * feat, f0 + ac,
+                       feat, r < num_rel);
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) ws[buf][wk + q][wi] = wv[q];
+    *reinterpret_cast<float4*>(&as[buf][ak][ac]) = av;
+  };
+
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  fetch(0);
+  stage(0);
+  __syncthreads();
+  for (int kt = 0; kt < steps; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < steps) fetch((kt + 1) * kFoldK);
+    copy_dh(kt * per_step, (kt + 1) * per_step);
+#pragma unroll
+    for (int k = 0; k < kFoldK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&ws[buf][k][8 * ty]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&ws[buf][k][8 * ty + 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&as[buf][k][4 * tx]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&as[buf][k][64 + 4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    // the other buffer was last read in step kt - 1, before this step's
+    // barrier
+    if (kt + 1 < steps) stage(buf ^ 1);
+    __syncthreads();
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * ty + i;
+    if (s0 + r >= num_rows) break;
+    float* row = dh_head + (s0 + r) * hf;
+    const float* tile = dh_tile + r * kFoldCols;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = 64 * half + 4 * tx;
+      if constexpr (VEC) {
+        if (f0 + c < feat) {
+          float4 x = *reinterpret_cast<const float4*>(tile + c);
+          x.x += acc[i][4 * half];
+          x.y += acc[i][4 * half + 1];
+          x.z += acc[i][4 * half + 2];
+          x.w += acc[i][4 * half + 3];
+          *reinterpret_cast<float4*>(row + f0 + c) = x;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (f0 + c + q < feat)
+            row[f0 + c + q] = tile[c + q] + acc[i][4 * half + q];
+      }
+    }
+  }
+}
+
 }  // namespace relgat
 
 namespace {
@@ -1435,11 +1829,76 @@ struct SrcArgs {
   cudaStream_t st;
 };
 
+// Whether a src pass takes the factored ring (bf16 rows, the ring design,
+// F > 128): the logits kernel before the ring, the fold after the merge.
+// kDesignRingPerEdge takes the ring with the per-edge loop.
+template <typename T>
+bool factored_ring(const SrcArgs& a, int design) {
+  return std::is_same_v<T, __nv_bfloat16> && design == relgat::kDesignRing &&
+         a.feat > 128 && a.feat <= 32 * relgat::kMaxFeatPerLane;
+}
+
+// P = h attn^T into W's rows 0 .. N - 1 (relgat_bwd_src_logits_kernel):
+// relation groups as large as kLogitSmemBytes of planes hold (balanced),
+// and runs of rows for about four blocks an SM.
+cudaError_t launch_src_logits(const __nv_bfloat16* h, const SrcArgs& a) {
+  using namespace relgat;
+  const int plane_tile = 3 * 8 * logit_stride(a.feat) * 2;  // an n-tile
+  const int most = kLogitSmemBytes / plane_tile < kLogitMaxNTiles
+                       ? kLogitSmemBytes / plane_tile
+                       : kLogitMaxNTiles;
+  const int ntiles = (a.num_rel + 7) / 8;
+  const int groups = (ntiles + most - 1) / most;
+  const int group_ntiles = (ntiles + groups - 1) / groups;
+  const int smem = group_ntiles * plane_tile;
+  const bool vec4 = a.feat % 4 == 0 && aligned(h, 8) && aligned(a.attn, 16);
+  auto kernel = vec4 ? relgat_bwd_src_logits_kernel<4>
+                     : relgat_bwd_src_logits_kernel<1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t pairs = static_cast<int64_t>(a.heads) * groups;
+  const int64_t tiles = (a.num_rows + kLogitRows - 1) / kLogitRows;
+  int64_t runs = (4 * static_cast<int64_t>(sms) + pairs - 1) / pairs;
+  runs = runs > tiles ? tiles : runs;
+  const int run = static_cast<int>((tiles + runs - 1) / runs) * kLogitRows;
+  const dim3 grid((a.num_rows + run - 1) / run, groups, a.heads);
+  kernel<<<grid, 32 * kLogitWarps, smem, a.st>>>(
+      h, a.attn, a.w_out, a.num_rows, a.heads, a.feat, a.num_rel,
+      group_ntiles, run);
+  return cudaGetLastError();
+}
+
+// dh += W attn over rows 0 .. N - 1, after the merge
+// (relgat_bwd_src_fold_kernel).
+cudaError_t launch_src_fold(const SrcArgs& a) {
+  using namespace relgat;
+  const int col_tiles = (a.feat + kFoldCols - 1) / kFoldCols;
+  const dim3 grid((a.num_rows + kFoldRows - 1) / kFoldRows,
+                  a.heads * col_tiles);
+  const bool vec4 =
+      a.feat % 4 == 0 && aligned(a.dh, 16) && aligned(a.attn, 16);
+  auto kernel = vec4 ? relgat_bwd_src_fold_kernel<true>
+                     : relgat_bwd_src_fold_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFoldSmemBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kFoldThreads, kFoldSmemBytes, a.st>>>(
+      a.w_out, a.attn, a.dh, a.num_rows, a.heads, a.feat, a.num_rel,
+      col_tiles);
+  return cudaGetLastError();
+}
+
 // The ring kernel, NK features a lane in the VW layout, in blocks of (work
 // item, group of up to kRingBwdGroupHeads heads) (the groups balanced, as in
-// the forward).
+// the forward); on bf16 rows its factored loop where `factored`.
 template <int NK, int VW, typename T>
-cudaError_t launch_bwd_ring(const T* h, const T* g, const SrcArgs& a) {
+cudaError_t launch_bwd_ring(const T* h, const T* g, const SrcArgs& a,
+                            bool factored) {
   using namespace relgat;
   constexpr int kG = kRingBwdGroupHeads;
   const int groups = (a.heads + kG - 1) / kG;
@@ -1452,7 +1911,10 @@ cudaError_t launch_bwd_ring(const T* h, const T* g, const SrcArgs& a) {
       static_cast<size_t>(stages) * (stage_bytes + 2 * sizeof(uint64_t)) +
       static_cast<size_t>(gh) * 32 * sizeof(RingEntry) +
       static_cast<size_t>(gh + 1) * a.num_rel * sizeof(float);
-  auto kernel = relgat_bwd_src_ring_kernel<NK, VW, T>;
+  auto kernel = relgat_bwd_src_ring_kernel<NK, VW, T, false>;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (factored) kernel = relgat_bwd_src_ring_kernel<NK, VW, T, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1479,8 +1941,9 @@ cudaError_t launch_bwd_merge(const SrcArgs& a) {
   return cudaGetLastError();
 }
 
-// One kernel over the work items, then the merge. design: kDesignLanes or
-// kDesignRing (relgat_common.cuh), at F > 128.
+// One kernel over the work items, then the merge. design: kDesignLanes,
+// kDesignRing or (bf16 rows) kDesignRingPerEdge (relgat_common.cuh), at
+// F > 128.
 template <typename T>
 cudaError_t launch_src_items(const T* h, const T* g, const SrcArgs& a,
                              int design) {
@@ -1521,19 +1984,27 @@ cudaError_t launch_src_items(const T* h, const T* g, const SrcArgs& a,
         a.seed, a.thr, a.keep_prob);
   } else if (feat > 32 * kMaxFeatPerLane) {
     return cudaErrorInvalidValue;
-  } else if (feat > 128 && design == kDesignRing) {
+  } else if (feat > 128 && (design == kDesignRing ||
+                            (kBf16 && design == kDesignRingPerEdge))) {
+    const bool fac = factored_ring<T>(a, design);
+    if constexpr (kBf16) {
+      if (fac) {
+        const cudaError_t err = launch_src_logits(h, a);
+        if (err != cudaSuccess) return err;
+      }
+    }
     // two values a read where every head's piece of a row is 2-value aligned
     if (feat % 2 == 0 && aligned(h, 2 * sizeof(T)) &&
         aligned(g, 2 * sizeof(T)) && aligned(a.attn, 8) && aligned(a.dh, 8)) {
-      return feat <= 256   ? launch_bwd_ring<8, 2>(h, g, a)
-             : feat <= 320 ? launch_bwd_ring<10, 2>(h, g, a)
-             : feat <= 512 ? launch_bwd_ring<16, 2>(h, g, a)
-                           : launch_bwd_ring<32, 2>(h, g, a);
+      return feat <= 256   ? launch_bwd_ring<8, 2>(h, g, a, fac)
+             : feat <= 320 ? launch_bwd_ring<10, 2>(h, g, a, fac)
+             : feat <= 512 ? launch_bwd_ring<16, 2>(h, g, a, fac)
+                           : launch_bwd_ring<32, 2>(h, g, a, fac);
     }
-    return feat <= 256   ? launch_bwd_ring<8, 1>(h, g, a)
-           : feat <= 320 ? launch_bwd_ring<10, 1>(h, g, a)
-           : feat <= 512 ? launch_bwd_ring<16, 1>(h, g, a)
-                         : launch_bwd_ring<32, 1>(h, g, a);
+    return feat <= 256   ? launch_bwd_ring<8, 1>(h, g, a, fac)
+           : feat <= 320 ? launch_bwd_ring<10, 1>(h, g, a, fac)
+           : feat <= 512 ? launch_bwd_ring<16, 1>(h, g, a, fac)
+                         : launch_bwd_ring<32, 1>(h, g, a, fac);
   } else if (vec4 && feat <= 128) {
     RELGAT_BWD_LAUNCH(4, 1);
   } else if (vec4 && feat <= 256) {
@@ -1582,6 +2053,8 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
   cudaError_t err = cudaSuccess;
   if (num_items > 0) err = launch_src_items(h, g, a, design);
   if (err == cudaSuccess) err = launch_bwd_merge(a);
+  if (err == cudaSuccess && num_items > 0 && factored_ring<T>(a, design))
+    err = launch_src_fold(a);
   return static_cast<int>(err);
 }
 

@@ -142,6 +142,13 @@ template <int NK>
 constexpr int ring_bwd_warps() {
   return NK <= 10 ? 25 : (NK <= 16 ? 20 : 10);
 }
+// The bf16 src pass's factored loop (relgat_bwd.cu) holds no attn row: on
+// an H100 80GB HBM3 (700 W) at 12 x 256 it took 23.5 ms at 30 warps (56
+// registers) on a 10M-edge graph, 23.9 at 25, 23.7 at 35 and at 40.
+template <int NK>
+constexpr int ring_bwd_factored_warps() {
+  return NK <= 10 ? 30 : (NK <= 16 ? 20 : 10);
+}
 
 // Which design a launch takes at F > 128, the `design` argument of the C
 // entry points: the one-warp-a-head template or the ring kernel. The rule
@@ -149,6 +156,10 @@ constexpr int ring_bwd_warps() {
 // forces either (with_design) to time each beside the other.
 constexpr int kDesignLanes = 1;
 constexpr int kDesignRing = 2;
+// The bf16 src pass's ring with the per-edge loop, not the factored one
+// (relgat_bwd.cu): the rule that takes it on sparse graphs is
+// ops/cuda/fused.py ring_src_loop.
+constexpr int kDesignRingPerEdge = 3;
 // The ring's bytes a block aims at: 2 to kRingMaxStages stages of this.
 constexpr int kRingBytes = 48 * 1024;
 constexpr int kRingMaxStages = 8;

@@ -18,13 +18,22 @@ Port of ``relgat_projector_tpu/ops/pallas/fused.py``:
   PyTorch); the second reduces ``dattn = W^T h`` per head and
   ``dbias = sum_s B[s]`` over the node rows, reading h and W once (the TPU
   kernel sums dattn and dbias across its sequential grid, which this card
-  does not have).
+  does not have). On bf16 rows the ring design of the src pass takes each
+  edge's attn terms by (source row, head, relation): a kernel first writes
+  the logits ``P = h attn^T`` ``[N_src, H, R]`` into W's buffer, the ring's
+  loop reads each edge's logit from it and sums ``alpha * keep * g`` into
+  dh, and after the merge a last kernel adds ``W attn`` into dh
+  (``relgat_bwd_src_factored_plain`` is that route in plain PyTorch, for
+  the tests); no attn row is loaded an edge and no array is added.
 
 Past 128 features a head the forward and src pass take one of two designs
 by width and head count (``design_of``): the ring kernels (a producer warp
 streams each edge's row slice into shared memory with bulk copies, a
 consumer warp a head) or the one-warp-a-head template; ``with_design``
-forces either, for timing them side by side. ``relgat_bwd_rel_bf16`` has
+forces either, for timing them side by side. The bf16 src pass's ring has
+two loops, the factored one and the per-edge one, chosen by the graph's
+density (``ring_src_loop``); ``with_design`` forces the second as
+``"ring_per_edge"``. ``relgat_bwd_rel_bf16`` has
 two designs too, chosen the same way: ``"mma"``, the tensor cores (each
 fp32 W split exactly into three bf16 pieces, ``split_bf16x3``, three
 bf16 products into fp32), or ``"tile"``, the SIMT kernel that
@@ -48,7 +57,9 @@ kernels each call launches by design, as the C entry point picks them:
 ``"pair"``, ``"lanes"`` or ``"ring"`` over the work items of a forward or
 src pass, then ``"merge"`` where rows were split; ``"mma"`` or ``"tile"``
 for the relation reduction, then its ``"reduce"``. ``design_counts()``
-reads them and ``reset_design_counts()`` zeroes them.
+reads them and ``reset_design_counts()`` zeroes them, and with them
+``relgat_bwd_src_bf16.ring_loops``, its ring launches by loop
+(``"factored"``, ``"per_edge"``), which ``ring_loop_counts()`` reads.
 
 Shapes, over the layout's ``N_src = csr.num_src`` source rows and
 ``N = csr.num_nodes`` destination rows (both the padded node count on one
@@ -377,6 +388,21 @@ def max_num_rel(heads: int) -> int:
             // (4 * (warps + 1)))
 
 
+def _alpha_de(eraw, dalpha, m, l, s_dot, dst, keep, *, negative_slope,
+              eps):
+    """``alpha * keep`` and the logit gradient ``de`` [E, H] of edges into
+    ``dst`` from their logits ``eraw`` and ``dalpha = <h[src], g[dst]>``
+    (``keep`` [E, H] or None)."""
+    m_safe = torch.where(torch.isinf(m), 0.0, m)
+    alpha = torch.exp(
+        F.leaky_relu(eraw, negative_slope) - m_safe[dst]
+    ) / l.clamp_min(eps)[dst]
+    k = keep if keep is not None else 1.0
+    de = alpha * (dalpha * k - s_dot[dst])
+    de = de * torch.where(eraw >= 0, 1.0, negative_slope)
+    return alpha * k, de
+
+
 def _src_terms(h, g, attn, m, l, s_dot, src, dst, et, keep, *,
                negative_slope, eps):
     """Per edge of ``(src, dst, et)``: ``alpha * keep`` and the logit
@@ -389,14 +415,9 @@ def _src_terms(h, g, attn, m, l, s_dot, src, dst, et, keep, *,
     eraw = _dots(hs, ar)
     dalpha = _dots(hs, gd)
     del hs  # [E, H, F] arrays are 14 GB each at 1M edges and H*F = 3600
-    m_safe = torch.where(torch.isinf(m), 0.0, m)
-    alpha = torch.exp(
-        F.leaky_relu(eraw, negative_slope) - m_safe[dst]
-    ) / l.clamp_min(eps)[dst]
-    k = keep if keep is not None else 1.0
-    de = alpha * (dalpha * k - s_dot[dst])
-    de = de * torch.where(eraw >= 0, 1.0, negative_slope)
-    return alpha * k, de, gd, ar
+    aw, de = _alpha_de(eraw, dalpha, m, l, s_dot, dst, keep,
+                       negative_slope=negative_slope, eps=eps)
+    return aw, de, gd, ar
 
 
 def relgat_bwd_src_plain(
@@ -422,6 +443,49 @@ def relgat_bwd_src_plain(
     return dh, w.transpose(1, 2).contiguous(), b
 
 
+def _split_src(h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+               negative_slope, eps, factored):
+    """The src pass by the kernels' route: partial dh, W and B rows per
+    work item of ``csr.bwd_items`` over the src-CSR, then each source row's
+    items added. ``factored``: each edge's logit gathered from ``P = h
+    attn^T`` by (src row, relation), the partial dh rows ``alpha * keep *
+    g`` alone, and ``W attn`` added into dh after the merge."""
+    n, hf = h.shape
+    heads, num_rel, f = attn.shape
+    items = csr.bwd_items.long()
+    num_items = items.shape[0]
+    item = torch.repeat_interleave(
+        torch.arange(num_items, device=h.device), items[:, 2] - items[:, 1])
+    src = items[item, 0]
+    dst, et = csr.by_src_dst.long(), csr.by_src_etype.long()
+    keep = _keep_scale(csr.by_src_eid, heads, seed, rate)
+    kw = dict(negative_slope=negative_slope, eps=eps)
+    if factored:
+        hv = h.view(n, heads, f)
+        logits = torch.einsum("nhf,hrf->nhr", hv, attn)[src, :, et]
+        gd = g.view(-1, heads, f)[dst]
+        aw, de = _alpha_de(logits, _dots(hv[src], gd), m, l, s_dot, dst,
+                           keep, **kw)
+    else:
+        aw, de, gd, ar = _src_terms(h, g, attn, m, l, s_dot, src, dst, et,
+                                    keep, **kw)
+    dh_c = _atomic_sum(aw[..., None] * gd, item, num_items)
+    if not factored:
+        dh_c += _atomic_sum(de[..., None] * ar, item, num_items)
+    key = item * num_rel + et
+    w_c = _atomic_sum(de, key, num_items * num_rel).view(
+        num_items, num_rel, heads)
+    b_c = _atomic_sum(gsum[dst], key, num_items * num_rel).view(
+        num_items, num_rel)
+    row = items[:, 0]
+    dh = _atomic_sum(dh_c, row, n)
+    w = _atomic_sum(w_c, row, n)
+    if factored:
+        dh = dh + torch.einsum("nrh,hrf->nhf", w, attn)
+    return (dh.reshape(n, hf), w.transpose(1, 2).contiguous(),
+            _atomic_sum(b_c, row, n))
+
+
 def relgat_bwd_src_split_plain(
     h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
     negative_slope, eps,
@@ -430,28 +494,22 @@ def relgat_bwd_src_split_plain(
     rows per work item of ``csr.bwd_items`` over the src-CSR, then each
     source row's items added. The tests hold it to
     ``relgat_bwd_src_plain``."""
-    n, hf = h.shape
-    heads, num_rel, _ = attn.shape
-    items = csr.bwd_items.long()
-    num_items = items.shape[0]
-    item = torch.repeat_interleave(
-        torch.arange(num_items, device=h.device), items[:, 2] - items[:, 1])
-    dst, et = csr.by_src_dst.long(), csr.by_src_etype.long()
-    aw, de, gd, ar = _src_terms(
-        h, g, attn, m, l, s_dot, items[item, 0], dst, et,
-        _keep_scale(csr.by_src_eid, heads, seed, rate),
-        negative_slope=negative_slope, eps=eps)
-    dh_c = _atomic_sum(aw[..., None] * gd, item, num_items)
-    dh_c += _atomic_sum(de[..., None] * ar, item, num_items)
-    key = item * num_rel + et
-    w_c = _atomic_sum(de, key, num_items * num_rel).view(
-        num_items, num_rel, heads)
-    b_c = _atomic_sum(gsum[dst], key, num_items * num_rel).view(
-        num_items, num_rel)
-    row = items[:, 0]
-    dh = _atomic_sum(dh_c, row, n).reshape(n, hf)
-    w = _atomic_sum(w_c, row, n)
-    return dh, w.transpose(1, 2).contiguous(), _atomic_sum(b_c, row, n)
+    return _split_src(h, g, attn, m, l, s_dot, gsum, csr, seed=seed,
+                      rate=rate, negative_slope=negative_slope, eps=eps,
+                      factored=False)
+
+
+def relgat_bwd_src_factored_plain(
+    h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
+    negative_slope, eps,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``relgat_bwd_src_split_plain`` by the bf16 ring's factored route,
+    for the tests: the logits from ``P = h attn^T`` ``[N_src, H, R]``
+    gathered by (src row, relation), W from ``de``, then ``dh = sum aw g +
+    W attn``. The tests hold it to ``relgat_bwd_src_plain``."""
+    return _split_src(h, g, attn, m, l, s_dot, gsum, csr, seed=seed,
+                      rate=rate, negative_slope=negative_slope, eps=eps,
+                      factored=True)
 
 
 def relgat_bwd_src_bf16_plain(
@@ -497,6 +555,12 @@ def _launch_bwd_src(
         return dh, w, b
     use, s, thr, keep = _dropout_args(seed, rate)
     chosen = design or design_of(wrapper, heads, f)
+    loop = None  # the bf16 ring's
+    if wrapper is relgat_bwd_src_bf16 and chosen != "lanes" and f > 128:
+        loop = ("per_edge" if chosen == "ring_per_edge" else "factored"
+                if design else ring_src_loop(csr.num_edges, n, num_rel))
+    code = SRC_BF16_DESIGNS["ring_per_edge" if loop == "per_edge"
+                            else chosen]
     rc = entry_point(name)(
         h.data_ptr(), g.data_ptr(), attn.data_ptr(), m.data_ptr(),
         l.data_ptr(), s_dot.data_ptr(), gsum.data_ptr(),
@@ -505,10 +569,12 @@ def _launch_bwd_src(
         csr.by_src_eid.data_ptr(), dh.data_ptr(), w.data_ptr(), b.data_ptr(),
         n, csr.bwd_num_items, csr.bwd_num_split, heads, f, num_rel,
         float(negative_slope), float(eps), use, s, thr, keep,
-        DESIGNS[chosen], _stream(),
+        code, _stream(),
     )
     _raise_on(rc, name)
     if design is None:
+        if loop is not None:
+            wrapper.ring_loops[loop] = wrapper.ring_loops.get(loop, 0) + 1
         pair_warps = min((heads + 1) // 2, MAX_WARPS_PER_BLOCK)
         pair = (wrapper is relgat_bwd_src_bf16 and f % 8 == 0 and f <= 128
                 and _aligned(h, g, attn, dh)
@@ -551,6 +617,7 @@ def relgat_bwd_src_bf16(
 
 relgat_bwd_src.launches = relgat_bwd_src_bf16.launches = 0
 relgat_bwd_src.designs, relgat_bwd_src_bf16.designs = {}, {}
+relgat_bwd_src_bf16.ring_loops = {}
 
 
 # ---------------------------------------------------------------------------
@@ -662,6 +729,9 @@ relgat_bwd_rel.designs, relgat_bwd_rel_bf16.designs = {}, {}
 
 # csrc/relgat_common.cuh kDesignLanes, kDesignRing: the forward and src pass
 DESIGNS = {"lanes": 1, "ring": 2}
+# relgat_bwd_src_bf16's also kDesignRingPerEdge: the ring with the per-edge
+# loop, not the factored one
+SRC_BF16_DESIGNS = {**DESIGNS, "ring_per_edge": 3}
 # csrc/relgat_bwd.cu kRelDesignTile, kRelDesignMma: relgat_bwd_rel_bf16
 REL_DESIGNS = {"tile": 1, "mma": 2}
 
@@ -680,6 +750,31 @@ RING_RANGES = {
     "relgat_fwd_bf16": ((257, 368, 1),),
     "relgat_bwd_src_bf16": ((129, 320, 1), (321, 480, 4), (513, 1024, 1)),
 }
+
+
+# Where the bf16 ring src pass takes its factored loop: the logits and the
+# attn term of dh by (source row, head, relation). Its two products cost
+# N_src * R a head and its fold a round trip of dh, whatever the edges;
+# each edge and head saves an attn row. On an H100 80GB HBM3 (700 W;
+# scripts/ring_src_times.py, PERF.md section 6) at 12 x 256 and 100,008
+# source rows the loop saved ~0.8 ms a million edges, the logits cost 0.43
+# / 0.98 ms and the fold 1.10 / 1.90 ms at R = 40 / 100: the two loops come
+# even near E / N_src = 0.28 R + 8 out-edges a row, and the rule keeps the
+# per-edge loop up to 0.28 R + 10. Measured on either side: the per-edge
+# loop faster at E / (N_src R) = 0.25 (R = 40) and 0.2 (R = 100), even at
+# 0.5 (R = 40), the factored loop faster at 1.0 (R = 40) and 0.5 and 1.0
+# (R = 100).
+FACTORED_MIN_DENSITY = 0.28
+FACTORED_MIN_ROW_EDGES = 10.0
+
+
+def ring_src_loop(num_edges: int, num_src: int, num_rel: int) -> str:
+    """The bf16 ring src pass's loop on a graph of ``num_edges`` edges from
+    ``num_src`` source rows over ``num_rel`` relations: ``"factored"`` where
+    ``num_edges >= num_src * (FACTORED_MIN_DENSITY * num_rel +
+    FACTORED_MIN_ROW_EDGES)``, else ``"per_edge"``."""
+    need = num_src * (FACTORED_MIN_DENSITY * num_rel + FACTORED_MIN_ROW_EDGES)
+    return "factored" if num_edges >= need else "per_edge"
 
 
 # Where relgat_bwd_rel_bf16 takes the tensor cores ("mma"): ranges of
@@ -717,15 +812,19 @@ def design_of(wrapper, heads: int, feat: int) -> str:
 
 def designs_of(wrapper) -> Tuple[str, ...]:
     """The designs ``with_design`` takes for ``wrapper``."""
-    return tuple(REL_DESIGNS if wrapper is relgat_bwd_rel_bf16 else DESIGNS)
+    return tuple(REL_DESIGNS if wrapper is relgat_bwd_rel_bf16
+                 else SRC_BF16_DESIGNS if wrapper is relgat_bwd_src_bf16
+                 else DESIGNS)
 
 
 def with_design(wrapper, design, *args, **kw):
     """``wrapper`` on CUDA tensors through one of its designs, whichever
     ``design_of`` would take: a forward or src-pass wrapper (fp32 or bf16)
-    at heads wider than 128 features through ``"ring"``, the ring kernel,
-    or ``"lanes"``, the one-warp-a-head template; ``relgat_bwd_rel_bf16``
-    through ``"mma"`` or ``"tile"``. For timing each design and holding it
+    at heads wider than 128 features through ``"ring"``, the ring kernel
+    (``relgat_bwd_src_bf16``: its factored loop, whatever the graph), or
+    ``"lanes"``, the one-warp-a-head template, and ``relgat_bwd_src_bf16``
+    also through ``"ring_per_edge"``, the ring with the per-edge loop;
+    ``relgat_bwd_rel_bf16`` through ``"mma"`` or ``"tile"``. For timing each design and holding it
     to the plain version; its launches count nowhere. The arguments after
     ``design`` are ``wrapper``'s."""
     launch = {relgat_fwd: _launch_fwd, relgat_fwd_bf16: _launch_fwd,
@@ -768,3 +867,10 @@ def design_counts() -> dict:
 def reset_design_counts() -> None:
     for k in KERNELS:
         k.designs.clear()
+    relgat_bwd_src_bf16.ring_loops.clear()
+
+
+def ring_loop_counts() -> dict:
+    """The bf16 ring src pass's launches by loop since the last reset:
+    ``"factored"`` or ``"per_edge"`` (``ring_src_loop``)."""
+    return dict(sorted(relgat_bwd_src_bf16.ring_loops.items()))

@@ -17,7 +17,8 @@ against the harness's groups, and, where the port has them, the head's
 fused-block launches a window step (``head_counts`` of
 ``ops/cuda/gelu_layernorm.py``) and the propagate's kernel launches a
 window step by wrapper and design (``design_counts`` of
-``ops/cuda/fused.py``). ``--root`` imports the port and the
+``ops/cuda/fused.py``), and the bf16 ring src pass's launches a window
+step by loop (``ring_loop_counts``). ``--root`` imports the port and the
 benchmark from another checkout (to time two versions side by side);
 ``--out`` also writes the line to ``DIR/<cell>.<seed>.json``.
 Needs a CUDA card.
@@ -150,6 +151,9 @@ def main(argv=None) -> int:
     design_counts = ({k: v / win["steps"]
                       for k, v in fused.design_counts().items()}
                      if designs else None)
+    ring_loops = ({k: v / win["steps"]
+                   for k, v in fused.ring_loop_counts().items()}
+                  if hasattr(fused, "ring_loop_counts") else None)
     traced = harness.traced_steps(program, win["next"], "cuda")
     steps = traced["steps"]
     line = {
@@ -165,6 +169,7 @@ def main(argv=None) -> int:
         "gaps_ms": {k: 1e3 * v / steps for k, v in traced["gaps"][:6]},
         "head_counts_per_step": head_counts,
         "design_counts_per_step": design_counts,
+        "ring_loop_counts_per_step": ring_loops,
     }
     if hasattr(profiling, "device_ops"):
         t0 = time.perf_counter()

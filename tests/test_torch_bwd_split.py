@@ -10,7 +10,10 @@ drawn with p ~ 1/rank, ``bench.py``'s recipe: in-degree hubs) and the same
 graph with src and dst swapped (out-degree hubs), and
 ``relgat_bwd_src_split_plain`` (the kernels' route in plain PyTorch) is held
 to ``relgat_bwd_src_plain`` in float64 to 1e-12: the two differ only in the
-order of the additions.
+order of the additions. So is ``relgat_bwd_src_factored_plain``, the bf16
+ring's route (logits from ``P = h attn^T`` by (src row, relation), ``dh =
+sum aw g + W attn``), over ``test_torch_propagate.py``'s cases, a relation
+without edges and rows without out-edges, with and without dropout.
 """
 
 import numpy as np
@@ -25,6 +28,8 @@ from relgat_projector_tpu_torch.data.csr import (
 )
 from relgat_projector_tpu_torch.data.graph import build_graph
 from relgat_projector_tpu_torch.ops import cuda as kern
+from tests.test_torch_propagate import CASES as PROPAGATE_CASES
+from tests.test_torch_propagate import _inputs
 
 K = 16  # a small item size, so that the graphs here split rows
 REL_TOL = 1e-12
@@ -157,6 +162,96 @@ def test_rows_without_out_edges_are_zero():
     c = args[-1]
     empty = torch.from_numpy(np.diff(c.src_ptr.numpy()) == 0)
     assert bool(empty.any())
-    for fn in (kern.relgat_bwd_src, kern.relgat_bwd_src_split_plain):
+    for fn in (kern.relgat_bwd_src, kern.relgat_bwd_src_split_plain,
+               kern.relgat_bwd_src_factored_plain):
         for x in fn(*args, **kw):
             assert bool((x[empty] == 0).all()) and bool(torch.isfinite(x).all())
+
+
+EMPTY_REL = 4  # the relation without edges
+EMPTY_ROWS = 40  # rows 0 .. 39 without out-edges
+FACTORED_CASES = PROPAGATE_CASES + ("relation_without_edges",
+                                    "rows_without_out_edges")
+
+
+def _factored_args(case, rate):
+    """The src pass's inputs in float64 on ``test_torch_propagate.py``'s
+    graph of ``case`` (its ``out_hub`` layout splits rows), or on a uniform
+    graph of that size with relation ``EMPTY_REL`` or rows below
+    ``EMPTY_ROWS`` left without edges, in items of ``K`` edges."""
+    if case in PROPAGATE_CASES:
+        g, h, attn, bias, gr = _inputs(case)
+        c = g.csr
+        heads, num_rel, f = attn.shape
+    else:
+        rng = np.random.default_rng(FACTORED_CASES.index(case))
+        n, e, num_rel, heads, f = 150, 900, 7, 3, 16
+        src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+        et = rng.integers(0, num_rel, e)
+        if case == "relation_without_edges":
+            et[et == EMPTY_REL] = EMPTY_REL + 1
+        else:
+            src[src < EMPTY_ROWS] += EMPTY_ROWS
+        g = build_graph(src, dst, et, n, num_rel=num_rel, csr=True,
+                        device="cpu")
+        c = with_bwd_plan(g.csr, K)
+        h = rng.standard_normal((g.num_nodes, heads, f)) * 0.5
+        attn = rng.standard_normal((heads, num_rel, f)) * 0.3
+        bias = rng.standard_normal(num_rel) * 0.1
+        gr = rng.standard_normal((g.num_nodes, heads, f))
+    n = g.num_nodes
+    h, attn, gr = (torch.from_numpy(np.asarray(x, np.float64)).reshape(s)
+                   for x, s in ((h, (n, heads * f)),
+                                (attn, (heads, num_rel, f)),
+                                (gr, (n, heads * f))))
+    bias = torch.from_numpy(np.zeros(num_rel) if bias is None
+                            else np.asarray(bias, np.float64))
+    kw = dict(seed=-13579 if rate else None, rate=rate, negative_slope=0.2,
+              eps=1e-16)
+    out, m, l, b = kern.relgat_fwd_plain(h, attn, bias, c, **kw)
+    s_dot = ((out - b[:, None]) * gr).view(n, heads, f).sum(-1)
+    return (h, gr, attn, m, l, s_dot, gr.sum(1), c), kw
+
+
+@pytest.mark.parametrize("case", FACTORED_CASES)
+@pytest.mark.parametrize("rate", (0.0, 0.3))
+def test_factored_route_matches_plain(case, rate):
+    """The bf16 ring's route, logits and the attn term of dh by (src row,
+    relation), against the plain per-edge src pass at 1e-12 in float64."""
+    args, kw = _factored_args(case, rate)
+    c = args[-1]
+    if case == "out_hub":
+        assert c.bwd_num_split >= 1
+    if case == "relation_without_edges":
+        assert not bool((c.etype == EMPTY_REL).any())
+    if case == "rows_without_out_edges":
+        assert (np.diff(c.src_ptr.numpy())[:EMPTY_ROWS] == 0).all()
+    want = kern.relgat_bwd_src_plain(*args, **kw)
+    got = kern.relgat_bwd_src_factored_plain(*args, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64 and a.shape == b.shape
+        assert float((a - b).abs().max()) <= REL_TOL * float(
+            b.abs().max().clamp_min(1e-300))
+    if case == "relation_without_edges":
+        assert bool((got[1][:, :, EMPTY_REL] == 0).all())
+    if case == "rows_without_out_edges":
+        assert all(bool((x[:EMPTY_ROWS] == 0).all()) for x in got)
+
+
+@pytest.mark.parametrize("edges,rows,rels,loop", [
+    (10_000_000, 100_008, 100, "factored"),  # zipf-inv-10m
+    (5_000_000, 100_008, 100, "factored"),
+    (2_000_000, 100_008, 100, "per_edge"),
+    (4_000_000, 100_008, 40, "factored"),
+    (1_000_000, 100_008, 40, "per_edge"),  # sparse-1m
+    (0, 0, 40, "factored"),
+])
+def test_ring_src_loop_follows_the_density(edges, rows, rels, loop):
+    """The bf16 ring src pass takes its factored loop on graphs with enough
+    edges a (source row, relation) to pay for its two products (the
+    measured rule beside ``RING_RANGES``), the per-edge loop below; only
+    that wrapper has the per-edge ring as a design of its own."""
+    assert kern.ring_src_loop(edges, rows, rels) == loop
+    assert kern.designs_of(kern.relgat_bwd_src_bf16) == (
+        "lanes", "ring", "ring_per_edge")
+    assert kern.designs_of(kern.relgat_bwd_src) == tuple(kern.DESIGNS)

@@ -591,6 +591,89 @@ def test_bwd_src_split_rows_every_design(card, heads, feat, bf16):
         assert _rel(a[~keep], c[~keep]) <= REL_TOL
 
 
+@pytest.mark.parametrize("heads,feat,num_rel", [
+    (12, 256, 7), (12, 300, 7), (16, 200, 7), (20, 136, 7), (2, 1024, 7),
+    (12, 256, 100), (12, 300, 100), (2, 1024, 100)])
+def test_bf16_ring_src_factored(card, heads, feat, num_rel):
+    """The bf16 ring src pass (logits by (src row, relation), the loop,
+    the merge, then W attn added into dh), taken by the dispatch on a graph
+    dense enough for ``ring_src_loop``, with a split source row and dropout
+    0.3: within the bar of the float64 plain version, the same bits twice,
+    and no device memory past dh, W and B (the logits P live in W's
+    buffer). At 100 relations (``zipf-inv-10m``'s) the logits kernel takes
+    them in groups and the fold in 13 stages."""
+    assert kern.design_of(kern.relgat_bwd_src_bf16, heads, feat) == "ring"
+    g, h, gr, attn, bias = _out_hub_case(
+        heads, feat, num_rel=num_rel, e=12_000 if num_rel < 50 else 30_000)
+    csr = g.csr
+    assert csr.bwd_num_split == 1
+    n = h.shape[0]
+    assert kern.ring_src_loop(csr.num_edges, n, num_rel) == "factored"
+    kw = dict(seed=-987654321, rate=0.3, negative_slope=0.2, eps=1e-16)
+    rows_h, rows_g = h.to(torch.bfloat16), gr.to(torch.bfloat16)
+    out, m, l, b = kern.relgat_fwd_bf16(rows_h, attn, bias, csr, **kw)
+    s_dot = ((out - b[:, None]) * gr).view(n, heads, feat).sum(-1)
+    args = (rows_h, rows_g, attn, m, l, s_dot, gr.sum(1), csr)
+    del out
+    kern.reset_design_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    count = torch.cuda.memory_stats()["allocation.all.allocated"]
+    base = torch.cuda.memory_allocated()
+    first = kern.relgat_bwd_src_bf16(*args, **kw)
+    torch.cuda.synchronize()
+    # three allocations (dh, W, B), none freed before the end, so the peak
+    # is what the outputs hold: their bytes, each block rounded up by the
+    # caching allocator (to 512 bytes, or a remainder under 1 MB unsplit)
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == count + 3
+    assert torch.cuda.max_memory_allocated() == torch.cuda.memory_allocated()
+    rows = n + csr.bwd_num_parts
+    outputs = 4 * rows * (heads * feat + heads * num_rel + num_rel)
+    assert torch.cuda.memory_allocated() - base < outputs + 3 * 2**20
+    assert kern.ring_loop_counts() == {"factored": 1}
+    second = kern.relgat_bwd_src_bf16(*args, **kw)
+    want = _exact(kern.relgat_bwd_src_bf16_plain, *args, **kw)
+    for a, b_, c in zip(first, second, want):
+        assert torch.equal(a, b_)
+        assert _rel(a, c) <= REL_TOL
+        assert _rel(a[77], c[77]) <= REL_TOL
+
+
+@pytest.mark.parametrize("edges", (2_000, 30_000))
+def test_bf16_ring_src_loop_follows_the_density(card, edges):
+    """At 12 x 256 the bf16 src pass's ring takes the per-edge loop on a
+    sparse graph and the factored one on a dense graph (``ring_src_loop``):
+    the dispatch gives the bits of that loop forced, counts one ring launch
+    of that loop, and both loops are within the bar of the float64 plain
+    version."""
+    heads, feat = 12, 256
+    g, h, gr, attn, bias = _out_hub_case(heads, feat, e=edges)
+    csr = g.csr
+    n, num_rel = h.shape[0], attn.shape[1]
+    loop = kern.ring_src_loop(csr.num_edges, n, num_rel)
+    assert loop == ("factored" if edges > 10_000 else "per_edge")
+    kw = dict(seed=-987654321, rate=0.3, negative_slope=0.2, eps=1e-16)
+    rows_h, rows_g = h.to(torch.bfloat16), gr.to(torch.bfloat16)
+    out, m, l, b = kern.relgat_fwd_bf16(rows_h, attn, bias, csr, **kw)
+    s_dot = ((out - b[:, None]) * gr).view(n, heads, feat).sum(-1)
+    args = (rows_h, rows_g, attn, m, l, s_dot, gr.sum(1), csr)
+    kern.reset_design_counts()
+    got = kern.relgat_bwd_src_bf16(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.ring_loop_counts() == {loop: 1}
+    assert kern.design_counts()["relgat_bwd_src_bf16/ring"] == 1
+    want = _exact(kern.relgat_bwd_src_bf16_plain, *args, **kw)
+    forced = {d: kern.with_design(kern.relgat_bwd_src_bf16, d, *args, **kw)
+              for d in ("ring", "ring_per_edge")}
+    same = forced["ring" if loop == "factored" else "ring_per_edge"]
+    for a, b_ in zip(got, same):
+        assert torch.equal(a, b_)
+    for outs in forced.values():
+        for a, c in zip(outs, want):
+            assert _rel(a, c) <= REL_TOL
+    assert kern.ring_loop_counts() == {loop: 1}
+
+
 def test_bwd_src_small_items_match_plain(card):
     """Items of 5 edges split most rows of a uniform graph, rows without
     out-edges stay whole: fp32 and bf16 against the float64 plain version;

@@ -12,7 +12,9 @@ nodes, 1,000,000 edges and 40 relations) and its kernel inputs, for each
 (heads, features) shape and for fp32 and bf16 rows, ``chip_smoke``'s
 ``design_times``: ``relgat_fwd`` and ``relgat_bwd_src`` (or their bf16
 variants) through each design, timed with CUDA events (mean of ``--reps``
-calls after two warm-up calls), and the design the dispatch takes, beside
+calls after two warm-up calls), and the design the dispatch takes (for the bf16 src pass
+``ring_ms`` is its factored loop, ``ring_per_edge_ms`` its per-edge one,
+and ``ring_loop`` the one its dispatch takes on this graph), beside
 the row-gather floor (one H*F row an edge over 3.35 TB/s) and the bound of
 ``chip_smoke.bounds``. It only times: ``chip_smoke.py`` holds both designs
 to their float64 plain versions. One JSON line a (shape, variant, kernel),
@@ -54,7 +56,8 @@ def shape_rows(csr, n, heads, feat, reps, card):
     for bf16 in (False, True):
         calls, v = cs.variant_calls(inputs, bf16, kw)
         fwd, src, _ = cs.VARIANTS[bf16]
-        times = cs.design_times(calls, (fwd, src), heads, feat, reps=reps)
+        times = cs.design_times(calls, (fwd, src), heads, feat, reps=reps,
+                                csr=csr, num_rel=t["num_rel"])
         nbytes = cs.bounds(n, csr.num_edges, heads, feat, t["num_rel"],
                            row_bytes=v["rh"].element_size())
         for name, kind in ((fwd, "relgat_fwd"), (src, "relgat_bwd_src")):
