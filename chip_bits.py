@@ -2,12 +2,12 @@
 
 The kernels of the checkout this file lies in (fp32 and bf16; forward, src
 pass and relation reduction; attention dropout 0 and 0.3) run on seeded
-inputs at ``chip_smoke.py``'s ``TRAIN`` shapes (100k nodes, 1M edges, a
-hub row the forward splits, 40 relations; 16 heads x 128, and 12 x 300,
-where the ring kernels run) and a SHA-256 digest of each output's bytes is
-saved; ``compare`` holds two such files to each other. Python puts a
-script's own directory first on its path, so a copy of this file in
-another checkout's root runs that checkout's kernels:
+inputs in each of ``CASES`` and a SHA-256 digest of each output's bytes is
+saved, with the launches each case counted by kernel design
+(``design_counts``, and ``ring_loop_counts`` where the checkout has it);
+``compare`` holds two such files to each other. Python puts a script's own
+directory first on its path, so a copy of this file in another checkout's
+root runs that checkout's kernels:
 
     python3 chip_bits.py run A.pt
     cp chip_bits.py OTHER/ && python3 OTHER/chip_bits.py run B.pt
@@ -19,28 +19,58 @@ import sys
 import numpy as np
 import torch
 
-SHAPES = ((16, 128), (12, 300))
+# (graph, heads, features). The sparse graph is chip_smoke.py's TRAIN
+# graph (100k nodes, 1M edges, a hub row the forward splits, 40 relations):
+# at 16 x 128 the bf16 pair kernels run, at 12 x 300 the rings with their
+# per-edge loop. The dense graph (20k nodes, 2M edges, 100 relations, a
+# row split in each pass) at the large preset's 12 x 256 runs the bf16
+# lanes forward at 256, the bf16 ring src pass's factored loop
+# (ops/cuda/fused.py ring_src_loop) and the tensor-core relation reduction.
+CASES = (("sparse", 16, 128), ("sparse", 12, 300), ("dense", 12, 256))
+GRAPHS = {"sparse": (100_000, 1_000_000, 40), "dense": (20_000, 2_000_000, 100)}
 
 
 def digest(t):
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
-def run(out):
+def make_graph(name):
     from relgat_projector_tpu_torch.data.graph import build_graph
-    from relgat_projector_tpu_torch.ops import cuda as kern
 
     rng = np.random.default_rng(0)
-    n, e, r = 100_000, 1_000_000, 40
+    n, e, r = GRAPHS[name]
     src, dst, et = (rng.integers(0, n, e), rng.integers(0, n, e),
                     rng.integers(0, r, e))
-    dst[:60_000] = 5  # a hub the forward splits
-    g = build_graph(src, dst, et, n, num_rel=r, csr=True, device="cuda")
-    res = {}
-    for heads, feat in SHAPES:
-        res.update(shape_digests(kern, g, r, heads, feat))
+    if name == "sparse":
+        dst[:60_000] = 5  # a hub the forward splits
+    else:
+        dst[:5_000], src[5_000:10_000] = 5, 7  # a row split in each pass
+    return build_graph(src, dst, et, n, num_rel=r, csr=True, device="cuda"), r
+
+
+def run(out):
+    from relgat_projector_tpu_torch.ops import cuda as kern
+
+    res, launched = {}, {}
+    for name in GRAPHS:
+        g, r = make_graph(name)
+        for graph, heads, feat in CASES:
+            if graph != name:
+                continue
+            kern.reset_design_counts()
+            prefix = "" if name == "sparse" else f"{name}_"
+            res.update({prefix + k: v for k, v in
+                        shape_digests(kern, g, r, heads, feat).items()})
+            launched[f"{prefix}{heads}x{feat}"] = {
+                **kern.design_counts(),
+                **(kern.ring_loop_counts()
+                   if hasattr(kern, "ring_loop_counts") else {})}
+        del g
+        torch.cuda.empty_cache()
+    res["launched"] = launched
     torch.save(res, out)
     print("saved", out, sorted(res))
+    print("launched:", launched)
 
 
 def shape_digests(kern, g, r, heads, feat):
@@ -77,7 +107,9 @@ def compare(a, b):
     same = {k: x[k] == y.get(k) for k in sorted(x)}
     print("same bits:", same)
     for k in sorted(x):
-        if not same[k]:
+        if not same[k] and k == "launched":
+            print("launched differ:", x[k], y.get(k))
+        elif not same[k]:
             print("differ:", k, [o for o, p, q in
                                  zip(OUTPUTS, x[k], y.get(k, [None] * 9))
                                  if p != q])

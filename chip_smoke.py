@@ -827,14 +827,22 @@ def phase_parity_dense(card, out_lines):
 
 def ring_loop(name, csr, heads, feat, num_rel):
     """The loop of the bf16 src pass's ring that its dispatch takes on
-    ``csr`` (``ops.cuda.ring_src_loop``): ``"factored"`` or
-    ``"per_edge"``; None for another kernel or design. Forced, the design
-    ``"ring"`` is the factored loop and ``"ring_per_edge"`` the other,
-    whatever the graph."""
-    if (name != "relgat_bwd_src_bf16"
-            or kern.design_of(KERNELS[name], heads, feat) != "ring"):
+    ``csr`` (``ops.cuda.kernel_of``): ``"factored"`` or ``"per_edge"``;
+    None for another kernel or wrapper. Forced, the design ``"ring"`` is
+    the factored loop and ``"ring_per_edge"`` the other, whatever the
+    graph."""
+    if name != "relgat_bwd_src_bf16":
         return None
-    return kern.ring_src_loop(csr.num_edges, csr.num_src, num_rel)
+    return kern.RING_LOOPS.get(kern.kernel_of(
+        KERNELS[name], heads, feat, num_rel, num_edges=csr.num_edges,
+        num_src=csr.num_src))
+
+
+def wide_designs(name):
+    """The designs ``with_design`` forces for ``name`` past 128 features:
+    all of ``ops.cuda.designs_of`` but the pair kernel, which takes 128 or
+    fewer."""
+    return [d for d in kern.designs_of(KERNELS[name]) if d != "pair"]
 
 
 def design_errors(inputs, bf16, *, seed, rate):
@@ -862,7 +870,7 @@ def design_errors(inputs, bf16, *, seed, rate):
                              and a.is_floating_point() else a
                              for a in args), **kw)
         errs = {}
-        for design in kern.designs_of(KERNELS[name]):
+        for design in wide_designs(name):
             got = kern.with_design(KERNELS[name], design, *args, **kw)
             # the forward's out and l (m is -inf on rows without in-edges;
             # run_kernel_pair holds the bias sum)
@@ -1888,7 +1896,7 @@ def design_times(calls, names, heads, feat, reps=10, csr=None,
         if csr is not None:
             res[name]["ring_loop"] = ring_loop(name, csr, heads, feat,
                                                num_rel)
-        for design in kern.designs_of(KERNELS[name]):
+        for design in wide_designs(name):
             res[name][f"{design}_ms"] = cuda_ms(
                 lambda: calls[name](lambda *a, **k: kern.with_design(
                     KERNELS[name], design, *a, **k)), reps=reps, warmup=2)

@@ -108,7 +108,7 @@
 // the ring loop (dalpha, one dot product, then alpha, de, dh += aw g and
 // the slab), the merge, then relgat_bwd_src_fold_kernel adds W attn into
 // dh. The two products cost N * H * R * F whatever the edges, so on sparse
-// graphs the bf16 ring keeps the per-edge loop (kDesignRingPerEdge; the
+// graphs the bf16 ring keeps the per-edge loop (kKernelRing; the
 // rule is ops/cuda/fused.py ring_src_loop). The fp32 ring keeps the
 // per-edge loop (its g slice is as wide as the attn row, which hides that
 // load).
@@ -1829,15 +1829,6 @@ struct SrcArgs {
   cudaStream_t st;
 };
 
-// Whether a src pass takes the factored ring (bf16 rows, the ring design,
-// F > 128): the logits kernel before the ring, the fold after the merge.
-// kDesignRingPerEdge takes the ring with the per-edge loop.
-template <typename T>
-bool factored_ring(const SrcArgs& a, int design) {
-  return std::is_same_v<T, __nv_bfloat16> && design == relgat::kDesignRing &&
-         a.feat > 128 && a.feat <= 32 * relgat::kMaxFeatPerLane;
-}
-
 // P = h attn^T into W's rows 0 .. N - 1 (relgat_bwd_src_logits_kernel):
 // relation groups as large as kLogitSmemBytes of planes hold (balanced),
 // and runs of rows for about four blocks an SM.
@@ -1941,40 +1932,30 @@ cudaError_t launch_bwd_merge(const SrcArgs& a) {
   return cudaGetLastError();
 }
 
-// One kernel over the work items, then the merge. design: kDesignLanes,
-// kDesignRing or (bf16 rows) kDesignRingPerEdge (relgat_common.cuh), at
-// F > 128.
+// One kernel over the work items: kernel is kKernelLanes, kKernelRing,
+// or (bf16 rows) kKernelRingFactored or kKernelPair (relgat_common.cuh).
 template <typename T>
 cudaError_t launch_src_items(const T* h, const T* g, const SrcArgs& a,
-                             int design) {
+                             int kernel) {
   using namespace relgat;
   const int heads = a.heads;
   const int feat = a.feat;
-  const int wpb = heads < kMaxWarpsPerBlock ? heads : kMaxWarpsPerBlock;
-  const size_t smem = static_cast<size_t>(wpb) * 32 * sizeof(EdgeEntry) +
-                      static_cast<size_t>(wpb + 1) * a.num_rel * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxBwdSmemBytes)) return cudaErrorInvalidValue;
-  const dim3 block(32 * wpb);
-  const dim3 grid(a.num_items, (heads + wpb - 1) / wpb);
+  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
   // 4 values a vector: 16 bytes of an fp32 row, 8 of a bf16 one
   const bool vec4 = feat % 4 == 0 && aligned(h, 4 * sizeof(T)) &&
                     aligned(g, 4 * sizeof(T)) && aligned(a.attn, 16) &&
                     aligned(a.dh, 16);
-#define RELGAT_BWD_LAUNCH(VEC, NV)                                           \
-  relgat_bwd_src_kernel<VEC, NV, T><<<grid, block, smem, a.st>>>(            \
-      h, g, a.attn, a.m, a.l, a.s_dot, a.gsum, a.items, a.dst, a.etype,      \
-      a.eid, a.dh, a.w_out, a.b_out, a.num_rows, heads, feat, a.num_rel,     \
-      a.slope, a.eps, a.use_dropout, a.seed, a.thr, a.keep_prob)
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  // The pair kernel: two heads a warp, up to 16 heads a block; a table of
-  // 2 x 16 edges a warp, one slab a head and one more.
-  const int pairs = (heads + 1) / 2;
-  const int wpb2 = pairs < kMaxWarpsPerBlock ? pairs : kMaxWarpsPerBlock;
-  const size_t pair_smem =
-      static_cast<size_t>(wpb2) * 32 * sizeof(EdgeEntry) +
-      static_cast<size_t>(2 * wpb2 + 1) * a.num_rel * sizeof(float);
-  if (kBf16 && vec4 && feat % 8 == 0 && feat <= 128 && aligned(h, 16) &&
-      aligned(g, 16) && pair_smem <= static_cast<size_t>(kMaxBwdSmemBytes)) {
+  if (kernel == kKernelPair) {
+    // two heads a warp, up to 16 heads a block; a table of 2 x 16 edges a
+    // warp, one slab a head and one more
+    const int pairs = (heads + 1) / 2;
+    const int wpb2 = pairs < kMaxWarpsPerBlock ? pairs : kMaxWarpsPerBlock;
+    const size_t pair_smem =
+        static_cast<size_t>(wpb2) * 32 * sizeof(EdgeEntry) +
+        static_cast<size_t>(2 * wpb2 + 1) * a.num_rel * sizeof(float);
+    if (!kBf16 || !vec4 || feat % 8 != 0 || feat > 128 || !aligned(h, 16) ||
+        !aligned(g, 16) || pair_smem > static_cast<size_t>(kMaxBwdSmemBytes))
+      return cudaErrorInvalidValue;
     const dim3 grid2(a.num_items, (pairs + wpb2 - 1) / wpb2);
     relgat_bwd_src_pair_kernel<<<grid2, 32 * wpb2, pair_smem, a.st>>>(
         reinterpret_cast<const __nv_bfloat16*>(h),
@@ -1982,11 +1963,11 @@ cudaError_t launch_src_items(const T* h, const T* g, const SrcArgs& a,
         a.gsum, a.items, a.dst, a.etype, a.eid, a.dh, a.w_out, a.b_out,
         a.num_rows, heads, feat, a.num_rel, a.slope, a.eps, a.use_dropout,
         a.seed, a.thr, a.keep_prob);
-  } else if (feat > 32 * kMaxFeatPerLane) {
-    return cudaErrorInvalidValue;
-  } else if (feat > 128 && (design == kDesignRing ||
-                            (kBf16 && design == kDesignRingPerEdge))) {
-    const bool fac = factored_ring<T>(a, design);
+    return cudaGetLastError();
+  }
+  if (kernel == kKernelRing || kernel == kKernelRingFactored) {
+    const bool fac = kernel == kKernelRingFactored;
+    if (feat <= 128 || (fac && !kBf16)) return cudaErrorInvalidValue;
     if constexpr (kBf16) {
       if (fac) {
         const cudaError_t err = launch_src_logits(h, a);
@@ -2005,7 +1986,20 @@ cudaError_t launch_src_items(const T* h, const T* g, const SrcArgs& a,
            : feat <= 320 ? launch_bwd_ring<10, 1>(h, g, a, fac)
            : feat <= 512 ? launch_bwd_ring<16, 1>(h, g, a, fac)
                          : launch_bwd_ring<32, 1>(h, g, a, fac);
-  } else if (vec4 && feat <= 128) {
+  }
+  if (kernel != kKernelLanes) return cudaErrorInvalidValue;
+  const int wpb = heads < kMaxWarpsPerBlock ? heads : kMaxWarpsPerBlock;
+  const size_t smem = static_cast<size_t>(wpb) * 32 * sizeof(EdgeEntry) +
+                      static_cast<size_t>(wpb + 1) * a.num_rel * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxBwdSmemBytes)) return cudaErrorInvalidValue;
+  const dim3 block(32 * wpb);
+  const dim3 grid(a.num_items, (heads + wpb - 1) / wpb);
+#define RELGAT_BWD_LAUNCH(VEC, NV)                                           \
+  relgat_bwd_src_kernel<VEC, NV, T><<<grid, block, smem, a.st>>>(            \
+      h, g, a.attn, a.m, a.l, a.s_dot, a.gsum, a.items, a.dst, a.etype,      \
+      a.eid, a.dh, a.w_out, a.b_out, a.num_rows, heads, feat, a.num_rel,     \
+      a.slope, a.eps, a.use_dropout, a.seed, a.thr, a.keep_prob)
+  if (vec4 && feat <= 128) {
     RELGAT_BWD_LAUNCH(4, 1);
   } else if (vec4 && feat <= 256) {
     RELGAT_BWD_LAUNCH(4, 2);
@@ -2041,8 +2035,9 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
                    float* b_out, int num_rows, int num_items, int num_split,
                    int heads, int feat, int num_rel, float slope, float eps,
                    int use_dropout, int seed, unsigned int thr,
-                   float keep_prob, int design, void* stream) {
-  if (!aligned(items, 16) || heads < 1)
+                   float keep_prob, int kernel, void* stream) {
+  if (!aligned(items, 16) || heads < 1 ||
+      feat > 32 * relgat::kMaxFeatPerLane)
     return static_cast<int>(cudaErrorInvalidValue);
   const SrcArgs a{attn, m, l, s_dot, gsum,
                   reinterpret_cast<const int4*>(items), merge, dst, etype,
@@ -2051,9 +2046,11 @@ int launch_bwd_src(const T* h, const T* g, const float* attn, const float* m,
                   static_cast<uint32_t>(seed), thr, keep_prob,
                   static_cast<cudaStream_t>(stream)};
   cudaError_t err = cudaSuccess;
-  if (num_items > 0) err = launch_src_items(h, g, a, design);
+  if (num_items > 0) err = launch_src_items(h, g, a, kernel);
   if (err == cudaSuccess) err = launch_bwd_merge(a);
-  if (err == cudaSuccess && num_items > 0 && factored_ring<T>(a, design))
+  // the factored loop's W attn, added into dh after the merge
+  if (err == cudaSuccess && num_items > 0 &&
+      kernel == relgat::kKernelRingFactored)
     err = launch_src_fold(a);
   return static_cast<int>(err);
 }
@@ -2435,12 +2432,12 @@ extern "C" int relgat_bwd_src(
     const int* merge, const int* dst, const int* etype, const int* eid,
     float* dh, float* w_out, float* b_out, int num_rows, int num_items,
     int num_split, int heads, int feat, int num_rel, float slope, float eps,
-    int use_dropout, int seed, unsigned int thr, float keep_prob, int design,
+    int use_dropout, int seed, unsigned int thr, float keep_prob, int kernel,
     void* stream) {
   return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, items, merge, dst,
                         etype, eid, dh, w_out, b_out, num_rows, num_items,
                         num_split, heads, feat, num_rel, slope, eps,
-                        use_dropout, seed, thr, keep_prob, design, stream);
+                        use_dropout, seed, thr, keep_prob, kernel, stream);
 }
 
 // The same with h and g in bf16 (kernel_precision="default").
@@ -2451,11 +2448,11 @@ extern "C" int relgat_bwd_src_bf16(
     const int* eid, float* dh, float* w_out, float* b_out, int num_rows,
     int num_items, int num_split, int heads, int feat, int num_rel,
     float slope, float eps, int use_dropout, int seed, unsigned int thr,
-    float keep_prob, int design, void* stream) {
+    float keep_prob, int kernel, void* stream) {
   return launch_bwd_src(h, g, attn, m, l, s_dot, gsum, items, merge, dst,
                         etype, eid, dh, w_out, b_out, num_rows, num_items,
                         num_split, heads, feat, num_rel, slope, eps,
-                        use_dropout, seed, thr, keep_prob, design, stream);
+                        use_dropout, seed, thr, keep_prob, kernel, stream);
 }
 
 extern "C" int relgat_bwd_rel(const float* h, const float* w, const float* b,

@@ -150,16 +150,22 @@ constexpr int ring_bwd_factored_warps() {
   return NK <= 10 ? 30 : (NK <= 16 ? 20 : 10);
 }
 
-// Which design a launch takes at F > 128, the `design` argument of the C
-// entry points: the one-warp-a-head template or the ring kernel. The rule
-// that picks one by width is ops/cuda/fused.py design_of; measurement code
-// forces either (with_design) to time each beside the other.
-constexpr int kDesignLanes = 1;
-constexpr int kDesignRing = 2;
-// The bf16 src pass's ring with the per-edge loop, not the factored one
-// (relgat_bwd.cu): the rule that takes it on sparse graphs is
-// ops/cuda/fused.py ring_src_loop.
-constexpr int kDesignRingPerEdge = 3;
+// The kernel a forward or src pass runs over its work items, the `kernel`
+// argument of the C entry points. ops/cuda/fused.py kernel_of picks one
+// (ITEM_KERNELS mirrors these codes); an entry point launches the kernel it
+// is handed, or returns cudaErrorInvalidValue where that kernel's
+// conditions fail, and never turns one kernel into another.
+// The one-warp-a-head template: any width up to 32 * kMaxFeatPerLane.
+constexpr int kKernelLanes = 1;
+// The ring kernel with its per-edge loop (both fp32 rings, the bf16
+// forward's ring): F > 128.
+constexpr int kKernelRing = 2;
+// The bf16 src pass's ring with its factored loop (relgat_bwd.cu): F > 128.
+constexpr int kKernelRingFactored = 3;
+// The bf16 pair kernels, two heads a warp: F <= 128, a multiple of 8, the
+// rows and outputs 16-byte aligned (and in the src pass the pair block's
+// shared memory within kMaxBwdSmemBytes).
+constexpr int kKernelPair = 4;
 // The ring's bytes a block aims at: 2 to kRingMaxStages stages of this.
 constexpr int kRingBytes = 48 * 1024;
 constexpr int kRingMaxStages = 8;

@@ -664,7 +664,8 @@ cudaError_t launch_ring(const T* h, const FwdArgs& a) {
 
 // items [I, 4] and merge [S, 3] are data/csr.py's work plan; part_acc,
 // part_ml and part_bias have a slot for each chunk of a split row.
-// design: kDesignLanes or kDesignRing (relgat_common.cuh), at F > 128.
+// kernel: kKernelLanes, kKernelRing or (bf16 h) kKernelPair
+// (relgat_common.cuh).
 template <typename T>
 int launch_fwd(const T* h, const float* attn, const float* rel_bias,
                const int* items, const int* src, const int* etype,
@@ -673,9 +674,10 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
                double* part_bias, int num_items, int num_split,
                int item_edges, int heads, int feat, int num_rel, float slope,
                float eps, int use_dropout, int seed, unsigned int thr,
-               float keep_prob, int design, void* stream) {
+               float keep_prob, int kernel, void* stream) {
   using namespace relgat;
-  if (item_edges > kItemEdges || !aligned(items, 16) || heads < 1)
+  if (item_edges > kItemEdges || !aligned(items, 16) || heads < 1 ||
+      feat > 32 * kMaxFeatPerLane)
     return static_cast<int>(cudaErrorInvalidValue);
   const FwdArgs a{attn, rel_bias, reinterpret_cast<const int4*>(items), src,
                   etype, eid, merge, out, m_out, l_out, bias_out, part_acc,
@@ -687,9 +689,11 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
   const bool vec4 = feat % 4 == 0 && aligned(h, 4 * sizeof(T)) &&
                     aligned(attn, 16) && aligned(out, 16) &&
                     aligned(part_acc, 16);
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  cudaError_t err;
-  if (kBf16 && vec4 && feat % 8 == 0 && feat <= 128 && aligned(h, 16)) {
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kernel == kKernelPair) {
+    if (!std::is_same_v<T, __nv_bfloat16> || !vec4 || feat % 8 != 0 ||
+        feat > 128 || !aligned(h, 16))
+      return static_cast<int>(cudaErrorInvalidValue);
     if (num_items > 0) {
       // two heads a warp: up to 16 heads a block
       const int pairs = (heads + 1) / 2;
@@ -704,9 +708,8 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     err = launch_merge<4, 1>(a);
-  } else if (feat > 32 * kMaxFeatPerLane) {
-    err = cudaErrorInvalidValue;
-  } else if (feat > 128 && design == kDesignRing) {
+  } else if (kernel == kKernelRing) {
+    if (feat <= 128) return static_cast<int>(cudaErrorInvalidValue);
     // two values a read where every head's piece of a row is 2-value aligned
     const bool pairs = feat % 2 == 0 && aligned(h, 2 * sizeof(T)) &&
                        aligned(attn, 8) && aligned(out, 8) &&
@@ -723,26 +726,17 @@ int launch_fwd(const T* h, const float* attn, const float* rel_bias,
     else if (feat <= 320) err = launch_ring<10, 1, 1, 16>(h, a);
     else if (feat <= 512) err = launch_ring<16, 1, 1, 16>(h, a);
     else err = launch_ring<32, 1, 1, 32>(h, a);
-  } else if (vec4 && feat <= 128) {
-    err = launch_lanes<4, 1>(h, a);
-  } else if (vec4 && feat <= 256) {
-    err = launch_lanes<4, 2>(h, a);
-  } else if (vec4 && feat <= 512) {
-    err = launch_lanes<4, 4>(h, a);
-  } else if (vec4) {
-    err = launch_lanes<4, 8>(h, a);
-  } else if (feat <= 32) {
-    err = launch_lanes<1, 1>(h, a);
-  } else if (feat <= 64) {
-    err = launch_lanes<1, 2>(h, a);
-  } else if (feat <= 128) {
-    err = launch_lanes<1, 4>(h, a);
-  } else if (feat <= 256) {
-    err = launch_lanes<1, 8>(h, a);
-  } else if (feat <= 512) {
-    err = launch_lanes<1, 16>(h, a);
-  } else {
-    err = launch_lanes<1, 32>(h, a);
+  } else if (kernel == kKernelLanes) {
+    if (vec4 && feat <= 128) err = launch_lanes<4, 1>(h, a);
+    else if (vec4 && feat <= 256) err = launch_lanes<4, 2>(h, a);
+    else if (vec4 && feat <= 512) err = launch_lanes<4, 4>(h, a);
+    else if (vec4) err = launch_lanes<4, 8>(h, a);
+    else if (feat <= 32) err = launch_lanes<1, 1>(h, a);
+    else if (feat <= 64) err = launch_lanes<1, 2>(h, a);
+    else if (feat <= 128) err = launch_lanes<1, 4>(h, a);
+    else if (feat <= 256) err = launch_lanes<1, 8>(h, a);
+    else if (feat <= 512) err = launch_lanes<1, 16>(h, a);
+    else err = launch_lanes<1, 32>(h, a);
   }
   return static_cast<int>(err);
 }
@@ -759,12 +753,12 @@ extern "C" int relgat_fwd(const float* h, const float* attn,
                           int item_edges, int heads, int feat, int num_rel,
                           float slope, float eps, int use_dropout, int seed,
                           unsigned int thr, float keep_prob,
-                          int design, void* stream) {
+                          int kernel, void* stream) {
   return launch_fwd(h, attn, rel_bias, items, src, etype, eid, merge, out,
                     m_out, l_out, bias_out, part_acc, part_ml, part_bias,
                     num_items, num_split, item_edges, heads, feat, num_rel,
                     slope, eps, use_dropout, seed, thr, keep_prob,
-                    design, stream);
+                    kernel, stream);
 }
 
 // The same with h in bf16 (kernel_precision="default").
@@ -779,10 +773,10 @@ extern "C" int relgat_fwd_bf16(const __nv_bfloat16* h, const float* attn,
                                int heads, int feat, int num_rel, float slope,
                                float eps, int use_dropout, int seed,
                                unsigned int thr, float keep_prob,
-                               int design, void* stream) {
+                               int kernel, void* stream) {
   return launch_fwd(h, attn, rel_bias, items, src, etype, eid, merge, out,
                     m_out, l_out, bias_out, part_acc, part_ml, part_bias,
                     num_items, num_split, item_edges, heads, feat, num_rel,
                     slope, eps, use_dropout, seed, thr, keep_prob,
-                    design, stream);
+                    kernel, stream);
 }

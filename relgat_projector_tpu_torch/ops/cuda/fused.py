@@ -26,18 +26,18 @@ Port of ``relgat_projector_tpu/ops/pallas/fused.py``:
   (``relgat_bwd_src_factored_plain`` is that route in plain PyTorch, for
   the tests); no attn row is loaded an edge and no array is added.
 
-Past 128 features a head the forward and src pass take one of two designs
-by width and head count (``design_of``): the ring kernels (a producer warp
-streams each edge's row slice into shared memory with bulk copies, a
-consumer warp a head) or the one-warp-a-head template; ``with_design``
-forces either, for timing them side by side. The bf16 src pass's ring has
-two loops, the factored one and the per-edge one, chosen by the graph's
-density (``ring_src_loop``); ``with_design`` forces the second as
-``"ring_per_edge"``. ``relgat_bwd_rel_bf16`` has
-two designs too, chosen the same way: ``"mma"``, the tensor cores (each
-fp32 W split exactly into three bf16 pieces, ``split_bf16x3``, three
-bf16 products into fp32), or ``"tile"``, the SIMT kernel that
-``relgat_bwd_rel`` runs.
+``kernel_of`` picks the kernel of every launch; the C entry points launch
+it or refuse it, and choose none. A forward or src pass takes the bf16
+pair kernel (two heads a warp) up to 128 features, and past them, by width
+and head count (``design_of``), the ring kernel (a producer warp streams
+each edge's row slice into shared memory with bulk copies, a consumer warp
+a head) or the one-warp-a-head template, which takes every other call;
+the bf16 src pass's ring has a factored and a per-edge loop, by density
+(``ring_src_loop``). ``relgat_bwd_rel_bf16`` takes ``"mma"``, the tensor
+cores (fp32 W split exactly into three bf16 pieces, ``split_bf16x3``),
+or ``"tile"``, the SIMT kernel that ``relgat_bwd_rel`` runs.
+``with_design`` forces a kernel by name, to time each and hold it to the
+plain version.
 
 Each has a bf16 variant (``relgat_fwd_bf16``, ``relgat_bwd_src_bf16``,
 ``relgat_bwd_rel_bf16``) for ``kernel_precision="default"``, the TPU
@@ -53,13 +53,13 @@ to on the card; nothing on the card's main path calls them. Each wrapper
 counts its launches in a plain int attribute, ``<wrapper>.launches``, where
 its kernel launches: a call that launches nothing (a src pass over no
 source rows) counts nothing. Beside it, ``<wrapper>.designs`` counts the
-kernels each call launches by design, as the C entry point picks them:
-``"pair"``, ``"lanes"`` or ``"ring"`` over the work items of a forward or
-src pass, then ``"merge"`` where rows were split; ``"mma"`` or ``"tile"``
-for the relation reduction, then its ``"reduce"``. ``design_counts()``
-reads them and ``reset_design_counts()`` zeroes them, and with them
-``relgat_bwd_src_bf16.ring_loops``, its ring launches by loop
-(``"factored"``, ``"per_edge"``), which ``ring_loop_counts()`` reads.
+kernels each call launches by design, as ``kernel_of`` picked them:
+``"pair"``, ``"lanes"`` or ``"ring"`` (either loop) over the work items of
+a forward or src pass, then ``"merge"`` where rows were split; ``"mma"`` or
+``"tile"`` for the relation reduction, then its ``"reduce"``.
+``design_counts()`` reads them and ``reset_design_counts()`` zeroes them,
+and with them ``relgat_bwd_src_bf16.ring_loops``, its ring launches by
+loop (``"factored"``, ``"per_edge"``), which ``ring_loop_counts()`` reads.
 
 Shapes, over the layout's ``N_src = csr.num_src`` source rows and
 ``N = csr.num_nodes`` destination rows (both the padded node count on one
@@ -204,23 +204,16 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def _count(wrapper, *designs: str) -> None:
+def _count(wrapper, *kernels: str) -> None:
     """Count a call's launches: one of ``wrapper``, and one a kernel by its
-    design (``designs``, in launch order)."""
+    design (``kernels``, as ``kernel_of`` names them, in launch order)."""
     wrapper.launches += 1
-    for d in designs:
+    loops = getattr(wrapper, "ring_loops", None)
+    for k in kernels:
+        if loops is not None and k in RING_LOOPS:
+            loops[RING_LOOPS[k]] = loops.get(RING_LOOPS[k], 0) + 1
+        d = "ring" if k in RING_LOOPS else k
         wrapper.designs[d] = wrapper.designs.get(d, 0) + 1
-
-
-def _items_design(chosen: str, f: int, pair: bool) -> str:
-    """The kernel a forward or src pass launches over its work items, as
-    ``csrc/relgat_fwd.cu`` and ``relgat_bwd.cu`` pick it: the bf16 pair
-    kernel where ``pair`` (its width and alignment hold), the ring kernel
-    past 128 features where ``chosen``, else the one-warp-a-head
-    template."""
-    if pair:
-        return "pair"
-    return "ring" if f > 128 and chosen == "ring" else "lanes"
 
 
 def _dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -306,10 +299,10 @@ def relgat_fwd_bf16_plain(
 
 def _launch_fwd(
     wrapper, h, attn, rel_bias, csr: CSRGraph, *, seed, rate, negative_slope,
-    eps, design=None,
+    eps, forced=None,
 ):
-    """Launch ``wrapper``'s kernel and count the launch (a ``design``
-    forced: see ``with_design``, counted nowhere)."""
+    """Launch the kernel ``kernel_of`` picks and count the launch (a kernel
+    ``forced``: see ``with_design``, counted nowhere)."""
     name = wrapper.__name__
     _, heads, num_rel, f = check_shapes(name, h, attn, csr)
     if csr.fwd_item_edges > FWD_ITEM_EDGES:
@@ -327,7 +320,8 @@ def _launch_fwd(
     part_ml = _f32(h, (parts, heads, 2))
     part_bias = h.new_empty((parts,), dtype=torch.float64)
     use, s, thr, keep = _dropout_args(seed, rate)
-    chosen = design or design_of(wrapper, heads, f)
+    kernel = forced or kernel_of(wrapper, heads, f,
+                                 aligned=_aligned(h, attn, out, part_acc))
     rc = entry_point(name)(
         h.data_ptr(), attn.data_ptr(), rel_bias.data_ptr(),
         csr.fwd_items.data_ptr(), csr.src.data_ptr(), csr.etype.data_ptr(),
@@ -336,15 +330,11 @@ def _launch_fwd(
         part_ml.data_ptr(), part_bias.data_ptr(), csr.fwd_num_items,
         csr.fwd_num_split, csr.fwd_item_edges, heads, f, num_rel,
         float(negative_slope), float(eps), use, s, thr, keep,
-        DESIGNS[chosen], _stream(),
+        ITEM_KERNELS[kernel], _stream(),
     )
     _raise_on(rc, name)
-    if design is None:
-        pair = (wrapper is relgat_fwd_bf16 and f % 8 == 0 and f <= 128
-                and _aligned(h, attn, out, part_acc))
-        _count(wrapper,
-               *((_items_design(chosen, f, pair),)
-                 if csr.fwd_num_items > 0 else ()),
+    if not forced:
+        _count(wrapper, *((kernel,) if csr.fwd_num_items > 0 else ()),
                *(("merge",) if csr.fwd_num_split > 0 else ()))
     return out, m, l, bias
 
@@ -526,12 +516,11 @@ def relgat_bwd_src_bf16_plain(
 
 def _launch_bwd_src(
     wrapper, h, g, attn, m, l, s_dot, gsum, csr: CSRGraph, *, seed, rate,
-    negative_slope, eps, design=None,
+    negative_slope, eps, forced=None,
 ):
-    """Launch ``wrapper``'s kernel and count the launch; a layout without
-    source rows (an empty halo buffer) launches nothing and counts
-    nothing (a ``design`` forced: see ``with_design``, counted
-    nowhere)."""
+    """Launch the kernel ``kernel_of`` picks and count the launch; a layout
+    without source rows (an empty halo buffer) launches nothing and counts
+    nothing (a kernel ``forced``: see ``with_design``, counted nowhere)."""
     name = wrapper.__name__
     n, heads, num_rel, f = check_shapes(name, h, attn, csr)
     nd = csr.num_nodes
@@ -554,13 +543,9 @@ def _launch_bwd_src(
     if n == 0:  # no source row: a grid of no blocks is not a launch
         return dh, w, b
     use, s, thr, keep = _dropout_args(seed, rate)
-    chosen = design or design_of(wrapper, heads, f)
-    loop = None  # the bf16 ring's
-    if wrapper is relgat_bwd_src_bf16 and chosen != "lanes" and f > 128:
-        loop = ("per_edge" if chosen == "ring_per_edge" else "factored"
-                if design else ring_src_loop(csr.num_edges, n, num_rel))
-    code = SRC_BF16_DESIGNS["ring_per_edge" if loop == "per_edge"
-                            else chosen]
+    kernel = forced or kernel_of(wrapper, heads, f, num_rel,
+                                 aligned=_aligned(h, g, attn, dh),
+                                 num_edges=csr.num_edges, num_src=n)
     rc = entry_point(name)(
         h.data_ptr(), g.data_ptr(), attn.data_ptr(), m.data_ptr(),
         l.data_ptr(), s_dot.data_ptr(), gsum.data_ptr(),
@@ -569,20 +554,11 @@ def _launch_bwd_src(
         csr.by_src_eid.data_ptr(), dh.data_ptr(), w.data_ptr(), b.data_ptr(),
         n, csr.bwd_num_items, csr.bwd_num_split, heads, f, num_rel,
         float(negative_slope), float(eps), use, s, thr, keep,
-        code, _stream(),
+        ITEM_KERNELS[kernel], _stream(),
     )
     _raise_on(rc, name)
-    if design is None:
-        if loop is not None:
-            wrapper.ring_loops[loop] = wrapper.ring_loops.get(loop, 0) + 1
-        pair_warps = min((heads + 1) // 2, MAX_WARPS_PER_BLOCK)
-        pair = (wrapper is relgat_bwd_src_bf16 and f % 8 == 0 and f <= 128
-                and _aligned(h, g, attn, dh)
-                and pair_warps * EDGE_TABLE_BYTES
-                + 4 * (2 * pair_warps + 1) * num_rel <= MAX_BWD_SMEM_BYTES)
-        _count(wrapper,
-               *((_items_design(chosen, f, pair),)
-                 if csr.bwd_num_items > 0 else ()),
+    if not forced:
+        _count(wrapper, *((kernel,) if csr.bwd_num_items > 0 else ()),
                *(("merge",) if csr.bwd_num_split > 0 else ()))
     return dh[:n], w[:n], b[:n]
 
@@ -674,9 +650,9 @@ def rel_tiles(design: str, n: int) -> int:
     return -(-n // (REL_TILE_ROWS if design == "tile" else REL_MMA_MIN_ROWS))
 
 
-def _launch_bwd_rel(wrapper, h, w, b, design=None):
-    """Launch ``wrapper``'s kernels and count the launch (a ``design``
-    forced: see ``with_design``, counted nowhere)."""
+def _launch_bwd_rel(wrapper, h, w, b, forced=None):
+    """Launch the kernel ``kernel_of`` picks and count the launch (a kernel
+    ``forced``: see ``with_design``, counted nowhere)."""
     name = wrapper.__name__
     n, hf = h.shape
     _, heads, num_rel = w.shape
@@ -686,10 +662,9 @@ def _launch_bwd_rel(wrapper, h, w, b, design=None):
             f"{name}: h {tuple(h.shape)}, W {tuple(w.shape)} and "
             f"B {tuple(b.shape)} do not match"
         )
-    bf16 = wrapper is relgat_bwd_rel_bf16
-    chosen = (design or design_of(wrapper, heads, f)) if bf16 else "tile"
-    tiles = rel_tiles(chosen, n)
-    bias_parts = tiles * (REL_MMA_BIAS_SLICES if chosen == "mma" else 1)
+    kernel = forced or kernel_of(wrapper, heads, f)
+    tiles = rel_tiles(kernel, n)
+    bias_parts = tiles * (REL_MMA_BIAS_SLICES if kernel == "mma" else 1)
     part_attn = _f32(h, (tiles, heads, num_rel, f))
     part_bias = _f32(h, (bias_parts, num_rel))
     dattn = _f32(h, (heads, num_rel, f))
@@ -697,12 +672,12 @@ def _launch_bwd_rel(wrapper, h, w, b, design=None):
     args = [h.data_ptr(), w.data_ptr(), b.data_ptr(), part_attn.data_ptr(),
             part_bias.data_ptr(), dattn.data_ptr(), dbias.data_ptr(),
             n, heads, f, num_rel, tiles]
-    if bf16:
-        args.append(REL_DESIGNS[chosen])
+    if wrapper is relgat_bwd_rel_bf16:
+        args.append(REL_DESIGNS[kernel])
     rc = entry_point(name)(*args, _stream())
     _raise_on(rc, name)
-    if design is None:
-        _count(wrapper, *((chosen,) if tiles > 0 else ()), "reduce")
+    if not forced:
+        _count(wrapper, *((kernel,) if tiles > 0 else ()), "reduce")
     return dattn, dbias
 
 
@@ -716,7 +691,7 @@ def relgat_bwd_rel(h, w, b):
 
 def relgat_bwd_rel_bf16(h, w, b):
     """``relgat_bwd_rel`` reading ``h`` as bf16 rows; fp32 outputs. On the
-    card the design of ``design_of``: the tensor cores (``"mma"``) or the
+    card the design of ``kernel_of``: the tensor cores (``"mma"``) or the
     SIMT tile kernel (``"tile"``)."""
     if not _on_card("relgat_bwd_rel_bf16", None, h, w, b, bf16_rows=1):
         return relgat_bwd_rel_bf16_plain(h, w, b)
@@ -727,13 +702,24 @@ relgat_bwd_rel.launches = relgat_bwd_rel_bf16.launches = 0
 relgat_bwd_rel.designs, relgat_bwd_rel_bf16.designs = {}, {}
 
 
-# csrc/relgat_common.cuh kDesignLanes, kDesignRing: the forward and src pass
-DESIGNS = {"lanes": 1, "ring": 2}
-# relgat_bwd_src_bf16's also kDesignRingPerEdge: the ring with the per-edge
-# loop, not the factored one
-SRC_BF16_DESIGNS = {**DESIGNS, "ring_per_edge": 3}
+# csrc/relgat_common.cuh kKernelLanes, kKernelRing, kKernelRingFactored,
+# kKernelPair: the kernel a forward or src pass runs over its work items
+ITEM_KERNELS = {"lanes": 1, "ring": 2, "ring_factored": 3, "pair": 4}
 # csrc/relgat_bwd.cu kRelDesignTile, kRelDesignMma: relgat_bwd_rel_bf16
 REL_DESIGNS = {"tile": 1, "mma": 2}
+# The two rings, by the loop ring_loop_counts() counts them under
+RING_LOOPS = {"ring": "per_edge", "ring_factored": "factored"}
+# The designs with_design forces, by wrapper, and the kernel each names:
+# "ring" the ring kernel (the bf16 src pass's: its factored loop, whatever
+# the graph), "ring_per_edge" its per-edge loop, "lanes" the template
+FORCED = {
+    "relgat_fwd": {"lanes": "lanes", "ring": "ring"},
+    "relgat_bwd_src": {"lanes": "lanes", "ring": "ring"},
+    "relgat_fwd_bf16": {"lanes": "lanes", "ring": "ring", "pair": "pair"},
+    "relgat_bwd_src_bf16": {"lanes": "lanes", "ring": "ring_factored",
+                            "ring_per_edge": "ring", "pair": "pair"},
+    "relgat_bwd_rel_bf16": {"tile": "tile", "mma": "mma"},
+}
 
 
 # Where each forward or src pass takes the ring kernel: ranges of
@@ -796,13 +782,13 @@ def _in_ranges(ranges, heads, feat) -> bool:
 
 
 def design_of(wrapper, heads: int, feat: int) -> str:
-    """The design a wrapper launches at ``heads`` heads of ``feat``
-    features. A forward or src pass: ``"ring"``, the ring kernel, inside
-    one of its ``RING_RANGES``, else ``"lanes"``, the one-warp-a-head
-    template (also at every F <= 128, where the pair kernels and the
-    template take the call). ``relgat_bwd_rel_bf16``: ``"mma"``, the tensor
-    cores, inside ``MMA_RANGES`` at a multiple of ``MMA_FEAT_MULTIPLE``
-    features, else ``"tile"``."""
+    """The width part of ``kernel_of``: the design a wrapper takes at
+    ``heads`` heads of ``feat`` features. A forward or src pass:
+    ``"ring"``, the ring kernel, inside one of its ``RING_RANGES`` (all past
+    128 features), else ``"lanes"``, the one-warp-a-head template.
+    ``relgat_bwd_rel_bf16``: ``"mma"``, the tensor cores, inside
+    ``MMA_RANGES`` at a multiple of ``MMA_FEAT_MULTIPLE`` features, else
+    ``"tile"``."""
     if wrapper is relgat_bwd_rel_bf16:
         return ("mma" if feat % MMA_FEAT_MULTIPLE == 0
                 and _in_ranges(MMA_RANGES, heads, feat) else "tile")
@@ -810,23 +796,44 @@ def design_of(wrapper, heads: int, feat: int) -> str:
             else "lanes")
 
 
+def kernel_of(wrapper, heads: int, feat: int, num_rel: int = 0, *,
+              aligned: bool = True, num_edges: int = 0,
+              num_src: int = 0) -> str:
+    """The kernel a call of ``wrapper`` launches, the one rule the C entry
+    points obey: for a bf16 forward or src pass ``"pair"`` at ``feat`` <=
+    128, a multiple of 8, where the rows, attn and outputs are 16-byte
+    ``aligned`` and the pair src pass's shared memory holds ``num_rel``;
+    else ``design_of``'s, its ring for the bf16 src pass ``"ring_factored"``
+    on a graph of ``num_edges`` edges from ``num_src`` rows dense enough
+    for ``ring_src_loop``; ``"tile"`` for ``relgat_bwd_rel``."""
+    if wrapper is relgat_bwd_rel:
+        return "tile"
+    if (wrapper in (relgat_fwd_bf16, relgat_bwd_src_bf16) and aligned
+            and feat % 8 == 0 and feat <= 128):
+        warps = min((heads + 1) // 2, MAX_WARPS_PER_BLOCK)
+        if (wrapper is relgat_fwd_bf16 or warps * EDGE_TABLE_BYTES
+                + 4 * (2 * warps + 1) * num_rel <= MAX_BWD_SMEM_BYTES):
+            return "pair"
+    design = design_of(wrapper, heads, feat)
+    if (design == "ring" and wrapper is relgat_bwd_src_bf16
+            and ring_src_loop(num_edges, num_src, num_rel) == "factored"):
+        return "ring_factored"
+    return design
+
+
 def designs_of(wrapper) -> Tuple[str, ...]:
-    """The designs ``with_design`` takes for ``wrapper``."""
-    return tuple(REL_DESIGNS if wrapper is relgat_bwd_rel_bf16
-                 else SRC_BF16_DESIGNS if wrapper is relgat_bwd_src_bf16
-                 else DESIGNS)
+    """The designs ``with_design`` takes for ``wrapper`` (``FORCED``)."""
+    return tuple(FORCED.get(wrapper.__name__, ()))
 
 
 def with_design(wrapper, design, *args, **kw):
-    """``wrapper`` on CUDA tensors through one of its designs, whichever
-    ``design_of`` would take: a forward or src-pass wrapper (fp32 or bf16)
-    at heads wider than 128 features through ``"ring"``, the ring kernel
-    (``relgat_bwd_src_bf16``: its factored loop, whatever the graph), or
-    ``"lanes"``, the one-warp-a-head template, and ``relgat_bwd_src_bf16``
-    also through ``"ring_per_edge"``, the ring with the per-edge loop;
-    ``relgat_bwd_rel_bf16`` through ``"mma"`` or ``"tile"``. For timing each design and holding it
-    to the plain version; its launches count nowhere. The arguments after
-    ``design`` are ``wrapper``'s."""
+    """``wrapper`` on CUDA tensors through the kernel ``FORCED`` names for
+    ``design`` (``designs_of``), whichever ``kernel_of`` would take: for
+    timing each kernel and holding it to the plain version; its launches
+    count nowhere. A kernel whose conditions the call fails (a ring at 128
+    features or fewer, the pair kernel past them or on rows not 16-byte
+    aligned) is refused by its entry point, a RuntimeError. The arguments
+    after ``design`` are ``wrapper``'s."""
     launch = {relgat_fwd: _launch_fwd, relgat_fwd_bf16: _launch_fwd,
               relgat_bwd_src: _launch_bwd_src,
               relgat_bwd_src_bf16: _launch_bwd_src,
@@ -840,7 +847,8 @@ def with_design(wrapper, design, *args, **kw):
                          "card only")
     if design not in designs_of(wrapper):
         raise ValueError(f"{wrapper.__name__}: no design {design!r}")
-    return launch(wrapper, *args, design=design, **kw)
+    return launch(wrapper, *args, forced=FORCED[wrapper.__name__][design],
+                  **kw)
 
 
 FP32_KERNELS = (relgat_fwd, relgat_bwd_src, relgat_bwd_rel)

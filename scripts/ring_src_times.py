@@ -118,10 +118,15 @@ def traffic_lines(args, root, name, card):
             torch.cuda.synchronize()
         design = kern.design_of(kern.relgat_bwd_src_bf16, heads, feat)
         loops, ring_loop = {}, None
+        if hasattr(kern, "kernel_of"):
+            ring_loop = kern.RING_LOOPS.get(kern.kernel_of(
+                kern.relgat_bwd_src_bf16, heads, feat, num_rel,
+                num_edges=csr.num_edges, num_src=csr.num_src))
+        elif hasattr(kern, "ring_src_loop") and design == "ring":
+            # a checkout whose C entry points pick the loop from the design
+            ring_loop = kern.ring_src_loop(csr.num_edges, csr.num_src,
+                                           num_rel)
         if hasattr(kern, "ring_src_loop") and feat > 128:
-            if design == "ring":
-                ring_loop = kern.ring_src_loop(csr.num_edges,
-                                               graph.num_nodes, num_rel)
             for loop, forced in (("factored", "ring"),
                                  ("per_edge", "ring_per_edge")):
                 loops[loop] = cs.cuda_ms(

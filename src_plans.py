@@ -27,8 +27,8 @@ plan rebuilt at each item size (``data.csr.with_bwd_plan``; ``none``: one
 item a row, as before the plan), ``--passes`` times over all sizes, with
 the plan's split rows and partial slots, and its outputs' largest distance
 from the unsplit plan's (max|a-b| / max|b|; the sums differ only in their
-order). Widths past 128 features run the design the dispatch takes (the
-ring kernel at 12 x 300).
+order). Each row names the kernel the dispatch takes
+(``ops.cuda.kernel_of``: the ring kernel at 12 x 300).
 
 One JSON line a (graph, shape, variant, pass, size), then a ``summary``
 line: each size's worst time over every graph, shape, variant and pass
@@ -108,8 +108,9 @@ def case_rows(name, csr, n, heads, feat, sizes, passes, reps, card):
                        "work_items": plan.bwd_num_items,
                        "max_out_degree": int(outdeg.max()),
                        "max_rel_err_vs_unsplit": err,
-                       "design": (cs.kern.design_of(src_pass, heads, feat)
-                                  if feat > 128 else None),
+                       "kernel": cs.kern.kernel_of(
+                           src_pass, heads, feat, t["num_rel"],
+                           num_edges=plan.num_edges, num_src=plan.num_src),
                        "card": card}
                 print(json.dumps(row), flush=True)
                 rows.append(row)

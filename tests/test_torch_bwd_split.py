@@ -253,5 +253,115 @@ def test_ring_src_loop_follows_the_density(edges, rows, rels, loop):
     that wrapper has the per-edge ring as a design of its own."""
     assert kern.ring_src_loop(edges, rows, rels) == loop
     assert kern.designs_of(kern.relgat_bwd_src_bf16) == (
-        "lanes", "ring", "ring_per_edge")
-    assert kern.designs_of(kern.relgat_bwd_src) == tuple(kern.DESIGNS)
+        "lanes", "ring", "ring_per_edge", "pair")
+    assert kern.designs_of(kern.relgat_bwd_src) == ("lanes", "ring")
+
+
+RULE_ROWS = 100_008  # zipf-inv-10m's source rows
+SPARSE = 1_000_000   # sparse-1m's edges: the per-edge loop at every R here
+
+
+@pytest.mark.parametrize("wrapper,heads,feat,num_rel,offset,edges,kernel", [
+    # the bf16 pair kernels at small-bf16's 16 x 128, not in fp32
+    ("relgat_fwd_bf16", 16, 128, 40, 0, SPARSE, "pair"),
+    ("relgat_bwd_src_bf16", 16, 128, 40, 0, SPARSE, "pair"),
+    ("relgat_fwd", 16, 128, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src", 16, 128, 40, 0, SPARSE, "lanes"),
+    ("relgat_fwd_bf16", 3, 40, 7, 0, SPARSE, "pair"),
+    ("relgat_fwd_bf16", 4, 28, 7, 0, SPARSE, "lanes"),  # not a multiple of 8
+    # h a view one bf16 value past a 16-byte boundary: the template
+    ("relgat_fwd_bf16", 16, 128, 40, 1, SPARSE, "lanes"),
+    ("relgat_bwd_src_bf16", 16, 128, 40, 1, SPARSE, "lanes"),
+    # the pair src pass's shared memory: 8 warps of 16 heads hold R <= 602
+    ("relgat_bwd_src_bf16", 16, 128, 602, 0, SPARSE, "pair"),
+    ("relgat_bwd_src_bf16", 16, 128, 603, 0, SPARSE, "lanes"),
+    ("relgat_fwd_bf16", 16, 128, 603, 0, SPARSE, "pair"),
+    # ring against lanes at both ends of each RING_RANGES entry
+    ("relgat_fwd", 4, 128, 40, 0, SPARSE, "lanes"),
+    ("relgat_fwd", 4, 129, 40, 0, SPARSE, "ring"),
+    ("relgat_fwd", 4, 152, 40, 0, SPARSE, "ring"),
+    ("relgat_fwd", 4, 153, 40, 0, SPARSE, "lanes"),
+    ("relgat_fwd", 3, 129, 40, 0, SPARSE, "lanes"),
+    ("relgat_fwd", 4, 256, 40, 0, SPARSE, "lanes"),
+    ("relgat_fwd", 4, 257, 40, 0, SPARSE, "ring"),
+    ("relgat_fwd", 4, 448, 40, 0, SPARSE, "ring"),
+    ("relgat_fwd", 4, 449, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src", 4, 128, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src", 4, 129, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src", 4, 216, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src", 4, 217, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src", 4, 247, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src", 4, 248, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src", 4, 520, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src", 4, 521, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src", 3, 300, 40, 0, SPARSE, "lanes"),
+    ("relgat_fwd_bf16", 1, 256, 40, 0, SPARSE, "lanes"),
+    ("relgat_fwd_bf16", 1, 257, 40, 0, SPARSE, "ring"),
+    ("relgat_fwd_bf16", 1, 368, 40, 0, SPARSE, "ring"),
+    ("relgat_fwd_bf16", 1, 369, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src_bf16", 1, 128, 40, 1, SPARSE, "lanes"),
+    ("relgat_bwd_src_bf16", 1, 129, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src_bf16", 1, 320, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src_bf16", 3, 321, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src_bf16", 4, 321, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src_bf16", 4, 480, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src_bf16", 4, 481, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src_bf16", 1, 512, 40, 0, SPARSE, "lanes"),
+    ("relgat_bwd_src_bf16", 1, 513, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src_bf16", 1, 1024, 40, 0, SPARSE, "ring"),
+    # the bf16 ring's loop on either side of ring_src_loop (R = 100: the
+    # factored loop from ~3.8M edges on these rows); the fp32 ring has one
+    ("relgat_bwd_src_bf16", 12, 256, 100, 0, 10_000_000, "ring_factored"),
+    ("relgat_bwd_src_bf16", 12, 256, 100, 0, 3_900_000, "ring_factored"),
+    ("relgat_bwd_src_bf16", 12, 256, 100, 0, 3_700_000, "ring"),
+    ("relgat_bwd_src_bf16", 12, 300, 40, 0, SPARSE, "ring"),
+    ("relgat_bwd_src", 12, 300, 100, 0, 10_000_000, "ring"),
+    ("relgat_fwd_bf16", 12, 256, 100, 0, 10_000_000, "lanes"),
+    # the relation reduction: mma against tile
+    ("relgat_bwd_rel_bf16", 12, 256, 100, 0, SPARSE, "mma"),
+    ("relgat_bwd_rel_bf16", 16, 128, 40, 0, SPARSE, "mma"),
+    ("relgat_bwd_rel_bf16", 3, 301, 40, 0, SPARSE, "tile"),
+    ("relgat_bwd_rel_bf16", 1, 128, 40, 0, SPARSE, "tile"),
+    ("relgat_bwd_rel", 12, 256, 100, 0, SPARSE, "tile"),
+])
+def test_one_rule_picks_every_kernel(wrapper, heads, feat, num_rel, offset,
+                                     edges, kernel):
+    """``kernel_of`` names the kernel of every launch from what the call
+    can observe: the wrapper, heads, F and R, whether its rows are 16-byte
+    aligned (here h's first row, a view ``offset`` bf16 values in), and the
+    graph's density, on ``RULE_ROWS`` source rows. The C entry points
+    launch that kernel or refuse it."""
+    h = torch.empty(heads * feat + offset, dtype=torch.bfloat16)[offset:]
+    aligned = kern.fused._aligned(h)
+    assert aligned == (offset == 0)
+    assert kern.kernel_of(getattr(kern, wrapper), heads, feat, num_rel,
+                          aligned=aligned, num_edges=edges,
+                          num_src=RULE_ROWS) == kernel
+
+
+@pytest.mark.parametrize("wrapper,kernel,design,loops", [
+    ("relgat_bwd_src_bf16", "ring_factored", "ring", {"factored": 1}),
+    ("relgat_bwd_src_bf16", "ring", "ring", {"per_edge": 1}),
+    ("relgat_bwd_src_bf16", "pair", "pair", {}),
+    ("relgat_bwd_src", "ring", "ring", {}),
+    ("relgat_fwd_bf16", "ring", "ring", {}),
+    ("relgat_fwd", "lanes", "lanes", {}),
+    ("relgat_bwd_rel_bf16", "mma", "mma", {}),
+])
+def test_the_counters_read_the_kernel_launched(wrapper, kernel, design,
+                                               loops):
+    """A launch counts the kernel ``kernel_of`` named: one launch of the
+    wrapper, one of its design (both rings count as ``"ring"``), and for
+    the bf16 src pass's ring one of its loop."""
+    w = getattr(kern, wrapper)
+    kern.reset_design_counts()
+    before = w.launches
+    try:
+        kern.fused._count(w, kernel, "merge")
+        assert w.launches == before + 1
+        assert kern.design_counts() == {f"{wrapper}/{design}": 1,
+                                        f"{wrapper}/merge": 1}
+        assert kern.ring_loop_counts() == loops
+    finally:
+        w.launches = before
+        kern.reset_design_counts()
