@@ -61,9 +61,10 @@ Phases, in order; any failure exits non-zero:
               weights from a seed: 3 warm-up and 10 timed steps through the
               kernels. Each kernel's launch count must equal layers x steps,
               and each of the head's GELU -> LayerNorm kernels
-              (gelu_layer_norm_fwd, _bwd) (projection_layers - 1) x steps
-              (also in train_bf16 and train_fp16); the export after it
-              launches the head's forward once.
+              (gelu_layer_norm_fwd, _bwd) (projection_layers - 1) x steps,
+              and each of the GAT layers' tail kernels (layer_tail_fwd,
+              _bwd) layers x steps (also in train_bf16 and train_fp16);
+              the export after it launches the head's forward once.
               Then torch.profiler over two more steps: device time by
               kernel group and the device's idle share (diagnostic).
    train_bf16 - the same model, graph, weights and batches in the bf16
@@ -144,8 +145,15 @@ Phases, in order; any failure exits non-zero:
               largest value, the same bits twice, and timed beside their
               bytes bound, the plain composition (plain_ms) and
               F.layer_norm(F.gelu(y)) (library_ms; for the backward, each
-              route's backward alone on a kept graph).
-7. zipf     - the same size with in-degree on hubs (dst drawn with
+              route's backward alone on a kept graph). Then the GAT
+              layers' tail kernels (layer_tail_fwd, _bwd) at TRAIN's hidden
+              layer (100,000 rows x 2,048, its dropout rate; launches from
+              train_bf16), in bf16, fp32 and fp16 out with the ELU on and
+              off: the same bits as the eager chain (layer_tail_plain and
+              its autograd) on the same inputs and the same bits twice,
+              timed as the bf16 hidden layer runs them (bf16 out, ELU on)
+              beside their bytes bound and the eager chain (plain_ms).
+7. zipf    - the same size with in-degree on hubs (dst drawn with
               p ~ 1/rank, bench.py's zipf class; the heaviest row has ~83k
               in-edges): 3 warm-up and 5 timed train steps, and relgat_fwd
               timed on that graph and held to its float64 plain version on
@@ -327,6 +335,7 @@ from relgat_projector_tpu_torch.models.scorer import l2_normalize
 from relgat_projector_tpu_torch.ops import cuda as kern
 from relgat_projector_tpu_torch.ops import propagate
 from relgat_projector_tpu_torch.ops.cuda import gelu_layernorm as gln
+from relgat_projector_tpu_torch.ops.cuda import layer_tail as ltail
 from relgat_projector_tpu_torch.ops.cuda.build import build_all
 from relgat_projector_tpu_torch.ops.propagate import relgat_propagate_kernels
 from relgat_projector_tpu_torch.parallel.halo import (
@@ -462,6 +471,12 @@ HEAD_CU = "relgat_projector_tpu_torch/csrc/gelu_layernorm.cu"
 HEAD_REPLACES = "none: the JAX package leaves the block to XLA"
 HEAD_KERNELS = ("gelu_layer_norm_fwd", "gelu_layer_norm_bwd")
 HEAD_CHUNK = 25_000
+# The GAT layers' tail kernels (ops/cuda/layer_tail.py): the source and what
+# they replace.
+TAIL_CU = "relgat_projector_tpu_torch/csrc/layer_tail.cu"
+TAIL_REPLACES = ("none: the JAX package leaves the output dropout and ELU "
+                 "to XLA")
+TAIL_KERNELS = ("layer_tail_fwd", "layer_tail_bwd")
 # The kernels that read one H*F row per edge (h[src], g[dst]).
 ROW_GATHERS = ("relgat_fwd", "relgat_bwd_src", "relgat_fwd_bf16",
                "relgat_bwd_src_bf16")
@@ -1101,7 +1116,8 @@ def edge_batches(src, et, dst, picks):
 def train_steps(node_emb, graph, batches, warmup, **model):
     """The production model (``model`` overriding its config) from a seed
     and its Adam state, trained on ``batches``: ``warmup`` steps, then the
-    rest timed. The launch counts (the head's in ``gln.head_counts()``)
+    rest timed. The launch counts (the head's in ``gln.head_counts()``, the
+    layers' tail in ``ltail.tail_counts()``)
     and the peak memory cover all of them; no
     reference to an earlier state outlives its step. Returns (model config,
     train step, state, metrics, seconds per timed step, launch counts, the
@@ -1119,6 +1135,7 @@ def train_steps(node_emb, graph, batches, warmup, **model):
     torch.cuda.reset_peak_memory_stats()
     kern.reset_launch_counts()
     gln.reset_head_counts()
+    ltail.reset_tail_counts()
     first_loss = None
     for batch in batches[:warmup]:
         state, metrics = step(state, node_emb, graph, *batch, weight)
@@ -1159,6 +1176,18 @@ def check_head(mcfg, steps, what):
     return head
 
 
+def check_tail(mcfg, steps, what):
+    """The GAT layers' tail kernels since ``train_steps`` zeroed their
+    counters: each once per layer per step (the output dropout is on).
+    Returns them."""
+    tail = ltail.tail_counts()
+    want = mcfg.gat_num_layers * steps
+    check(tail == {k: want for k in TAIL_KERNELS},
+          f"{what}: the layers' tail kernels launched {tail}, expected "
+          f"{want} each")
+    return tail
+
+
 def phase_train(card, out_lines, out_dir):
     t = TRAIN
     rng = np.random.default_rng(SEED)
@@ -1175,6 +1204,7 @@ def phase_train(card, out_lines, out_dir):
     mcfg, step, state, metrics, step_s, counts, first_loss = train_steps(
         node_emb, graph, batches, t["warmup_steps"])
     head = check_head(mcfg, len(batches), "train")
+    check_tail(mcfg, len(batches), "train")
     record = {
         "phase": "train", "card": card,
         "nodes": t["num_nodes"], "edges": t["num_edges"],
@@ -1349,6 +1379,7 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
     mcfg, step, state, metrics, step_s, counts, first_loss = train_steps(
         node_emb, graph, batches, t["warmup_steps"], **BF16_MODE)
     head = check_head(mcfg, len(batches), "train_bf16")
+    tail = check_tail(mcfg, len(batches), "train_bf16")
     loss_rel = abs(first_loss - fp32_first_loss) / abs(fp32_first_loss)
     peak = torch.cuda.max_memory_allocated()
     emit({"phase": "train_bf16", "card": card, **BF16_MODE,
@@ -1363,7 +1394,8 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
           "first_step_loss": first_loss,
           "first_step_loss_fp32": fp32_first_loss,
           "first_step_loss_rel_diff": loss_rel, "tol": TRAIN_LOSS_TOL,
-          "launches": counts, "head_launches": head}, out_lines)
+          "launches": counts, "head_launches": head,
+          "tail_launches": tail}, out_lines)
     check_train(metrics, counts,
                 expected_launches(True, t["layers"] * len(batches)),
                 "train_bf16")
@@ -1375,7 +1407,7 @@ def phase_train_bf16(card, out_lines, out_dir, graph, node_emb, batches,
                   step_s * 1e3, step_matmul_flops(graph.num_nodes), card,
                   out_lines, out_dir, phase="profile_bf16")
     return counts, {"step_ms": step_s * 1e3, "peak": peak,
-                    "head_launches": head}
+                    "head_launches": head, "tail_launches": tail}
 
 
 def phase_train_default(card, out_lines, graph, node_emb, batches,
@@ -1650,6 +1682,7 @@ def phase_train_fp16(card, out_lines, graph, node_emb, batches,
         node_emb, graph, batches[:c["steps"]], c["warmup_steps"],
         compute_dtype=c["compute_dtype"])
     head = check_head(mcfg, c["steps"], "train_fp16")
+    check_tail(mcfg, c["steps"], "train_fp16")
     peak = torch.cuda.max_memory_allocated()
     loss_rel = abs(first_loss - fp32_first_loss) / abs(fp32_first_loss)
     dtypes = sorted({str(x.dtype) for x in tree_leaves(state.params)})
@@ -2107,7 +2140,9 @@ def phase_kernels(graph, counts, default_counts, doc_counts, card,
           "kernel parity at the train shapes failed")
     del h, g, idx, adj
     torch.cuda.empty_cache()
-    return rows + head_block_rows(counts, card, out_lines)
+    rows += head_block_rows(counts, card, out_lines)
+    torch.cuda.empty_cache()
+    return rows + layer_tail_rows(counts, card, out_lines)
 
 
 def head_block_reference(y, scale, bias, dz):
@@ -2224,6 +2259,97 @@ def head_block_rows(counts, card, out_lines):
                   f"{name}: {out} is {x['max_rel_err']} from the float64 "
                   f"plain composition, past {x['bar']}")
         rows.append(row)
+    return rows
+
+
+def layer_tail_rows(counts, card, out_lines):
+    """The kernels line's rows of the GAT layers' tail kernels at
+    ``TRAIN``'s hidden layer (every node row, H*F wide, its output dropout
+    rate), in each output type the train phases write (bf16, fp32, fp16)
+    with the ELU on and off: each kernel's output the same bits as the
+    eager chain's (``layer_tail_plain`` and its autograd) on the same
+    inputs, and the same bits twice; timed as the bf16 mode's hidden layer
+    runs them (bf16 out, the ELU on) beside their bytes bound and the eager
+    chain."""
+    t = TRAIN
+    n, d = t["num_nodes"], t["heads"] * t["feat"]
+    rate = production_configs()[0].dropout
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    agg = torch.randn((n, d), generator=gen, device=DEVICE)
+    keep = torch.empty_like(agg).bernoulli_(1.0 - rate, generator=gen)
+    g32 = torch.randn((n, d), generator=gen, device=DEVICE)
+    leaf = agg.detach().requires_grad_()
+    bits = {}
+    errs = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0}
+            for name in TAIL_KERNELS}
+    for out_dtype in (torch.bfloat16, torch.float32, torch.float16):
+        g = g32.to(out_dtype)
+        for elu in (True, False):
+            out = ltail.layer_tail_fwd(agg, keep, rate, elu, out_dtype)
+            dagg = ltail.layer_tail_bwd(g, keep, agg, rate, elu)
+            plain = ltail.layer_tail_plain(leaf, keep, rate, elu, out_dtype)
+            (plain_dagg,) = torch.autograd.grad(plain, leaf, g)
+            case = f"{str(out_dtype)[6:]}{'_elu' if elu else ''}"
+            bits[case] = {
+                "layer_tail_fwd": torch.equal(out, plain.detach()),
+                "layer_tail_bwd": torch.equal(dagg, plain_dagg),
+                "same_bits_twice": (
+                    torch.equal(out, ltail.layer_tail_fwd(
+                        agg, keep, rate, elu, out_dtype))
+                    and torch.equal(dagg, ltail.layer_tail_bwd(
+                        g, keep, agg, rate, elu)))}
+            for name, got, want in (("layer_tail_fwd", out, plain.detach()),
+                                    ("layer_tail_bwd", dagg, plain_dagg)):
+                e = errs[name]
+                e["max_abs_err"] = max(e["max_abs_err"], abs_err(got, want))
+                e["max_rel_err"] = max(e["max_rel_err"], rel_err(got, want))
+            del out, dagg, plain, plain_dagg
+    same_bits = all(b["same_bits_twice"] for b in bits.values())
+    check(same_bits,
+          f"the layers' tail kernels gave other bits in a second call: {bits}")
+
+    bf16 = torch.bfloat16
+    g = g32.to(bf16)
+    del g32
+    with torch.no_grad():
+        plain_fwd_ms = cuda_ms(lambda: ltail.layer_tail_plain(
+            leaf, keep, rate, True, bf16), reps=20, warmup=2)
+    plain = ltail.layer_tail_plain(leaf, keep, rate, True, bf16)
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        plain, leaf, g, retain_graph=True), reps=20, warmup=2)
+    del plain
+    ms = {"layer_tail_fwd": cuda_ms(
+              lambda: ltail.layer_tail_fwd(agg, keep, rate, True, bf16),
+              reps=20, warmup=2),
+          "layer_tail_bwd": cuda_ms(
+              lambda: ltail.layer_tail_bwd(g, keep, agg, rate, True),
+              reps=20, warmup=2)}
+    plain_ms = {"layer_tail_fwd": plain_fwd_ms,
+                "layer_tail_bwd": plain_bwd_ms}
+    # bytes: agg and keep fp32 in, the bf16 output out; the bf16 cotangent,
+    # keep and agg (the ELU's input) in, dagg fp32 out
+    nbytes = {"layer_tail_fwd": (4 + 4 + 2) * n * d,
+              "layer_tail_bwd": (2 + 4 + 4 + 4) * n * d}
+    rows = []
+    for name in TAIL_KERNELS:
+        equal = {case: b[name] for case, b in bits.items()}
+        bound = nbytes[name] / PEAK_BYTES_PER_S * 1e3
+        row = {
+            "name": name, "graph": None, "rows": n, "width": d,
+            "route": "cuda", "source": TAIL_CU, "replaces": TAIL_REPLACES,
+            "launches": counts.get(name),
+            **errs[name],
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+            "reference": "the eager chain, bit for bit", "bytes": nbytes[name],
+            "flops": None, "card": card, "same_bits_twice": same_bits,
+        }
+        emit({"phase": "kernel", **row, "roofline": bound / ms[name],
+              "bits_equal_eager": equal}, out_lines)
+        check(all(equal.values()),
+              f"{name}: other bits than the eager chain's in {equal}")
+        rows.append(row)
+    del agg, keep, leaf, g
     return rows
 
 
@@ -3974,7 +4100,8 @@ def main(argv=None) -> int:
                             num_rel=TRAIN["num_rel"], csr=True, device=DEVICE)
         # No main path runs here, so no launches were counted.
         kernels = phase_kernels(graph,
-                                {k: None for k in [*KERNELS, *HEAD_KERNELS]},
+                                {k: None for k in [*KERNELS, *HEAD_KERNELS,
+                                                   *TAIL_KERNELS]},
                                 None, None, card, out_lines)
     else:
         worst = phase_parity(card, out_lines)
@@ -4010,6 +4137,7 @@ def main(argv=None) -> int:
         launches = {k: counts[k] for k in VARIANTS[False]}
         launches.update({k: counts_bf16[k] for k in VARIANTS[True]})
         launches.update(bf16_record["head_launches"])
+        launches.update(bf16_record["tail_launches"])
         kernels = phase_kernels(graph, launches, default_counts, doc_counts,
                                 card, out_lines) + dense_rows
         del graph

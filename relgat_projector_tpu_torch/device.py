@@ -41,6 +41,14 @@ def set_matmul_precision() -> None:
 HALF_TYPES = (torch.bfloat16, torch.float16)
 
 
+def operand_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    """The type a producer writes a ``compute_matmul`` operand in, so that
+    the product casts nothing: a bf16 or fp16 ``compute_dtype``, else fp32
+    (the fp32 product's type, and the one a float8, complex or integer
+    product converts from)."""
+    return compute_dtype if compute_dtype in HALF_TYPES else torch.float32
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype):
     """The product of two matrices of one low-precision float type (or,
     in a float8 backward, of the fp32 cotangent and a widened float8

@@ -14,6 +14,10 @@ Under head tensor parallelism (a halo shard on a grid whose ``model`` axis
 ``[rows, H/M * F]`` outputs into ``[rows, H * F]`` before the output
 dropout; the join's backward sums the cotangents over the line and keeps
 the rank's columns (``parallel/mesh.py:gather_blocks``).
+
+The layer ends in its tail (``ops/cuda/layer_tail.py``): the output dropout,
+the ELU where another layer follows, and the rounding to the operand type of
+the product that reads the output next, one pass each way on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from relgat_projector_tpu_torch.data.graph import GraphData
 from relgat_projector_tpu_torch.device import compute_matmul
 from relgat_projector_tpu_torch.models.initializers import xavier_uniform
+from relgat_projector_tpu_torch.ops.cuda.layer_tail import layer_tail
 from relgat_projector_tpu_torch.ops.relgat_ops import relgat_propagate
 from relgat_projector_tpu_torch.parallel.mesh import gather_blocks
 from relgat_projector_tpu_torch.utils.profiling import span
@@ -94,12 +99,17 @@ def apply_relgat_layer(
     use_pallas: bool = False,
     compute_dtype: torch.dtype = torch.float32,
     kernel_precision: str = "highest",
+    elu: bool = False,
+    out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """One message-passing step; returns ``[N, heads * out_dim]``. The
     attention dropout runs when ``dropout_seed`` is given and the output
-    dropout when ``keep`` is (``draw_layer_randomness``). Parameters of any
-    storage type enter as JAX promotes them: ``proj`` cast to
-    ``compute_dtype``, ``attn`` widened to fp32, ``rel_bias`` as stored."""
+    dropout when ``keep`` is (``draw_layer_randomness``); then the ELU where
+    ``elu`` (another layer follows), and the output is written in
+    ``out_dtype`` (the next product's operand type): the three in one
+    pass on the card (``layer_tail``). Parameters of any storage type enter
+    as JAX promotes them: ``proj`` cast to ``compute_dtype``, ``attn``
+    widened to fp32, ``rel_bias`` as stored."""
     proj, attn = params["proj"], params["attn"]
     grid = getattr(graph.halo, "grid", None)
     if grid is not None and grid.model > 1:
@@ -134,7 +144,6 @@ def apply_relgat_layer(
         out = gather_blocks(out, grid.model_group, grid.model_index,
                             grid.backend, dim=1)
 
-    # Output dropout on the concatenated heads (reference ``layer.py:322``).
-    if keep is not None:
-        out = out * keep / (1.0 - dropout_rate)
-    return out
+    # Output dropout on the concatenated heads (reference ``layer.py:322``),
+    # then the ELU between layers and the next product's rounding.
+    return layer_tail(out, keep, dropout_rate, elu=elu, out_dtype=out_dtype)

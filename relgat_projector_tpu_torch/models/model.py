@@ -28,13 +28,13 @@ import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from relgat_projector_tpu_torch.config import Defaults, ModelConfig, torch_dtype
 from relgat_projector_tpu_torch.data.graph import GraphData
 from relgat_projector_tpu_torch.device import (
     DeviceLike,
+    operand_dtype,
     resolve_device,
     set_matmul_precision,
 )
@@ -46,6 +46,7 @@ from relgat_projector_tpu_torch.models.layer import (
 )
 from relgat_projector_tpu_torch.models.projection import (
     apply_projection_head,
+    head_operand,
     init_projection_head,
 )
 from relgat_projector_tpu_torch.models.state_dict import (
@@ -116,7 +117,13 @@ def single_gat_step(
     num_layers = cfg.gat_num_layers
     width = cfg.gat_concat_dim
 
-    def layer_fn(layer_params, x_in, seed, keep):
+    # Each layer's output is written in the type of the product that reads
+    # it next: the next layer's projection, or the head (fp32 without one).
+    hidden_out = operand_dtype(compute_dtype)
+    last_out = (head_operand(params["projection"], compute_dtype)
+                if cfg.project_to_input_size else torch.float32)
+
+    def layer_fn(layer_params, x_in, seed, keep, last):
         return apply_relgat_layer(
             layer_params, x_in, graph,
             dropout_rate=cfg.dropout,
@@ -126,6 +133,8 @@ def single_gat_step(
             use_pallas=cfg.use_pallas,
             compute_dtype=compute_dtype,
             kernel_precision=cfg.kernel_precision,
+            elu=not last,
+            out_dtype=last_out if last else hidden_out,
         )
 
     rows = None
@@ -143,17 +152,16 @@ def single_gat_step(
             )
             if rows is not None and keep is not None:
                 keep = keep[rows[1]:rows[2]]
+            last = li == num_layers - 1
             if cfg.remat and torch.is_grad_enabled():
                 # preserve_rng_state would save and restore the default
                 # generators, which the layer does not draw from.
                 x = checkpoint(
-                    layer_fn, params["layers"][li], x, seed, keep,
+                    layer_fn, params["layers"][li], x, seed, keep, last,
                     use_reentrant=False, preserve_rng_state=False,
                 )
             else:
-                x = layer_fn(params["layers"][li], x, seed, keep)
-            if li < num_layers - 1:
-                x = F.elu(x)
+                x = layer_fn(params["layers"][li], x, seed, keep, last)
     if cfg.project_to_input_size:
         x = apply_projection_head(
             params["projection"], x, dropout_rate=cfg.projection_dropout,

@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from relgat_projector_tpu_torch.device import HALF_TYPES, compute_matmul
+from relgat_projector_tpu_torch.device import compute_matmul, operand_dtype
 from relgat_projector_tpu_torch.models.initializers import torch_linear_uniform
 from relgat_projector_tpu_torch.ops.cuda.gelu_layernorm import gelu_layer_norm
 from relgat_projector_tpu_torch.utils.profiling import span
@@ -63,6 +63,13 @@ def init_projection_head(
     }
 
 
+def head_operand(params: Dict[str, list],
+                 compute_dtype: torch.dtype) -> torch.dtype:
+    """The type the head reads its input in: its first linear's operand
+    type, or fp32 where it has no linear (the identity)."""
+    return operand_dtype(compute_dtype) if params["linears"] else torch.float32
+
+
 def apply_projection_head(
     params: Dict[str, list],
     x: torch.Tensor,
@@ -78,8 +85,7 @@ def apply_projection_head(
     is drawn for all of them and sliced."""
     with span("relgat/head"):
         n_ln = len(params["ln_scale"])
-        operand = (compute_dtype if compute_dtype in HALF_TYPES
-                   else torch.float32)
+        operand = operand_dtype(compute_dtype)
         y = x
         for i, w in enumerate(params["linears"]):
             y = compute_matmul(y, w, compute_dtype)

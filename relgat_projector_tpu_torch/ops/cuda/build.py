@@ -21,7 +21,7 @@ from typing import Dict
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("relgat_fwd", "relgat_bwd", "gelu_layernorm")
+SOURCES = ("relgat_fwd", "relgat_bwd", "gelu_layernorm", "layer_tail")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -33,6 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # C signatures of the entry points (csrc/*.cu); each returns cudaGetLastError.
 # A bf16 variant takes the same arguments, its h (and g) pointing at bf16;
 # relgat_bwd_rel_bf16 also its design.
@@ -42,6 +44,8 @@ _BWD_REL = [_P] * 7 + [_I] * 5 + [_P]
 _BWD_REL_BF16 = [_P] * 7 + [_I] * 6 + [_P]  # and the design
 _GELU_LN_FWD = [_P] * 6 + [_I] * 4 + [_P]
 _GELU_LN_BWD = [_P] * 9 + [_I] * 4 + [_P]
+_TAIL_FWD = [_P] * 3 + [_L, _D] + [_I] * 3 + [_P]
+_TAIL_BWD = [_P] * 4 + [_L, _D] + [_I] * 3 + [_P]
 SIGNATURES = {
     "relgat_fwd": ("relgat_fwd", _FWD),
     "relgat_fwd_bf16": ("relgat_fwd", _FWD),
@@ -51,6 +55,8 @@ SIGNATURES = {
     "relgat_bwd_rel_bf16": ("relgat_bwd", _BWD_REL_BF16),
     "gelu_ln_fwd": ("gelu_layernorm", _GELU_LN_FWD),
     "gelu_ln_bwd": ("gelu_layernorm", _GELU_LN_BWD),
+    "layer_tail_fwd": ("layer_tail", _TAIL_FWD),
+    "layer_tail_bwd": ("layer_tail", _TAIL_BWD),
 }
 
 _lock = threading.Lock()

@@ -17,8 +17,9 @@ against the harness's groups, and, where the port has them, the head's
 fused-block launches a window step (``head_counts`` of
 ``ops/cuda/gelu_layernorm.py``) and the propagate's kernel launches a
 window step by wrapper and design (``design_counts`` of
-``ops/cuda/fused.py``), and the bf16 ring src pass's launches a window
-step by loop (``ring_loop_counts``). ``--root`` imports the port and the
+``ops/cuda/fused.py``), the bf16 ring src pass's launches a window
+step by loop (``ring_loop_counts``), and the GAT layers' tail launches a
+window step (``tail_counts`` of ``ops/cuda/layer_tail.py``). ``--root`` imports the port and the
 benchmark from another checkout (to time two versions side by side);
 ``--out`` also writes the line to ``DIR/<cell>.<seed>.json``.
 Needs a CUDA card.
@@ -138,16 +139,25 @@ def main(argv=None) -> int:
         from relgat_projector_tpu_torch.ops.cuda import gelu_layernorm
     except ImportError:
         gelu_layernorm = None
+    try:  # the layers' tail counters, where the port has them
+        from relgat_projector_tpu_torch.ops.cuda import layer_tail
+    except ImportError:
+        layer_tail = None
     from relgat_projector_tpu_torch.ops.cuda import fused
     designs = hasattr(fused, "design_counts")  # where the port has them
     if gelu_layernorm is not None:
         gelu_layernorm.reset_head_counts()
+    if layer_tail is not None:
+        layer_tail.reset_tail_counts()
     if designs:
         fused.reset_design_counts()
     win = harness.window(program, WARM_STEPS, args.seconds, "cuda")
     head_counts = (None if gelu_layernorm is None else
                    {k: v / win["steps"]
                     for k, v in gelu_layernorm.head_counts().items()})
+    tail_counts = (None if layer_tail is None else
+                   {k: v / win["steps"]
+                    for k, v in layer_tail.tail_counts().items()})
     design_counts = ({k: v / win["steps"]
                       for k, v in fused.design_counts().items()}
                      if designs else None)
@@ -168,6 +178,7 @@ def main(argv=None) -> int:
         "busy_ms": 1e3 * traced["busy_s"] / steps,
         "gaps_ms": {k: 1e3 * v / steps for k, v in traced["gaps"][:6]},
         "head_counts_per_step": head_counts,
+        "tail_counts_per_step": tail_counts,
         "design_counts_per_step": design_counts,
         "ring_loop_counts_per_step": ring_loops,
     }
