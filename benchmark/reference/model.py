@@ -38,20 +38,37 @@ The propagate is a hand-written autograd function computed in blocks of
 edges, so that no ``[E, H, F]`` array is whole (at 9.5M edges and 16 x
 128 one fp32 such array is 78 GB). Attention dropout is not implemented
 (both configurations run it at 0); ``run_steps`` refuses a rate above 0.
+
+Memory grows with one layer's working set, not with the stack's: each GAT
+layer keeps only its input (in bf16 where the next product rounds it to
+bf16 anyway) and runs again in its backward (``torch.utils.checkpoint``);
+the keep masks are kept as ``bool``; the head and the loss run on the
+batch's distinct rows (the head is row-wise, so those rows' values are
+the whole graph's), with the head's mask drawn for every row and indexed.
+
+Every sum over edges is taken in a fixed order, so that two runs, and a
+layer's run in its backward, give the same bits: ``Edges`` sorts the
+edges by destination (the forward's sums) and by source and relation
+(the backward's) once, and ``_sum_by`` sums each key's values in that
+order (in pieces of at most ``SUM_PIECE``, then the pieces in order) and
+adds the result to its row once.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 EPS_SOFTMAX = 1e-16
 EPS_NORM = 1e-12
 SLOPE = 0.2
 B1, B2, EPS_ADAM = 0.9, 0.999, 1e-8
+SUM_PIECE = 256
 
 
 def plain_precision() -> None:
@@ -104,18 +121,43 @@ def product(x: torch.Tensor, w: torch.Tensor, bf16: bool) -> torch.Tensor:
 
 
 class Edges:
-    """The graph's real edges (any order) and the block size, in edges, of
-    the propagate's edge loops."""
+    """The graph's real edges sorted by destination (stable), the
+    permutation of that order that sorts them by source and relation, and
+    the block size, in edges, of the propagate's edge loops."""
 
     def __init__(self, src, dst, etype, num_rel, block_edges):
-        self.src, self.dst, self.etype = src, dst, etype
         self.num_rel = int(num_rel)
         self.block = max(1, int(block_edges))
+        order = torch.argsort(dst, stable=True)
+        self.src, self.dst, self.etype = src[order], dst[order], etype[order]
+        del order
+        self.by_src = torch.argsort(self.src * self.num_rel + self.etype,
+                                    stable=True)
 
     def blocks(self):
         e = int(self.src.shape[0])
         for s in range(0, e, self.block):
             yield slice(s, min(e, s + self.block))
+
+
+def _sum_by(acc: torch.Tensor, keys: torch.Tensor, values: torch.Tensor):
+    """``acc[k] += `` the sum of ``values`` whose key is ``k``, for
+    ``keys`` sorted: each key's values summed in their order, in pieces of
+    at most ``SUM_PIECE`` values one after another and then the pieces'
+    sums one after another (segment reductions), and the sum added to its
+    row once. No two threads add to one row, so the bits do not depend on
+    the card's scheduling; the pieces keep a hub row's sum from running on
+    a few threads alone."""
+    rows, counts = torch.unique_consecutive(keys, return_counts=True)
+    pieces = (counts + SUM_PIECE - 1) // SUM_PIECE
+    if int(pieces.max()) > 1:
+        lengths = torch.full((int(pieces.sum()),), SUM_PIECE,
+                             dtype=counts.dtype, device=counts.device)
+        lengths[pieces.cumsum(0) - 1] = counts - (pieces - 1) * SUM_PIECE
+        values = torch.segment_reduce(values, "sum", lengths=lengths)
+        counts = pieces
+    acc.index_add_(0, rows, torch.segment_reduce(values, "sum",
+                                                 lengths=counts))
 
 
 class _Propagate(torch.autograd.Function):
@@ -125,53 +167,64 @@ class _Propagate(torch.autograd.Function):
     def forward(ctx, h, attn, bias, edges: Edges, bf16: bool):
         n, heads, feat = h.shape
         src, dst, et = edges.src, edges.dst, edges.etype
-        rows = _bf16(h) if bf16 else h
+        # The bf16 rows are kept as bf16; every product with an fp32
+        # operand widens them exactly.
+        rows = h.to(torch.bfloat16) if bf16 else h
+        kw = dict(device=h.device, dtype=h.dtype)
         # <h_j, a_r> for every (source row, relation), then per edge.
-        z = torch.einsum("nhf,hrf->nhr", rows, attn)[src, :, et]   # [E, H]
+        z = torch.einsum("nhf,hrf->nhr", rows.to(h.dtype), attn)[src, :, et]
         e = F.leaky_relu(z, SLOPE)
-        kw = dict(device=h.device, dtype=rows.dtype)
+        z_pos = z >= 0
+        del z
         m = torch.full((n, heads), -math.inf, **kw)
         m.scatter_reduce_(0, dst[:, None].expand_as(e), e, "amax")
         w = torch.exp(e - m[dst])
-        del e
-        l = torch.zeros((n, heads), **kw).index_add_(0, dst, w)
+        del e, m
+        l = torch.zeros((n, heads), **kw)
+        _sum_by(l, dst, w)
         alpha = w / l.clamp_min(EPS_SOFTMAX)[dst]
-        del w
-        out = torch.zeros_like(rows)
+        del w, l
+        out = torch.zeros((n, heads, feat), **kw)
         for b in edges.blocks():
-            out.index_add_(0, dst[b], rows[src[b]] * alpha[b, :, None])
-        bias_n = torch.zeros(n, **kw).index_add_(0, dst, bias[et])
+            _sum_by(out, dst[b], rows[src[b]] * alpha[b, :, None])
+        bias_n = torch.zeros(n, **kw)
+        _sum_by(bias_n, dst, bias[et])
         out += bias_n[:, None, None]
-        ctx.save_for_backward(rows, attn, alpha, z, out, bias_n)
+        ctx.save_for_backward(rows, attn, alpha, z_pos, out, bias_n)
         ctx.edges, ctx.bf16 = edges, bf16
         return out
 
     @staticmethod
     def backward(ctx, g):
-        rows, attn, alpha, z, out, bias_n = ctx.saved_tensors
+        rows, attn, alpha, z_pos, out, bias_n = ctx.saved_tensors
         edges, bf16 = ctx.edges, ctx.bf16
         src, dst, et = edges.src, edges.dst, edges.etype
-        n, heads, _ = rows.shape
+        n, heads, feat = out.shape
         r = edges.num_rel
         g = g.contiguous()
         s_dot = ((out - bias_n[:, None, None]) * g).sum(-1)   # [N, H]
         gsum = g.sum((1, 2))                                   # [N]
         gq = _bf16(g) if bf16 else g
-        dh = torch.zeros_like(rows)
-        kw = dict(device=rows.device, dtype=rows.dtype)
+        kw = dict(device=g.device, dtype=g.dtype)
+        dh = torch.zeros((n, heads, feat), **kw)
         dz_sum = torch.zeros((n * r, heads), **kw)
+        dbias_sr = torch.zeros(n * r, **kw)
         for b in edges.blocks():
-            hs, gd, a = rows[src[b]], gq[dst[b]], alpha[b]
-            dalpha = (gd * hs).sum(-1)
-            del hs
-            dz = a * (dalpha - s_dot[dst[b]])
-            dz = torch.where(z[b] >= 0, dz, dz * SLOPE)
-            dh.index_add_(0, src[b], gd * a[..., None])
-            dz_sum.index_add_(0, src[b] * r + et[b], dz)
+            i = edges.by_src[b]
+            s, d = src[i], dst[i]
+            pair = s * r + et[i]
+            gd, a = gq[d], alpha[i]
+            dalpha = (gd * rows[s]).sum(-1)
+            dz = a * (dalpha - s_dot[d])
+            dz = torch.where(z_pos[i], dz, dz * SLOPE)
+            _sum_by(dh, s, gd * a[..., None])
+            del gd
+            _sum_by(dz_sum, pair, dz)
+            _sum_by(dbias_sr, pair, gsum[d])
         dz_sum = dz_sum.view(n, r, heads)
         dh += torch.einsum("nrh,hrf->nhf", dz_sum, attn)
-        dattn = torch.einsum("nrh,nhf->hrf", dz_sum, rows)
-        dbias = torch.zeros(r, **kw).index_add_(0, et, gsum[dst])
+        dattn = torch.einsum("nrh,nhf->hrf", dz_sum, rows.to(g.dtype))
+        dbias = dbias_sr.view(n, r).sum(0)
         return dh, dattn, dbias, None, None
 
 
@@ -198,29 +251,73 @@ def _sanitize(s):
     return torch.where(torch.isnan(s), 0.0, s).clamp(-1e9, 1e9)
 
 
-def loss_of(p: Dict[str, torch.Tensor], model: dict, train: dict,
-            node_emb: torch.Tensor, edges: Edges, batch, masks) -> torch.Tensor:
-    """The loss of one triplet batch ``(src, rel, dst, neg)`` over the
-    whole graph's representations, with the step's dropout keep masks."""
+class _Rows(torch.autograd.Function):
+    """``x[idx]``, whose backward sums each row's cotangents in a fixed
+    order (``_sum_by``) where ``idx`` repeats a row."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        order = torch.argsort(idx, stable=True)
+        dx = g.new_zeros((ctx.rows,) + tuple(g.shape[1:]))
+        _sum_by(dx, idx[order], g[order])
+        return dx, None
+
+
+def _gat_layer(x, proj, attn, bias, keep, *, model: dict, edges: Edges,
+               last: bool) -> torch.Tensor:
+    """One GAT layer over every node row, with its output dropout's keep
+    mask (or None) and, but for the last layer, the ELU. Where the next
+    product rounds its operand to bf16, only that rounding is returned."""
     bf16_mm = model.get("compute_dtype", "float32") == "bfloat16"
     bf16_rows = model.get("kernel_precision") == "default"
     heads, feat = model["gat_heads"], model["gat_out_dim"]
-    layers = model["gat_num_layers"]
-    x = node_emb
     n = x.shape[0]
+    w = proj.permute(1, 0, 2).reshape(proj.shape[1], heads * feat)
+    h = product(x, w, bf16_mm).view(n, heads, feat)
+    out = _Propagate.apply(h, attn, bias, edges,
+                           bf16_rows).reshape(n, heads * feat)
+    if keep is not None:
+        out = out * keep / (1.0 - model["dropout"])
+    if last:
+        return out
+    out = F.elu(out)
+    return out.to(torch.bfloat16) if bf16_mm else out
+
+
+def loss_of(p: Dict[str, torch.Tensor], model: dict, train: dict,
+            node_emb: torch.Tensor, edges: Edges, batch, masks) -> torch.Tensor:
+    """The loss of one triplet batch ``(src, rel, dst, neg)`` over the
+    whole graph's representations, with the step's dropout keep masks
+    (``draw_masks``). Each GAT layer keeps only its input and runs again
+    in the backward; the head and the scores run on the batch's distinct
+    rows."""
+    layers = model["gat_num_layers"]
     masks = list(masks)
-    for li in range(layers):
-        proj = p[f"layers.{li}.proj"]
-        w = proj.permute(1, 0, 2).reshape(proj.shape[1], heads * feat)
-        h = product(x, w, bf16_mm).view(n, heads, feat)
+    keeps = ([masks.pop(0) for _ in range(layers)] if model["dropout"] > 0
+             else [None] * layers)
+    x = node_emb
+    for li, keep in enumerate(keeps):
+        attn = p[f"layers.{li}.attn"]
         bias = p.get(f"layers.{li}.rel_bias")
         if bias is None:
-            bias = torch.zeros(edges.num_rel, device=x.device)
-        out = _Propagate.apply(h, p[f"layers.{li}.attn"], bias, edges,
-                               bf16_rows).reshape(n, heads * feat)
-        if model["dropout"] > 0:
-            out = out * masks.pop(0) / (1.0 - model["dropout"])
-        x = F.elu(out) if li < layers - 1 else out
+            bias = attn.new_zeros(edges.num_rel)
+        layer = functools.partial(_gat_layer, model=model, edges=edges,
+                                  last=li == layers - 1)
+        x = checkpoint(layer, x, p[f"layers.{li}.proj"], attn, bias, keep,
+                       use_reentrant=False, preserve_rng_state=False)
+    src, rel, dst, neg = batch
+    b = src.shape[0]
+    ids, inv = torch.unique(torch.cat([src, dst, neg.reshape(-1)]),
+                            return_inverse=True)
+    x = x[ids]
+    bf16_mm = model.get("compute_dtype", "float32") == "bfloat16"
     if model["project_to_input_size"]:
         k = int(model["projection_layers"])
         for i in range(k):
@@ -230,10 +327,16 @@ def loss_of(p: Dict[str, torch.Tensor], model: dict, train: dict,
                 x = _layer_norm(x, p[f"projection.ln_scale.{i}"],
                                 p[f"projection.ln_bias.{i}"])
         if model["projection_dropout"] > 0:
-            x = x * masks.pop(0) / (1.0 - model["projection_dropout"])
-    src, rel, dst, neg = batch
-    s, d, nd = x[src], x[dst], x[neg]
-    r = p["scorer.rel_emb"][rel]
+            x = x * masks.pop(0)[ids] / (1.0 - model["projection_dropout"])
+    picked = _Rows.apply(x, inv)
+    return score_loss(model, train, picked[:b],
+                      _Rows.apply(p["scorer.rel_emb"], rel),
+                      picked[b:2 * b], picked[2 * b:].view(b, neg.shape[1], -1))
+
+
+def score_loss(model: dict, train: dict, s, r, d, nd) -> torch.Tensor:
+    """The batch's loss from its source, relation, destination and
+    negative representations (``nd`` ``[B, K, D]``)."""
     pos = _sanitize((s * r * d).sum(-1))
     negs = _sanitize((s[:, None] * r[:, None] * nd).sum(-1))
     if train["use_self_adv_neg"]:
@@ -273,15 +376,17 @@ def schedule(train: dict, num_examples: int):
 
 def draw_masks(gen: torch.Generator, model: dict, rows: int, device):
     """A step's output-dropout keep masks in the order the model draws
-    them (each GAT layer's, then the head's)."""
+    them (each GAT layer's, then the head's), each drawn as an fp32
+    ``bernoulli_`` over every node row, as the program draws it, and kept
+    as ``bool``."""
     shapes = []
     if model["dropout"] > 0:
         shapes += [((rows, model["gat_heads"] * model["gat_out_dim"]),
                     model["dropout"])] * model["gat_num_layers"]
     if model["project_to_input_size"] and model["projection_dropout"] > 0:
         shapes.append(((rows, model["in_dim"]), model["projection_dropout"]))
-    return [torch.empty(s, device=device).bernoulli_(1.0 - rate, generator=gen)
-            for s, rate in shapes]
+    return [torch.empty(s, device=device).bernoulli_(
+        1.0 - rate, generator=gen).bool() for s, rate in shapes]
 
 
 def run_steps(params: Dict[str, torch.Tensor], model: dict, train: dict,

@@ -298,7 +298,7 @@ def test_a_cut_is_stated_in_the_file_and_the_entry(tmp_path, fault):
 
 
 def test_the_next_cell_is_files_and_entries_only(tmp_path):
-    """A fifth cell: ``small-bf16`` at 12 x 256 and 4 layers (the
+    """A sixth cell: ``small-bf16`` at 12 x 256 and 4 layers (the
     reference's ``large`` preset) on ``zipf-inv-10m``, added as a
     configuration file, a limits file and two entries, gets every
     per-layer metric and passes every check; nothing under the repo's
